@@ -7,25 +7,38 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a):
 
 Phases, each of which must pass (any failure exits non-zero):
   1. the card's name and power limit, torch and CUDA versions; builds the
-     native host runtime (make) and the CUDA kernels (nvcc), timed;
-  2. each kernel (K1 parse, K2 entropy, K3 literal placement) on the card
-     against its plain PyTorch version on the CPU, same inputs from
-     mixed_corpus(seed 11), exact equality: on small inputs, and on the
-     main path's 64-block batch (8 frames of 8 blocks; K2 with the main
-     path's modes, K3 on the rows the main path gives it); kernel times
-     with CUDA events and plain times on the CPU, both at 64 blocks;
-  3. the main path: the port's Writer writes 64 MiB of mixed_corpus
+     port's native host library (c++) and the CUDA kernels (one nvcc per
+     source, in parallel), timed;
+  2. each kernel on the card against its plain PyTorch version on the
+     CPU, same inputs, exact equality: K1 parse, K2 entropy and K3
+     literal placement on small inputs from mixed_corpus(seed 11) and at
+     the main path's 64-block batch (8 frames of 8 blocks; K2 with the
+     main path's modes, K3 on the rows the main path gives it); K4 decode
+     on small frames (the cases of tests/test_decode_smem.py, seed 91,
+     written by the port's codec and by stock libzstd at levels 1, 3 and
+     19, and a long-window frame), and after phase 3 on the archive's
+     first 8 frames (64 blocks, equal to the input and to the plain
+     version); kernel times with CUDA events, plain times on the CPU at
+     the same 64-block shapes, each kernel's bound (bytes over 3.35 TB/s
+     against 32-bit integer operations over 16.7 T/s);
+  3. the write path: the port's Writer writes 64 MiB of mixed_corpus
      (seed 11) at level 3 with 1 MiB frames, batch_frames=16 and 1 MiB
-     writes (one warm-up run, then the measured run); every kernel must
-     have launched during the measured run; stock libzstd decodes the
-     archive, the seek table lists 64 frames, and 16 random 4 KiB reads
-     decode through their covering frames;
+     writes (one warm-up run, then the measured run); K1-K3 must have
+     launched during the measured run; stock libzstd decodes the archive,
+     the seek table lists 64 frames, and 16 random 4 KiB reads decode
+     through their covering frames;
   4. the first 1 MiB frame written once more with device="cpu" (the plain
-     versions) is byte-identical to the card's.
+     versions) is byte-identical to the card's;
+  5. the read path: the port's Reader(device="cuda") reads the archive
+     sequentially in 1 MiB reads (one warm-up pass, then the measured
+     pass, during which K4 must launch), makes 1,000 uniform random 4 KiB
+     preads (seed 7), and with device_cache=True 16 preads whose cached
+     frames are CUDA tensors; every byte equals the input.
 
-Prints a JSON line describing the kernels, then as its last line
-{"ok": true, "device": {...}}.  Exits non-zero without a result when no
-CUDA device is visible.
+Prints JSON lines for the write path, the read path and the kernels, the
+card's name and power limit, then as its last line {"ok": true,
+"device": {...}}.  Exits non-zero without a result when no CUDA device is
+visible or the port is not beside it.
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -161,9 +175,49 @@ def against_plain(name, fn, args_gpu):
     return err, plain_ms
 
 
-def phase_kernels(data):
-    """Phase 2: kernels against their plain versions, on small inputs and
-    at the main path's 64-block batch; times at the 64-block batch."""
+# bound: the larger of the bytes moved over the card's memory rate and
+# the 32-bit integer operations over its int32 issue rate.  H100 SXM:
+# 3.35 TB/s (data sheet); the data sheet gives no int32 rate, so it is
+# 132 SMs x 64 INT32 lanes per clock (Hopper architecture whitepaper)
+# x 1.98 GHz boost clock = 16.7 T/s
+HBM_BYTES_S = 3.35e12
+OPS_S = 132 * 64 * 1.98e9
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def nbytes(*ts) -> int:
+    """Bytes of every tensor in ts (nested tuples and lists too)."""
+    import torch
+    n = 0
+    for t in ts:
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            n += nbytes(*t)
+    return n
+
+
+def entry(report, name, source, replaces, errs, ms, plain_ms, nb, ops,
+          note):
+    """One kernel's line of the report: `nb` bytes read and written once,
+    `ops` operations, at the timed shape."""
+    bms, by = bound(nb, ops)
+    print(f"{name}: equal to plain ({note}); card {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms on the CPU, bound {bms:.4f} ms ({by})",
+          flush=True)
+    report.append(dict(name=name, route="cuda", source=source,
+                       replaces=replaces, max_abs_err=max(errs), ms=ms,
+                       card_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by, library_ms=None, note=note))
+
+
+def phase_kernels(data, report):
+    """Phase 2: K1-K3 against their plain versions, on small inputs and at
+    the main path's 64-block batch; times at the 64-block batch."""
     import torch
     from libzseek_tpu_torch.ops import entropy as E
     from libzseek_tpu_torch.ops import vector_entropy as VE
@@ -173,14 +227,6 @@ def phase_kernels(data):
     S = 8192
     lit_cap = (N + 64 + 127) // 128 * 128
     seq_cap = (9 * S + 64 + 127) // 128 * 128
-    report = []
-
-    def entry(name, source, replaces, errs, ms, plain_ms, note):
-        print(f"{name}: equal to plain ({note}); card {ms:.3f} ms, plain "
-              f"{plain_ms:.1f} ms on the CPU, 64-block batch", flush=True)
-        report.append(dict(name=name, route="cuda", source=source,
-                           replaces=replaces, max_abs_err=max(errs), ms=ms,
-                           plain_ms=plain_ms))
 
     # K1: 2 frames x 2 blocks, then 8 frames x 8 blocks
     def k1_args(rows, fb):
@@ -192,9 +238,10 @@ def phase_kernels(data):
                                k1_args(K1_ROWS, 2))
     big = k1_args(BATCH_ROWS, 8)
     e_big, plain_ms = against_plain("K1 (64 blocks)", parse_linked, big)
-    entry("K1 parse_linked", "libzseek_tpu_torch/csrc/parse_linked.cu",
+    entry(report, "K1 parse_linked", "libzseek_tpu_torch/csrc/parse_linked.cu",
           "libzseek_tpu/ops/pallas_match.py:194", [e_small, e_big],
           time_cuda(lambda: parse_linked(*big)), plain_ms,
+          nbytes(big, parse_linked(*big)), big[0][1:].numel(),
           "4 blocks in 2 frames; 64 blocks in 8 chains of 8")
 
     # K2 and K3: 8 rows in 2-block frames with every plan mode (K3 on all
@@ -220,19 +267,160 @@ def phase_kernels(data):
     k2b = (xb, seqsb["ll"], seqsb["ml"], seqsb["offv"], kmetab, codesb,
            ctabsb)
     e2_big, plain_ms = against_plain("K2 (64 rows)", k2, k2b)
-    entry("K2 entropy_emit", "libzseek_tpu_torch/csrc/entropy.cu",
+    entry(report, "K2 entropy_emit", "libzseek_tpu_torch/csrc/entropy.cu",
           "libzseek_tpu/ops/pallas_entropy.py:144", [e2_small, e2_big],
-          time_cuda(lambda: k2(*k2b)), plain_ms,
-          f"8 rows, modes {modes}; 64 rows, main-path modes")
+          time_cuda(lambda: k2(*k2b)), plain_ms, nbytes(k2b, k2(*k2b)),
+          xb.numel(), f"8 rows, modes {modes}; 64 rows, main-path modes")
     n_vec = int(vecb.sum())
     check(n_vec > 0, "no row of the 64-block batch goes to K3")
     vb = VE.vector_prep(xb, seqsb["lit_mask"], codesb, lensb, vecb)[:3]
     e3_big, plain_ms = against_plain("K3 (64 rows)", k3, vb)
-    entry("K3 place_literals", "libzseek_tpu_torch/csrc/place_literals.cu",
+    entry(report, "K3 place_literals", "libzseek_tpu_torch/csrc/place_literals.cu",
           "libzseek_tpu/ops/vector_entropy.py:60", [e3_small, e3_big],
-          time_cuda(lambda: k3(*vb)), plain_ms,
-          f"8 rows; 64 rows, {n_vec} of them K3's on the main path")
-    return report
+          time_cuda(lambda: k3(*vb)), plain_ms, nbytes(vb, k3(*vb)),
+          vb[0].numel(), f"8 rows; 64 rows, {n_vec} of them K3's on the "
+          "main path")
+
+
+def k4_against_plain(name, frames, raws):
+    """K4 on the card and its plain version on the CPU, same packed rows:
+    (max_abs_err, plain ms, card args, out size, rows).  Fails unless the
+    two agree, every block is ok and the bytes equal the input."""
+    import torch
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    args, n, rows = ZD.k4_inputs(frames, [len(r) for r in raws],
+                                 torch.device("cuda"))
+    out, stat = D.decode_blocks(*args, n)
+    torch.cuda.synchronize()
+    cpu = [a.cpu() for a in args]
+    plain_ms, (p_out, p_stat) = time_host(lambda: D.decode_blocks(*cpu, n))
+    err = max_abs_err([out, stat], [p_out, p_stat])
+    check(err == 0, f"{name} differs from its plain version (max err {err})")
+    check(bool((stat[:, 1] == 1).all()), f"{name}: a block failed")
+    check(out.cpu().numpy().tobytes() == b"".join(raws),
+          f"{name}: bytes differ from the input")
+    return err, plain_ms, args, n, rows
+
+
+def k4_small():
+    """K4 on the small frames: the test_decode_smem.py cases (seed 91) by
+    the port's codec on the card and by stock libzstd at levels 1, 3, 19,
+    and a long-window frame with a match ~400 KiB back."""
+    import numpy as np
+    from libzseek_tpu_torch import ZstdCodec
+    from libzseek_tpu_torch.testing import golden
+    from libzseek_tpu_torch.testing.corpus import mixed_corpus, text_corpus
+    rng = np.random.default_rng(91)
+    n = 24 * 1024
+    cases = [text_corpus(rng, n).tobytes(),
+             (rng.integers(0, 256, 337, np.uint8).tobytes()
+              * (n // 337 + 1))[:n],
+             bytes(n), rng.integers(0, 256, n, np.uint8).tobytes(),
+             b"abcabcabcabc", b"x", b""]
+    raw = mixed_corpus(rng, 300 * 1024).tobytes()
+    raws = cases + [(raw[:150 * 1024] + raw[:100 * 1024]
+                     + raw[150 * 1024:])[:300 * 1024]]
+    frames = ZstdCodec(device="cuda").compress_frames(raws)
+    for level in (1, 3, 19):
+        frames += [golden.zstd_compress(v, level=level) for v in cases if v]
+        raws += [v for v in cases if v]
+    blk = rng.integers(0, 256, 400 * 1024, np.uint8).tobytes()
+    raws.append(blk + bytes(16) + blk)
+    frames.append(golden.zstd_compress(raws[-1], level=19, strategy=None))
+    err, _, _, _, rows = k4_against_plain("K4 (small frames)", frames, raws)
+    return err, f"{len(frames)} small frames, {len(rows['meta'])} blocks"
+
+
+def k4_ops(rows, out_size: int) -> int:
+    """32-bit operations K4 does at least: one per byte written, one per
+    Huffman symbol, ten per sequence (three table reads, three state
+    updates, three extra-bit reads, the repcode)."""
+    from libzseek_tpu_torch.ops import decode as D
+    meta = rows["meta"]
+    huf = (meta[:, 0] & (D.DMODE_HUF4 | D.DMODE_HUF1)) != 0
+    return out_size + int(meta[huf, 3].sum()) + 10 * int(meta[:, 13].sum())
+
+
+def k4_full(report, archive, table, data, err_small, note_small):
+    """K4 on the first 8 frames of the phase-3 archive (64 blocks): equal
+    to the input and to the plain version, whose time is kept; card times
+    at 32 blocks (the reader's window) and 64 blocks."""
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.ops.zstd_decode import k4_inputs
+    frames = [frame_bytes(archive, table, i) for i in range(8)]
+    raws = [data[i * MIB: (i + 1) * MIB] for i in range(8)]
+    err_big, plain_ms, args, n, rows = k4_against_plain("K4 (64 blocks)",
+                                                        frames, raws)
+    args32, n32, _ = k4_inputs(frames[:4], [MIB] * 4, args[0].device)
+    ms32 = time_cuda(lambda: D.decode_blocks(*args32, n32))
+    ms = time_cuda(lambda: D.decode_blocks(*args, n))
+    tables = sum(nbytes(a) for a in args[2:])   # dtabs, ftabs, meta, chain
+    nb = rows["payload_bytes"] + tables + n + 16 * len(rows["meta"])
+    print(f"K4 at 32 blocks: {ms32:.3f} ms", flush=True)
+    entry(report, "K4 decode", "libzseek_tpu_torch/csrc/decode.cu",
+          "libzseek_tpu/ops/pallas_decode.py:94", [err_small, err_big],
+          ms, plain_ms, nb, k4_ops(rows, n),
+          f"{note_small}; 64 blocks (8 archive frames) equal to the input "
+          f"and to plain; card {ms32:.3f} ms at 32 blocks")
+    report[-1]["ms_32_blocks"] = ms32
+
+
+def read_all(r) -> bytes:
+    parts = []
+    while True:
+        b = r.read(MIB)
+        if not b:
+            return b"".join(parts)
+        parts.append(b)
+
+
+def phase_read(archive: bytes, data: bytes, card: str) -> dict:
+    """Phase 5: the read path through the port's Reader on the card."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import Reader
+    from libzseek_tpu_torch.ops import decode as D
+    with Reader(archive, device="cuda") as r:          # warm-up pass
+        check(read_all(r) == data, "warm-up read differs from the input")
+    D.launches = 0
+    r = Reader(archive, device="cuda")
+    t0 = time.perf_counter()
+    got = read_all(r)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = D.launches
+    r.close()
+    check(got == data, "sequential read differs from the input")
+    check(launches > 0, "K4 never launched on the read path")
+    mib_s = len(data) / MIB / dt
+    r = Reader(archive, device="cuda")
+    offs = np.random.default_rng(7).integers(0, len(data) - 4096, 1000)
+    lat = []
+    for off in offs.tolist():
+        t = time.perf_counter()
+        b = r.pread_full(4096, off)
+        lat.append((time.perf_counter() - t) * 1e6)
+        check(b == data[off: off + 4096], f"pread at {off} differs")
+    hits = r.stats().cache_hits
+    r.close()
+    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
+    rd = Reader(archive, device="cuda", device_cache=True)
+    for off in offs[:16].tolist():
+        check(rd.pread_full(4096, off) == data[off: off + 4096],
+              f"device-cache pread at {off} differs")
+    cached = list(rd._cache._map.values())
+    check(cached and all(isinstance(c, torch.Tensor) and c.is_cuda
+                         for c in cached),
+          "device_cache frames are not CUDA tensors")
+    rd.close()
+    print(f"read path: 64 MiB sequential in {dt:.3f} s = {mib_s:.2f} MiB/s "
+          f"(K4 launches {launches}); 1000 random 4 KiB preads p50 "
+          f"{p50:.1f} us, p99 {p99:.1f} us ({hits} cache hits); 16 "
+          f"device-cache preads equal, {len(cached)} frames on the card",
+          flush=True)
+    return {"card": card, "read_mib_s": mib_s, "pread_p50_us": p50,
+            "pread_p99_us": p99, "k4_launches": launches}
 
 
 class Sink:
@@ -286,25 +474,29 @@ def main() -> None:
           f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)}",
           flush=True)
     t0 = time.time()
-    subprocess.run(["make", "-s", "-C",
-                    os.path.join(ROOT, "libzseek_tpu", "native")],
-                   check=True, timeout=600)
-    from libzseek_tpu import native
-    from libzseek_tpu.format.seek_table import parse_seek_table_bytes
-    from libzseek_tpu.testing import golden
-    from libzseek_tpu.testing.corpus import mixed_corpus
-    check(native.have_native(), "native host runtime did not load")
-    check(golden.have_zstd(), "stock libzstd not found")
-    t1 = time.time()
-    from libzseek_tpu_torch import kernels
+    from libzseek_tpu_torch import kernels, native
+    from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
+    from libzseek_tpu_torch.testing import golden
+    from libzseek_tpu_torch.testing.corpus import mixed_corpus
+    built = {}
+    th = threading.Thread(target=lambda: built.update(
+        native=(native.library(), time.time() - t0)))
+    th.start()
     kernels.library()
-    t2 = time.time()
-    print(f"build: native {t1 - t0:.1f} s, CUDA kernels {t2 - t1:.1f} s",
-          flush=True)
+    t_cuda = time.time() - t0
+    th.join()
+    check("native" in built, "native host library did not build")
+    check(golden.have_zstd(), "stock libzstd not found")
+    print(f"build: native {built['native'][1]:.1f} s, CUDA kernels "
+          f"{t_cuda:.1f} s (in parallel)", flush=True)
     data = mixed_corpus(np.random.default_rng(11), 64 * MIB).tobytes()
 
     # phase 2
-    report = phase_kernels(data)
+    report = []
+    phase_kernels(data, report)
+    k4_err, k4_note = k4_small()
+    print(f"K4 decode: equal to plain and to the input ({k4_note})",
+          flush=True)
 
     # phase 3
     from libzseek_tpu_torch.ops import entropy, parse_linked, vector_entropy
@@ -315,11 +507,11 @@ def main() -> None:
         m.launches = 0
     archive, dt = write_archive(data, "cuda")
     counts = {k: m.launches for k, m in mods.items()}
-    print(f"main path: 64 MiB in {dt:.3f} s = {64 / dt:.2f} MiB/s, ratio "
+    print(f"write path: 64 MiB in {dt:.3f} s = {64 / dt:.2f} MiB/s, ratio "
           f"{len(archive) / len(data):.5f} ({len(archive)} bytes); "
           f"launches {counts}", flush=True)
     for k, c in counts.items():
-        check(c > 0, f"{k} never launched on the main path")
+        check(c > 0, f"{k} never launched on the write path")
     for r in report:
         r["launches"] = counts[r["name"]]
     check(golden.zstd_decompress(archive) == data,
@@ -341,6 +533,9 @@ def main() -> None:
     print("archive: libzstd decode equal, 64 frames, 16 random 4 KiB reads "
           "equal", flush=True)
 
+    # phase 2, K4 at full size: the archive's first 8 frames
+    k4_full(report, archive, table, data, k4_err, k4_note)
+
     # phase 4
     cpu_archive, cpu_dt = write_archive(data[:MIB], "cpu")
     cpu_table = parse_seek_table_bytes(cpu_archive)
@@ -350,10 +545,16 @@ def main() -> None:
     print(f"first frame: card and plain (CPU, {cpu_dt:.1f} s) identical, "
           f"{table.frame_c_size(0)} bytes", flush=True)
 
+    # phase 5
+    read = phase_read(archive, data, card)
+    report[-1]["launches"] = read["k4_launches"]
+
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
           flush=True)
+    print(json.dumps({"read_path": read}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

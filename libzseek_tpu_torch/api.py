@@ -1,10 +1,10 @@
-"""Public write API of the port.
+"""Public API of the port: Writer/open_writer and Reader/open_reader.
 
-Counterpart of libzseek_tpu/api.py open_writer and of the Writer it
-builds: both entry points construct the shared, JAX-free
-libzseek_tpu.runtime.writer.Writer (frame coalescing, seek table, hints
-sidecar) around the port's ZstdCodec, so archives follow the same
-format, byte for byte.
+Counterpart of libzseek_tpu/api.py open_writer (:75) and open_reader
+(:93): the entry points build the port's own runtime Writer and Reader
+(runtime/writer.py, runtime/reader.py, copies of the JAX package's)
+around the port's ZstdCodec, so archives follow the same format, byte
+for byte, and read back through the same seek-table logic.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ from __future__ import annotations
 import io
 from pathlib import Path
 
-from libzseek_tpu.runtime import writer as _writer
-from libzseek_tpu.runtime.io import FileIO
+from libzseek_tpu_torch.runtime import writer as _writer
+from libzseek_tpu_torch.runtime.io import FileIO
+from libzseek_tpu_torch.runtime.reader import Reader
 from libzseek_tpu_torch.runtime.zstd_codec import ZstdCodec
 
 DEFAULT_MIN_FRAME_SIZE = _writer.DEFAULT_MIN_FRAME_SIZE
@@ -45,3 +46,17 @@ def open_writer(path_or_file, *, level: int = 3, device: str = "cuda",
     if isinstance(path_or_file, io.IOBase):
         return Writer(FileIO(path_or_file), **kw)
     return Writer(path_or_file, **kw)
+
+
+def open_reader(path_or_file, *, device: str = "cuda", cache_frames: int = 8,
+                readahead: int = 8, verify_checksums: bool = False,
+                device_cache: bool = False) -> Reader:
+    """Reader on a path, a binary file object, or a pread/fsize source.
+    A path's file stays open for the reader's lifetime."""
+    kw = dict(device=device, cache_frames=cache_frames, readahead=readahead,
+              verify_checksums=verify_checksums, device_cache=device_cache)
+    if isinstance(path_or_file, (str, Path)):
+        return Reader(FileIO(open(path_or_file, "rb")), **kw)
+    if isinstance(path_or_file, io.IOBase):
+        return Reader(FileIO(path_or_file), **kw)
+    return Reader(path_or_file, **kw)

@@ -2,11 +2,12 @@
 
 The JAX package has no counterpart module: its Pallas kernels compile
 inside `jax.jit` (libzseek_tpu/ops/pallas_match.py, pallas_entropy.py,
-vector_entropy.py).
+vector_entropy.py, pallas_decode.py).
 
 Route (b) of the port's kernel guide: every `csrc/*.cu` is compiled by
-`nvcc -gencode arch=compute_90a,code=sm_90a -shared -Xcompiler -fPIC`
-into ONE shared library with a plain C interface, loaded with ctypes.
+`nvcc -gencode arch=compute_90a,code=sm_90a -Xcompiler -fPIC -c`, one
+nvcc per source, all started together, and the objects are linked into
+ONE shared library with a plain C interface, loaded with ctypes.
 The library lands in `build/torch_kernels/` at the repository root (a
 gitignored directory), named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads at once.  Nothing is
@@ -31,7 +32,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +42,7 @@ SIGNATURES = {
     "zk_parse_linked": [_P] * 5 + [_I] * 8 + [_P] * 7,
     "zk_entropy_emit": [_P] * 8 + [_I] * 7 + [_P] * 9,
     "zk_place_literals": [_P] * 3 + [_I] * 3 + [_P] * 2,
+    "zk_decode": [_P] * 8 + [_I] * 4 + [_P] * 4,
 }
 
 _lock = threading.Lock()
@@ -80,13 +82,31 @@ def library() -> ctypes.CDLL:
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
+            nvcc = _nvcc()
+            jobs = []
+            for s in srcs:
+                if s.endswith(".cu"):
+                    obj = f"{tmp}.{os.path.basename(s)}.o"
+                    jobs.append((obj, subprocess.Popen(
+                        [nvcc, *NVCC_FLAGS, "-c", "-o", obj, s],
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True)))
+            errors = []
+            for obj, proc in jobs:
+                _, err = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"{obj}: nvcc {proc.returncode}\n{err}")
+            if errors:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+            res = subprocess.run([nvcc, "-shared", "-o", tmp,
+                                  *[obj for obj, _ in jobs]],
+                                 capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr}")
+                    f"nvcc link failed ({res.returncode}):\n{res.stderr}")
             os.replace(tmp, so)
+            for obj, _ in jobs:
+                os.remove(obj)
         lib = ctypes.CDLL(so)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

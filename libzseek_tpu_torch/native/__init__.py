@@ -1,0 +1,112 @@
+"""The port's native host library (zn.cc beside this file), bound with
+ctypes.
+
+Counterpart of libzseek_tpu/native/__init__.py, cut to the three entry
+points the port calls.  The library is built at first use with
+`c++ -O2 -std=c++17 -shared -fPIC` into `build/torch_native/` at the
+repository root (a gitignored directory), named by a hash of the source
+and flags, exactly as kernels/__init__.py builds the CUDA kernels: an
+edited source rebuilds, an unchanged one loads at once, and concurrent
+processes each link under a temporary name and rename into place.
+
+Unlike the reference's loader, which probes for its .so on every call
+until one appears (so a library built mid-session switches the codec's
+long-distance pre-pass on between two runs), this one builds and loads
+once per process, under a lock, and raises if the build fails: the
+pre-pass changes the archive bytes, so the port never runs without it.
+ctypes argtypes are always declared (a missing signature truncates
+64-bit pointers).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCE = os.path.join(_HERE, "zn.cc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
+                         "torch_native")
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the native library, once per process."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        with open(SOURCE, "rb") as f:
+            src = f.read()
+        h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + src).hexdigest()
+        so = os.path.join(BUILD_DIR, f"libzseek_torch_native_{h[:16]}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            res = subprocess.run(["c++", *CXX_FLAGS, "-o", tmp, SOURCE],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"building the native library failed "
+                    f"({res.returncode}):\n{res.stderr}")
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(so)
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.zn_huf_tree_batch.argtypes = [u8p, ctypes.c_int, u8p, i32p]
+        lib.zn_huf_tree_batch.restype = None
+        lib.zn_xxh64.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                 ctypes.c_uint64]
+        lib.zn_xxh64.restype = ctypes.c_uint64
+        lib.zn_ldm_scan.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
+                                    i64p, i32p, ctypes.c_int64, i64p]
+        lib.zn_ldm_scan.restype = ctypes.c_int64
+        _lib = lib
+        return lib
+
+
+def huf_tree_batch(weights: np.ndarray) -> list[bytes | None]:
+    """weights: (nh, 256) uint8 device-built zstd weights -> serialized
+    tree descriptions (None where unserializable: the caller stores the
+    block raw)."""
+    lib = library()
+    nh = weights.shape[0]
+    weights = np.ascontiguousarray(weights, np.uint8)
+    trees = np.zeros((nh, 200), np.uint8)
+    tree_lens = np.zeros(nh, np.int32)
+    lib.zn_huf_tree_batch(weights.reshape(-1), nh, trees.reshape(-1),
+                          tree_lens)
+    return [trees[i, : tree_lens[i]].tobytes() if tree_lens[i] > 0
+            else None for i in range(nh)]
+
+
+def xxh64(data, seed: int = 0) -> int:
+    data = bytes(data)
+    return int(library().zn_xxh64(data, len(data), seed))
+
+
+def ldm_scan(x: np.ndarray, nblocks: int, bsize: int,
+             frame_base: np.ndarray, lens: np.ndarray,
+             min_dist: int) -> np.ndarray:
+    """Long-distance match scan over a batch (zn.cc zn_ldm_scan).
+    x: concatenated block bytes (nblocks*bsize,); frame_base (nblocks,)
+    int64 frame-start byte offsets (-1 = exclude); lens (nblocks,) int32.
+    Returns (nblocks, 3) int64 rows [dist, span_start, span_end) — dist 0
+    = no hit, [0, bsize) = whole-block match."""
+    lib = library()
+    x = np.ascontiguousarray(x, np.uint8)
+    out = np.zeros((nblocks, 3), np.int64)
+    lib.zn_ldm_scan(x, nblocks, bsize,
+                    np.ascontiguousarray(frame_base, np.int64),
+                    np.ascontiguousarray(lens, np.int32),
+                    min_dist, out.reshape(-1))
+    return out

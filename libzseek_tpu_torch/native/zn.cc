@@ -1,0 +1,498 @@
+// Native host library of libzseek_tpu_torch.
+//
+// Copy of the entry points of libzseek_tpu/native/zn.cc that the port
+// calls, with the helpers they need:
+//
+//   * zn_ldm_scan: the long-distance match pre-pass of the write path
+//     (whole-block matches beyond the linked parse's window); it changes
+//     the archive bytes, so the codec requires this library;
+//   * zn_huf_tree_batch: Huffman tree-description serialization (direct
+//     4-bit weights or FSE-compressed weights, whichever is smaller,
+//     RFC 8878 §4.2.1.2) from the weights the device plan builds;
+//   * zn_xxh64: XXH64, the seek table's per-frame checksum.
+//
+// A plain C ABI consumed through ctypes.  libzseek_tpu_torch/native/
+// __init__.py compiles this file with `c++ -O2 -std=c++17 -shared -fPIC`
+// at first use into build/torch_native/.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// bit writer (LSB-first, BIT_addBits/BIT_closeCStream semantics)
+// ---------------------------------------------------------------------------
+struct BitWriter {
+  std::vector<uint8_t> out;
+  uint64_t acc = 0;
+  int nacc = 0;
+  void add(uint32_t v, int nb) {
+    acc |= (uint64_t)(v & ((1u << nb) - 1)) << nacc;
+    nacc += nb;
+    while (nacc >= 8) {
+      out.push_back((uint8_t)acc);
+      acc >>= 8;
+      nacc -= 8;
+    }
+  }
+  void close_with_sentinel() {
+    acc |= (uint64_t)1 << nacc;
+    nacc += 1;
+    while (nacc > 0) {
+      out.push_back((uint8_t)acc);
+      acc >>= 8;
+      nacc -= 8;
+    }
+  }
+  void flush_partial() {  // byte-align without sentinel
+    if (nacc) {
+      out.push_back((uint8_t)acc);
+      acc = 0;
+      nacc = 0;
+    }
+  }
+};
+
+int highbit(uint32_t v) { return 31 - __builtin_clz(v); }
+
+// ---------------------------------------------------------------------------
+// FSE (RFC 8878 §4.1): normalization, table build, ncount serialization
+// ---------------------------------------------------------------------------
+bool normalize_counts(const uint32_t* counts, int n, int table_log,
+                      uint64_t total, int32_t* norm) {
+  int table_size = 1 << table_log;
+  if (total == 0) return false;
+  int64_t ssum = 0, n_low = 0;
+  for (int i = 0; i < n; ++i) {
+    if (!counts[i]) {
+      norm[i] = 0;
+      continue;
+    }
+    double scaled = (double)counts[i] * table_size / (double)total;
+    int64_t v = std::max<int64_t>(1, (int64_t)(scaled + 0.5));
+    bool low = (uint64_t)counts[i] * 3 < (total * 2) / table_size + 1;
+    norm[i] = (low && v <= 1) ? -1 : (int32_t)v;
+    if (norm[i] > 0) ssum += norm[i];
+    else n_low++;
+  }
+  int64_t diff = table_size - (ssum + n_low);
+  if (diff != 0) {
+    // adjust the largest entry
+    int best = -1;
+    for (int i = 0; i < n; ++i)
+      if (norm[i] > 0 && (best < 0 || norm[i] > norm[best])) best = i;
+    if (best < 0 || norm[best] + diff < 1) return false;
+    norm[best] += (int32_t)diff;
+  }
+  return true;
+}
+
+struct FseEnc {
+  int table_log;
+  std::vector<int32_t> state_table, delta_nb, delta_fs;
+};
+
+bool spread_symbols(const int32_t* norm, int n, int table_log,
+                    std::vector<int32_t>& table) {
+  int table_size = 1 << table_log;
+  table.assign(table_size, 0);
+  int high = table_size - 1;
+  for (int s = 0; s < n; ++s)
+    if (norm[s] == -1) table[high--] = s;
+  int step = (table_size >> 1) + (table_size >> 3) + 3;
+  int mask = table_size - 1;
+  int pos = 0;
+  for (int s = 0; s < n; ++s) {
+    for (int c = 0; c < norm[s]; ++c) {
+      table[pos] = s;
+      pos = (pos + step) & mask;
+      while (pos > high) pos = (pos + step) & mask;
+    }
+  }
+  return pos == 0;
+}
+
+bool build_fse_enc(const int32_t* norm, int n, int table_log, FseEnc& et) {
+  int table_size = 1 << table_log;
+  std::vector<int32_t> spread;
+  if (!spread_symbols(norm, n, table_log, spread)) return false;
+  std::vector<int32_t> cumul(n + 1, 0);
+  int acc = 0;
+  for (int s = 0; s < n; ++s) {
+    cumul[s] = acc;
+    acc += norm[s] == -1 ? 1 : std::max(0, (int)norm[s]);
+  }
+  cumul[n] = acc;
+  et.table_log = table_log;
+  et.state_table.assign(table_size, 0);
+  std::vector<int32_t> cursor(cumul);
+  for (int u = 0; u < table_size; ++u)
+    et.state_table[cursor[spread[u]]++] = table_size + u;
+  et.delta_nb.assign(n, 0);
+  et.delta_fs.assign(n, 0);
+  int total = 0;
+  for (int s = 0; s < n; ++s) {
+    int c = norm[s];
+    if (c == 0) {
+      et.delta_nb[s] = ((table_log + 1) << 16) - table_size;
+      et.delta_fs[s] = 0;
+    } else if (c == -1 || c == 1) {
+      et.delta_nb[s] = (table_log << 16) - table_size;
+      et.delta_fs[s] = total - 1;
+      total += 1;
+    } else {
+      int max_bits_out = table_log - highbit(c - 1);
+      int min_state_plus = c << max_bits_out;
+      et.delta_nb[s] = (max_bits_out << 16) - min_state_plus;
+      et.delta_fs[s] = total - c;
+      total += c;
+    }
+  }
+  return true;
+}
+
+int fse_init_state(const FseEnc& et, int sym) {
+  int nb = (et.delta_nb[sym] + (1 << 15)) >> 16;
+  int v = (nb << 16) - et.delta_nb[sym];
+  return et.state_table[(v >> nb) + et.delta_fs[sym]];
+}
+
+void write_ncount(const int32_t* norm, int n, int table_log, BitWriter& bw) {
+  bw.add(table_log - 5, 4);
+  int remaining = (1 << table_log) + 1;
+  int i = 0;
+  while (remaining > 1 && i < n) {
+    int c = norm[i++];
+    int threshold = 1 << highbit(remaining);
+    int nb = highbit(remaining) + 1;
+    int mx = (1 << nb) - 1 - remaining;
+    int value = c + 1;
+    if (value >= threshold) value += mx;
+    bw.add(value, value < mx ? nb - 1 : nb);
+    remaining -= c == -1 ? 1 : (c < 0 ? -c : c);
+    if (c == 0) {
+      int zeros = 0;
+      while (i + zeros < n && norm[i + zeros] == 0) zeros++;
+      while (zeros >= 3) {
+        bw.add(3, 2);
+        zeros -= 3;
+        i += 3;
+      }
+      bw.add(zeros, 2);
+      i += zeros;
+    }
+  }
+}
+
+// FSE-compressed huffman weights (2 interleaved states, encoded backward)
+bool write_weights_fse(const uint8_t* weights, int n,
+                       std::vector<uint8_t>& out) {
+  if (n < 2) return false;
+  uint32_t counts[16] = {0};
+  int max_sym = 0;
+  for (int i = 0; i < n; ++i) {
+    counts[weights[i]]++;
+    max_sym = std::max(max_sym, (int)weights[i]);
+  }
+  int nz = 0;
+  for (int v = 0; v <= max_sym; ++v) nz += counts[v] != 0;
+  if (nz < 2) return false;
+  int table_log = std::min(6, std::max(1, highbit((uint32_t)std::max(2, n)) +
+                                              ((n & (n - 1)) ? 1 : 0)));
+  int32_t norm[16];
+  if (!normalize_counts(counts, max_sym + 1, table_log, n, norm)) return false;
+  FseEnc et;
+  if (!build_fse_enc(norm, max_sym + 1, table_log, et)) return false;
+  BitWriter desc;
+  write_ncount(norm, max_sym + 1, table_log, desc);
+  desc.flush_partial();
+  BitWriter bw;
+  // symbol k decodes from state1 iff k is even; encoding runs backward from
+  // k = n-3, so the state inits and starting turn depend on n's parity
+  int s1, s2, turn;
+  if (n % 2) {
+    s1 = fse_init_state(et, weights[n - 1]);
+    s2 = fse_init_state(et, weights[n - 2]);
+    turn = 0;
+  } else {
+    s2 = fse_init_state(et, weights[n - 1]);
+    s1 = fse_init_state(et, weights[n - 2]);
+    turn = 1;
+  }
+  for (int i = n - 3; i >= 0; --i) {
+    int sym = weights[i];
+    int& st = turn == 0 ? s1 : s2;
+    int nb = (st + et.delta_nb[sym]) >> 16;
+    bw.add(st & ((1 << nb) - 1), nb);
+    st = et.state_table[(st >> nb) + et.delta_fs[sym]];
+    turn ^= 1;
+  }
+  int ts = 1 << table_log;
+  bw.add(s2 >= ts ? s2 - ts : s2, table_log);
+  bw.add(s1 >= ts ? s1 - ts : s1, table_log);
+  bw.close_with_sentinel();
+  size_t total = desc.out.size() + bw.out.size();
+  if (total >= 128) return false;
+  out.clear();
+  out.push_back((uint8_t)total);
+  out.insert(out.end(), desc.out.begin(), desc.out.end());
+  out.insert(out.end(), bw.out.begin(), bw.out.end());
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Serialize tree descriptions from device-built weight tables (the
+// Huffman tables themselves are constructed on the GPU by
+// ops/huffman_plan.py; only the header bytes are host work).
+//   weights: (nh, 256) uint8, zstd convention (0 = unused,
+//            maxBits + 1 - length otherwise; Kraft-exact by construction)
+//   trees: (nh, 200) uint8 out; tree_lens: (nh,) out (0 = unserializable,
+//          caller stores the block raw)
+void zn_huf_tree_batch(const uint8_t* weights, int nh, uint8_t* trees,
+                       int32_t* tree_lens) {
+  for (int i = 0; i < nh; ++i) {
+    const uint8_t* w = weights + 256 * i;
+    uint8_t* tree = trees + 200 * i;
+    tree_lens[i] = 0;
+    int last = -1;
+    for (int s = 0; s < 256; ++s)
+      if (w[s] > 0) last = s;
+    if (last < 1) continue;  // < 2 used symbols: no huffman section
+    // serialized weights exclude the last used symbol (implied)
+    std::vector<uint8_t> fsec;
+    bool have_fse = write_weights_fse(w, last, fsec);
+    std::vector<uint8_t> direct;
+    if (last <= 127) {
+      direct.push_back((uint8_t)(127 + last));
+      for (int s = 0; s < last; s += 2) {
+        uint8_t hi = (uint8_t)(w[s] << 4);
+        uint8_t lo = s + 1 < last ? w[s + 1] : 0;
+        direct.push_back(hi | lo);
+      }
+    }
+    const std::vector<uint8_t>* best = nullptr;
+    if (have_fse && (!direct.size() || fsec.size() < direct.size()))
+      best = &fsec;
+    else if (direct.size())
+      best = &direct;
+    if (!best || best->size() > 200) continue;
+    std::memcpy(tree, best->data(), best->size());
+    tree_lens[i] = (int32_t)best->size();
+  }
+}
+
+// XXH64 (zstd seekable per-frame checksum = low 32 bits over the
+// uncompressed frame; also zstd's optional content checksum)
+uint64_t zn_xxh64(const uint8_t* p, int64_t n, uint64_t seed) {
+  const uint64_t P1 = 0x9E3779B185EBCA87ULL, P2 = 0xC2B2AE3D27D4EB4FULL,
+                 P3 = 0x165667B19E3779F9ULL, P4 = 0x85EBCA77C2B2AE63ULL,
+                 P5 = 0x27D4EB2F165667C5ULL;
+  auto rotl = [](uint64_t x, int r) { return (x << r) | (x >> (64 - r)); };
+  auto rd64 = [](const uint8_t* q) {
+    uint64_t v;
+    std::memcpy(&v, q, 8);
+    return v;
+  };
+  auto round = [&](uint64_t acc, uint64_t lane) {
+    return rotl(acc + lane * P2, 31) * P1;
+  };
+  const uint8_t* end = p + n;
+  uint64_t h;
+  if (n >= 32) {
+    uint64_t v1 = seed + P1 + P2, v2 = seed + P2, v3 = seed, v4 = seed - P1;
+    const uint8_t* lim = end - 32;
+    do {
+      v1 = round(v1, rd64(p));
+      v2 = round(v2, rd64(p + 8));
+      v3 = round(v3, rd64(p + 16));
+      v4 = round(v4, rd64(p + 24));
+      p += 32;
+    } while (p <= lim);
+    h = rotl(v1, 1) + rotl(v2, 7) + rotl(v3, 12) + rotl(v4, 18);
+    h = (h ^ round(0, v1)) * P1 + P4;
+    h = (h ^ round(0, v2)) * P1 + P4;
+    h = (h ^ round(0, v3)) * P1 + P4;
+    h = (h ^ round(0, v4)) * P1 + P4;
+  } else {
+    h = seed + P5;
+  }
+  h += (uint64_t)n;
+  while (p + 8 <= end) {
+    h = rotl(h ^ round(0, rd64(p)), 27) * P1 + P4;
+    p += 8;
+  }
+  if (p + 4 <= end) {
+    uint32_t v;
+    std::memcpy(&v, p, 4);
+    h = rotl(h ^ ((uint64_t)v * P1), 23) * P2 + P3;
+    p += 4;
+  }
+  while (p < end) {
+    h = rotl(h ^ ((uint64_t)*p * P5), 11) * P1;
+    ++p;
+  }
+  h ^= h >> 33;
+  h *= P2;
+  h ^= h >> 29;
+  h *= P3;
+  h ^= h >> 32;
+  return h;
+}
+
+// ---------------------------------------------------------------------------
+// Long-distance match scan (the zstd --long / LDM analog).  The linked
+// device parse (K1) sees only [previous block | block] (256 KiB); this host pass
+// finds WHOLE-BLOCK matches at larger distances within a batch: rolling
+// 32-byte window hashes at stride 8 feed a last-occurrence table, then
+// per-block candidate distances are verified with exact memcmp — a hit
+// means block b is byte-identical to the bytes `dist` before it.
+// Covered blocks compress to a single long-match sequence and skip the
+// device parse entirely.  x = the batch's blocks concatenated at bsize
+// stride; frame_base[b] = byte offset of b's frame start (-1 = exclude).
+// Returns the number of covered blocks.
+int64_t zn_ldm_scan(const uint8_t* x, int64_t nblocks, int64_t bsize,
+                    const int64_t* frame_base, const int32_t* lens,
+                    int64_t min_dist, int64_t* out_dist) {
+  const int LOG = 20;
+  const uint64_t MUL = 0x9E3779B185EBCA87ull;
+  std::vector<int64_t> table((size_t)1 << LOG, -1);
+  // second, always-overwrite table: surfaces SMALL distances (below
+  // min_dist) for whole-block coverage of short-period content.  The
+  // device parse would find those matches itself, but each one costs a
+  // ~block-length scalar extend on the core; covering the block here
+  // (and skipping its parse) emits the identical single sequence free.
+  std::vector<int64_t> table2((size_t)1 << LOG, -1);
+  const int CAND = 4;
+  std::vector<int64_t> cand((size_t)nblocks * CAND, 0);
+  std::vector<int64_t> cand2((size_t)nblocks, 0);
+  // rolling polynomial hash over a 32-byte window; CONTENT-DEFINED
+  // anchors (hash-selected 1-in-64 positions) so repeated content anchors
+  // at the same content offsets regardless of block alignment — a fixed
+  // sampling stride could only ever find distances divisible by it
+  const uint64_t C = 6364136223846793005ull;
+  uint64_t C32 = 1;
+  for (int i = 0; i < 32; ++i) C32 *= C;
+  for (int64_t b = 0; b < nblocks; ++b) {
+    out_dist[b] = 0;
+    int64_t base = b * bsize;
+    int64_t len = lens[b];
+    if (len < 32) continue;
+    uint64_t h = 0;
+    for (int k = 0; k < 32; ++k) h = h * C + x[base + k];
+    for (int64_t off = 0; off + 32 <= len; ++off) {
+      int64_t p = base + off;
+      uint64_t mixed = h * MUL;
+      if ((mixed >> 58) == 0) {  // anchor (rate 1/64)
+        size_t bucket = (size_t)(mixed >> 30) & (((size_t)1 << LOG) - 1);
+        int64_t c = table[bucket];
+        // age-gated overwrite: keep an entry until it is >= min_dist old,
+        // otherwise content with a repeat period below min_dist keeps
+        // refreshing the bucket and multi-period distances (the ones the
+        // block parse cannot see) never surface
+        if (c < 0 || p - c >= min_dist) table[bucket] = p;
+        int64_t c2 = table2[bucket];
+        table2[bucket] = p;
+        if (c2 >= 0 && frame_base[b] >= 0 && cand2[b] == 0) {
+          int64_t d2 = p - c2;
+          if (d2 >= 1 && d2 < min_dist && c2 >= frame_base[b])
+            cand2[b] = d2;
+        }
+        if (c >= 0 && frame_base[b] >= 0) {
+          int64_t d = p - c;
+          if (d >= min_dist && d <= ((int64_t)1 << 28) - 1 &&
+              c >= frame_base[b]) {
+            for (int k = 0; k < CAND; ++k) {
+              if (cand[b * CAND + k] == d) break;
+              if (cand[b * CAND + k] == 0) {
+                cand[b * CAND + k] = d;
+                break;
+              }
+            }
+          }
+        }
+      }
+      if (off + 33 <= len) h = h * C + x[p + 32] - C32 * x[p];
+    }
+  }
+  // verify: out_dist is (nblocks, 3) rows [dist, span_start, span_end).
+  // Full-block hits get [d, 0, bsize); otherwise the longest contiguous
+  // matching run at distance d is accepted when it covers >= 1/4 of the
+  // block (partial coverage: the boundary blocks of unaligned repeat
+  // periods), with the head/tail bytes left as literals.
+  int64_t hits = 0;
+  for (int64_t b = 0; b < nblocks; ++b) {
+    out_dist[3 * b] = 0;
+    out_dist[3 * b + 1] = 0;
+    out_dist[3 * b + 2] = 0;
+    if (frame_base[b] < 0) continue;
+    int64_t base = b * bsize;
+    int64_t blen = lens[b];
+    int64_t best_len = bsize / 4, best_d = 0, best_s = 0, best_e = 0;
+    // small-distance whole-block coverage (short-period content): the
+    // parse would emit the same single sequence, at ~block-length scalar
+    // extend cost on the device.  Also applies to a frame's shorter
+    // FINAL block (lens < bsize), which the distance-gated path below
+    // never covers.
+    if (cand2[b] > 0 && blen >= 512) {
+      int64_t d = cand2[b];
+      int64_t lo = frame_base[b] + d - base;
+      if (lo <= 0 && std::memcmp(x + base, x + base - d, 256) == 0 &&
+          std::memcmp(x + base, x + base - d, (size_t)blen) == 0) {
+        out_dist[3 * b] = d;
+        out_dist[3 * b + 1] = 0;
+        out_dist[3 * b + 2] = blen;
+        ++hits;
+        continue;
+      }
+    }
+    if (blen != bsize) continue;
+    for (int k = 0; k < CAND && cand[b * CAND + k]; ++k) {
+      int64_t d = cand[b * CAND + k];
+      int64_t lo = frame_base[b] + d - base;  // first in-frame src posn
+      if (lo < 0) lo = 0;
+      if (lo >= bsize) continue;
+      if (lo == 0 && std::memcmp(x + base, x + base - d, 256) == 0 &&
+          std::memcmp(x + base, x + base - d, (size_t)bsize) == 0) {
+        best_d = d;
+        best_s = 0;
+        best_e = bsize;
+        break;
+      }
+      // PARTIAL spans only for distances beyond the block parse's whole
+      // window (prev block + current = 2*bsize): closer matches are
+      // found fine-grained by the parse itself, and replacing its output
+      // with span-head/tail literals would LOSE ratio
+      if (d < 2 * bsize) continue;
+      // longest matching run [s, e) at distance d
+      int64_t run = 0;
+      for (int64_t i = lo; i < bsize; ++i) {
+        if (x[base + i] == x[base + i - d]) {
+          ++run;
+          if (run > best_len) {
+            best_len = run;
+            best_d = d;
+            best_s = i + 1 - run;
+            best_e = i + 1;
+          }
+        } else {
+          run = 0;
+        }
+      }
+    }
+    if (best_d) {
+      out_dist[3 * b] = best_d;
+      out_dist[3 * b + 1] = best_s;
+      out_dist[3 * b + 2] = best_e;
+      ++hits;
+    }
+  }
+  return hits;
+}
+
+}  // extern "C"

@@ -4,8 +4,8 @@ Counterpart of libzseek_tpu/ops/pallas_entropy.py entropy_emit_smem
 (:578), which runs the Pallas kernel _entropy_kernel (:144, the
 pallas_call at :645), with its MODE_* bits (:39-51) and constant tables
 (_build_tabs, _ctab_layout, _ctab_predef, CTAB_WIDTH, MODE_LOG_SHIFT,
-:61-141), rebuilt here in numpy from libzseek_tpu/ops/fse.py and
-libzseek_tpu/format/zstd_frame.py.  The CUDA kernel is csrc/entropy.cu.
+:61-141), rebuilt here in numpy from the port's copies of
+libzseek_tpu/ops/fse.py and format/zstd_frame.py.  The CUDA kernel is csrc/entropy.cu.
 
 The plain version below computes the same words from prefix sums
 instead of a sequential bit pusher: a literal's bit offset is the code
@@ -23,8 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzseek_tpu.format import zstd_frame as zf
-from libzseek_tpu.ops import fse
+from libzseek_tpu_torch.format import zstd_frame as zf
+from libzseek_tpu_torch.ops import fse
 from libzseek_tpu_torch.ops import common as C
 
 # mode bits (meta[:, 3])

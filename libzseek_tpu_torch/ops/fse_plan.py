@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzseek_tpu.format import zstd_frame as zf
+from libzseek_tpu_torch.format import zstd_frame as zf
 from libzseek_tpu_torch.ops.entropy import (CT_MAXLOG, CTAB_OFF, CTAB_PREDEF,
                                             MODE_LL_FSE, MODE_LL_RLE,
                                             MODE_LOG_SHIFT, MODE_ML_FSE,

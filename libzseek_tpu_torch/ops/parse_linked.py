@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzseek_tpu.errors import ParameterError
+from libzseek_tpu_torch.errors import ParameterError
 
 HASH_LOG = 16
 TAB_SIZE = 1 << HASH_LOG

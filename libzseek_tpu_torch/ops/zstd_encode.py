@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzseek_tpu.errors import ParameterError
+from libzseek_tpu_torch.errors import ParameterError
 from libzseek_tpu_torch.ops import common as C
 from libzseek_tpu_torch.ops.common import u32_to_i32
 from libzseek_tpu_torch.ops.parse_linked import parse_linked

@@ -1,22 +1,29 @@
-"""Where one write of the port's main path spends its time, on the GPU.
+"""Where one write of the port's main path, and one read of what it
+wrote, spend their time on the GPU.
 
     python -m libzseek_tpu_torch.profile_write
 
 Writes 64 MiB of mixed_corpus(seed 11) through the port's Writer at
 level 3 (1 MiB frames, batch_frames=16, 1 MiB writes), once to warm up
-and once under torch.profiler with CPU and CUDA activities.  Prints the
-card's name and power limit, the wall time, the device's busy share of
-it (union of CUDA kernel and copy intervals), the CUDA time per kernel
-name, and the host time inside each codec stage range (`zseek.*`, see
-runtime/zstd_codec.py and ops/zstd_encode.py); the finishing stages run
-on the codec's worker thread and overlap the dispatch of later batches.
+and once under torch.profiler with CPU and CUDA activities; then reads
+the archive back through the port's Reader(device="cuda") in 1 MiB
+reads, likewise once to warm up and once profiled.  For each, prints
+the wall time, the device's busy share of it (union of CUDA kernel and
+copy intervals), the CUDA time per kernel name, and the host time
+inside each stage range (`zseek.*`, see runtime/zstd_codec.py,
+ops/zstd_encode.py and ops/zstd_decode.py), after the card's name and
+power limit.  Host ranges reach the profiler from the calling thread
+only: the write's finishing stages run on the codec's worker thread and
+the read's prefetched windows on the reader's two prefetch threads, so
+those show on the device timeline but not among the host stages.
 Needs a CUDA device.  Counterpart in the JAX package: the ZN_PROFILE
 stage marks of libzseek_tpu/runtime/zstd_codec.py (_dispatch_parse,
-_finish_chain) around bench.py's write.
+_finish_chain) and ops/zstd_decode.py (decode_frames).
 """
 
 from __future__ import annotations
 
+import io
 import subprocess
 import sys
 import time
@@ -25,25 +32,41 @@ MIB = 1 << 20
 SIZE_MIB = 64    # the main path's write (bench.py, chip_smoke.py)
 
 
-class _Sink:
-    def __init__(self):
-        self.n = 0
-
-    def write(self, b):
-        self.n += len(b)
-
-
-def _write(data: bytes) -> int:
+def _write(data: bytes) -> bytes:
     import torch
     from libzseek_tpu_torch import Writer
-    sink = _Sink()
+    sink = io.BytesIO()
     w = Writer(sink, level=3, device="cuda", min_frame_size=MIB,
                batch_frames=16)
     for pos in range(0, len(data), MIB):
         w.write(data[pos: pos + MIB])
     w.close()
     torch.cuda.synchronize()
-    return sink.n
+    return sink.getvalue()
+
+
+def _read(archive: bytes) -> bytes:
+    import torch
+    from libzseek_tpu_torch import Reader
+    parts = []
+    with Reader(archive, device="cuda") as r:
+        while chunk := r.read(MIB):
+            parts.append(chunk)
+    torch.cuda.synchronize()
+    return b"".join(parts)
+
+
+def _profiled(fn, arg):
+    """fn(arg) once to warm up, then once under the profiler: (result of
+    the profiled call, profile, wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(arg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn(arg)
+        wall = time.perf_counter() - t0
+    return out, prof, wall
 
 
 def _union_us(intervals) -> float:
@@ -56,26 +79,11 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def main() -> int:
-    import numpy as np
-    import torch
+def report(prof, wall: float) -> None:
+    """Print the device's busy share of `wall` seconds (union of CUDA
+    kernel and copy intervals), the CUDA time per kernel name and the
+    host time inside each `zseek.*` stage range of a profile."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from libzseek_tpu.testing.corpus import mixed_corpus
-    if not torch.cuda.is_available():
-        print("no CUDA device visible", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip())
-    data = mixed_corpus(np.random.default_rng(11), SIZE_MIB * MIB).tobytes()
-    _write(data)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        nbytes = _write(data)
-        wall = time.perf_counter() - t0
     # kernels and copies; the zseek.* ranges also appear on the device
     # timeline as annotations and are left out
     dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
@@ -92,8 +100,6 @@ def main() -> int:
         if e.name.startswith("zseek.") and e.device_type == DeviceType.CPU:
             ms, n = stages.get(e.name, (0.0, 0))
             stages[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    print(f"write {SIZE_MIB} MiB: {wall:.3f} s = {SIZE_MIB / wall:.2f} MiB/s,"
-          f" ratio {nbytes / len(data):.5f}")
     if dev:
         print(f"device busy {busy_s:.3f} s = {100 * busy_s / wall:.1f} % of "
               f"the wall time (idle {100 * (1 - busy_s / wall):.1f} %)")
@@ -102,9 +108,33 @@ def main() -> int:
     print("CUDA time by kernel (ms, launches):")
     for k, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {ms:10.3f} {n:6d}  {k[:70]}")
-    print("host time inside codec stages (ms, calls):")
+    print("host time inside stages, calling thread (ms, calls):")
     for k, (ms, n) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:10.3f} {n:6d}  {k}")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch.testing.corpus import mixed_corpus
+    if not torch.cuda.is_available():
+        print("no CUDA device visible", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip())
+    data = mixed_corpus(np.random.default_rng(11), SIZE_MIB * MIB).tobytes()
+    archive, prof, wall = _profiled(_write, data)
+    print(f"write {SIZE_MIB} MiB: {wall:.3f} s = {SIZE_MIB / wall:.2f} MiB/s,"
+          f" ratio {len(archive) / len(data):.5f}")
+    report(prof, wall)
+    got, prof, wall = _profiled(_read, archive)
+    if got != data:
+        print("the read differs from the input", file=sys.stderr)
+        return 1
+    print(f"read {SIZE_MIB} MiB: {wall:.3f} s = {SIZE_MIB / wall:.2f} MiB/s")
+    report(prof, wall)
     return 0
 
 

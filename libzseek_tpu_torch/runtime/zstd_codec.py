@@ -1,4 +1,5 @@
-"""zstd seekable-frame codec on the GPU: the level <= 3 write path.
+"""zstd seekable-frame codec on the GPU: the level <= 3 write path and
+the read path.
 
 Counterpart of libzseek_tpu/runtime/zstd_codec.py ZstdCodec with
 parser="linked", entropy="smem" (the reference's device chain):
@@ -20,7 +21,11 @@ module that imports JAX); the byte-identity tests hold them to it.  The
 reference's ZN_* environment knobs are not ported (their defaults are
 fixed), nor its `workers` round-robin and its adaptive vector-literal
 hint: every row K3 accepts goes through K3, with identical bits either
-way.  Decoding is the read-path port's work.
+way.
+
+Decoding (decompress_frames, the Reader's codec call) is the fused
+route of the reference's decode_frames: host frame parse and row
+packing, then K4 on the device (ops/zstd_decode.py, ops/decode.py).
 """
 
 from __future__ import annotations
@@ -32,15 +37,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from libzseek_tpu import native
-from libzseek_tpu.errors import ParameterError
-from libzseek_tpu.format import hints
-from libzseek_tpu.format import zstd_frame as zf
-from libzseek_tpu.ops import fse
+from libzseek_tpu_torch import native
+from libzseek_tpu_torch.errors import ParameterError
+from libzseek_tpu_torch.format import hints
+from libzseek_tpu_torch.format import zstd_frame as zf
+from libzseek_tpu_torch.ops import fse
 from libzseek_tpu_torch.ops import entropy as E
 from libzseek_tpu_torch.ops import fse_plan as fpl
 from libzseek_tpu_torch.ops import huffman_plan as hp
 from libzseek_tpu_torch.ops import vector_entropy as VE
+from libzseek_tpu_torch.ops import zstd_decode
 from libzseek_tpu_torch.ops.parse_linked import CAP
 from libzseek_tpu_torch.ops.zstd_encode import (apply_ldm_override,
                                                 compact_payload,
@@ -119,13 +125,15 @@ _MODE_NAMES = {hp.M_SKIP: "skip", hp.M_RLEBLOCK: "rleblock",
 
 
 class ZstdCodec:
-    """zstd seekable-frame codec: compression on the GPU (or, with
-    device="cpu", through every kernel's plain version, for tests).
-    Compression also yields per-block decode anchors (format/hints.py)
-    that the Writer publishes in a skippable sidecar frame."""
+    """zstd seekable-frame codec: compression and decompression on the
+    GPU (or, with device="cpu", through every kernel's plain version, for
+    tests).  Compression also yields per-block decode anchors
+    (format/hints.py) that the Writer publishes in a skippable sidecar
+    frame."""
 
     name = "zstd"
     supports_hints = True
+    supports_device_frames = True
 
     def __init__(self, level: int = 3, device: str = "cuda",
                  block: int = BLOCK):
@@ -254,7 +262,7 @@ class ZstdCodec:
         lens_parse = None
         d = native.ldm_scan(X[1: B + 1].reshape(-1), B, N, frame_base[:B],
                             lens[:B], LDM_MIN_DIST)
-        if d is not None and (d[:, 0] > 0).any():
+        if (d[:, 0] > 0).any():
             ldm = ldm_literal_stats(d, blocks, Bp)
             cov = d[:, 0] > 0
             skip = cov.copy()
@@ -525,12 +533,19 @@ class ZstdCodec:
 
     # --- decompress ---
 
+    def decompress_frame(self, data: bytes, d_size: int,
+                         frame_hints=None) -> bytes:
+        return self.decompress_frames([data], [d_size])[0]
+
     def decompress_frames(self, datas, d_sizes, frame_hints=None,
                           to_device: bool = False):
-        raise NotImplementedError(
-            "the port's zstd decode (K4, Reader codec) belongs to the read "
-            "path, not ported yet (ROADMAP A7); read archives with "
-            "libzseek_tpu's Reader or stock libzstd")
+        """Decode frames with K4 on the codec's device: host bytes per
+        frame, or with to_device=True one uint8 tensor per frame on the
+        device.  frame_hints (the Writer's decode anchors) are accepted
+        for the Reader's interface and not needed: K4 walks whole streams.
+        A corrupt frame raises FormatError."""
+        return zstd_decode.decode_frames(datas, d_sizes, to_device=to_device,
+                                         device=self.device)
 
 
 class _ZstdStream:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from libzseek_tpu.errors import ParameterError
+from libzseek_tpu_torch.errors import ParameterError
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

@@ -1,5 +1,6 @@
-"""Inputs of the port's on-card kernel tests (tests/test_torch_cuda.py,
-tests/test_torch_cuda_place.py).  It holds no tests.
+"""Inputs of the port's on-card kernel tests (tests/test_torch_cuda*.py),
+and the frames of the read-path tests (tests/test_torch_decode*.py).  It
+holds no tests.
 
 Imports no jax: those tests run on the GPU machine with --noconftest."""
 
@@ -7,7 +8,10 @@ import numpy as np
 import pytest
 import torch
 
-from libzseek_tpu.testing.corpus import mixed_corpus
+from libzseek_tpu_torch import ZstdCodec
+from libzseek_tpu_torch.format import zstd_frame as zf
+from libzseek_tpu_torch.testing import golden
+from libzseek_tpu_torch.testing.corpus import mixed_corpus, text_corpus
 from libzseek_tpu_torch.ops import entropy as E
 from libzseek_tpu_torch.ops import fse_plan as fpl
 from libzseek_tpu_torch.ops import huffman_plan as hp
@@ -57,3 +61,79 @@ def mixed_batch():
 def same(a, b):
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+
+
+def cases(rng, n=24 * 1024):
+    return {
+        "text": text_corpus(rng, n).tobytes(),
+        "periodic": (rng.integers(0, 256, 337, np.uint8).tobytes()
+                     * (n // 337 + 1))[:n],
+        "zeros": bytes(n),
+        "noise": rng.integers(0, 256, n, np.uint8).tobytes(),
+        "tiny": b"abcabcabcabc",
+        "one": b"x",
+        "empty": b"",
+    }
+
+
+def multiblock(rng):
+    """300 KiB in one frame, three blocks with cross-block matches and
+    repcodes (test_decode_smem.py:55-64)."""
+    raw = mixed_corpus(rng, 300 * 1024).tobytes()
+    return (raw[:150 * 1024] + raw[:100 * 1024] + raw[150 * 1024:])[:300 * 1024]
+
+
+def rle_frame():
+    """A frame written by hand: one compressed block of RLE literals
+    ("q" x 100) and ten sequences with RLE tables (LL code 10, OF code 0 =
+    repcode 1, ML code 17), whose stream holds the sentinel bit alone;
+    300 bytes of "q"."""
+    n_lit = 100
+    lits = bytes([((n_lit & 0xF) << 4) | (0b01 << 2) | zf.LIT_RLE,
+                  n_lit >> 4]) + b"q"
+    seqs = bytes([10, 0b01010100, 10, 0, 17, 0x01])
+    body = lits + seqs
+    return (zf.build_frame_header(300)
+            + zf.build_block_header(zf.BLOCK_COMPRESSED, len(body), True)
+            + body), b"q" * 300
+
+
+def own_frames(device="cpu"):
+    """(frames, raws) from the port's codec on `device`: the seven cases,
+    a text frame with 1-stream Huffman literals and the 3-block frame;
+    and the hand-written RLE frame."""
+    rng = np.random.default_rng(91)
+    raws = list(cases(rng).values())
+    raws.append(text_corpus(rng, 200).tobytes())
+    raws.append(multiblock(rng))
+    frames = ZstdCodec(device=device).compress_frames(raws)
+    fr, raw = rle_frame()
+    return frames + [fr], raws + [raw]
+
+
+def stock_frames():
+    """(frames, raws) from stock libzstd at levels 1, 3 and 19, plus a
+    long-window level-19 frame with a match ~400 KiB back
+    (test_decode_smem.py:116-123)."""
+    rng = np.random.default_rng(91)
+    vals = [v for v in cases(rng).values() if v]
+    frames, raws = [], []
+    for level in (1, 3, 19):
+        frames += [golden.zstd_compress(v, level=level) for v in vals]
+        raws += vals
+    blk = rng.integers(0, 256, 400 * 1024, np.uint8).tobytes()
+    raws.append(blk + bytes(16) + blk)
+    frames.append(golden.zstd_compress(raws[-1], level=19, strategy=None))
+    return frames, raws
+
+
+def leftover_bits_frame():
+    """rle_frame with one zero byte below its sequence stream: the walk
+    ends 8 bits above the stream's start."""
+    fr, raw = rle_frame()
+    hs = zf.parse_frame_header(fr, 0).header_size
+    _, bsize, _ = zf.parse_block_header(fr, hs)
+    body = fr[hs + 3:]
+    body = body[:-1] + b"\x00" + body[-1:]
+    return (fr[:hs] + zf.build_block_header(zf.BLOCK_COMPRESSED, bsize + 1,
+                                            True) + body), raw

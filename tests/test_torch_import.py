@@ -1,8 +1,10 @@
-"""The port imports torch and never jax, and asks for its device
-explicitly: "cuda" without a card raises.
+"""The port imports torch and nothing of jax or libzseek_tpu, and asks
+for its device explicitly: "cuda" without a card raises.
 
-The test session itself imports jax (tests/conftest.py), so the import
-check runs in a fresh interpreter."""
+The test session itself imports jax and the JAX package
+(tests/conftest.py), so the import check runs in a fresh interpreter: it
+writes an archive with the port's Writer and reads it back with the
+port's Reader and the port's own format and testing copies."""
 
 import os
 import subprocess
@@ -11,25 +13,27 @@ import sys
 import pytest
 import torch
 
-from libzseek_tpu.errors import ParameterError
+from libzseek_tpu_torch.errors import ParameterError
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = r"""
 import io, sys
 import libzseek_tpu_torch as port
-from libzseek_tpu_torch import convert, kernels
-from libzseek_tpu_torch.ops import (common, entropy, fse_plan, huffman_plan,
-                                    parse_linked, vector_entropy,
+from libzseek_tpu_torch import convert, kernels, native
+from libzseek_tpu_torch.ops import (common, decode, entropy, fse, fse_plan,
+                                    huffman, huffman_plan, parse_linked,
+                                    vector_entropy, zstd_decode,
                                     zstd_encode)
-from libzseek_tpu.format.seek_table import parse_seek_table_bytes
-from libzseek_tpu.testing import golden
-from libzseek_tpu.testing.corpus import mixed_corpus
+from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
+from libzseek_tpu_torch.testing import golden
+from libzseek_tpu_torch.testing.corpus import mixed_corpus
 import numpy as np
 
 data = mixed_corpus(np.random.default_rng(1), 64 * 1024).tobytes()
 sink = io.BytesIO()
-w = port.Writer(sink, device="cpu", min_frame_size=16 * 1024)
+w = port.Writer(sink, device="cpu", min_frame_size=16 * 1024,
+                checksums=True)
 for pos in range(0, len(data), 16 * 1024):
     w.write(data[pos: pos + 16 * 1024])
 w.close()
@@ -37,8 +41,12 @@ archive = sink.getvalue()
 assert parse_seek_table_bytes(archive).num_frames == 4
 if golden.have_zstd():
     assert golden.zstd_decompress(archive) == data
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("JAXMODS", loaded)
+r = port.Reader(archive, device="cpu", verify_checksums=True)
+assert r.pread_full(len(data), 0) == data
+loaded = sorted(m for m in sys.modules
+                if m in ("jax", "libzseek_tpu") or
+                m.startswith(("jax.", "libzseek_tpu.")))
+print("FOREIGN", loaded)
 """
 
 
@@ -48,7 +56,7 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300,
                          cwd=ROOT)
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "JAXMODS []" in res.stdout, res.stdout
+    assert "FOREIGN []" in res.stdout, res.stdout
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

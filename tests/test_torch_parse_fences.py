@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from libzseek_tpu.errors import ParameterError
+from libzseek_tpu_torch.errors import ParameterError
 from libzseek_tpu_torch.ops.parse_linked import chain_bounds, parse_linked
 from test_torch_inputs import fence_batch
 

@@ -32,6 +32,6 @@ def test_mode_bits_and_level_ladder():
     for level in (1, 2, 3):
         assert ze.level_search_params(level) == \
             jze.level_search_params(level), level
-    from libzseek_tpu.errors import ParameterError
+    from libzseek_tpu_torch.errors import ParameterError
     with pytest.raises(ParameterError):
         ze.level_search_params(4)
