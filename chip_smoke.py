@@ -33,10 +33,22 @@ Phases, each of which must pass (any failure exits non-zero):
      sequentially in 1 MiB reads (one warm-up pass, then the measured
      pass, during which K4 must launch), makes 1,000 uniform random 4 KiB
      preads (seed 7), and with device_cache=True 16 preads whose cached
-     frames are CUDA tensors; every byte equals the input.
+     frames are CUDA tensors; every byte equals the input;
+  6. the LZ4 path: K5 (LZ4 block encode) and the LZ4 decoder against
+     their plain versions, exact, on small inputs (linked 4 KiB rows, a
+     seeded batch, the four level arms, damaged frames) and at the path's
+     shapes (K5 on 128 rows = 8 frames x 16 blocks of 64 KiB, the decoder
+     on a 4-frame reader window); then the port's Writer(codec="lz4",
+     level=0) writes the same 64 MiB with 1 MiB frames (warm-up, then the
+     measured run, during which K5 must launch); stock liblz4 decodes it,
+     the seek table lists 64 frames, the first frame equals the plain
+     versions', a level-9 write of 8 MiB decodes through liblz4; the
+     Reader reads it as in phase 5 (the decoder must launch), and the
+     codec's host route (native block decoder) and the card route decode
+     the 64 frames in 4-frame windows, timed.
 
-Prints JSON lines for the write path, the read path and the kernels, the
-card's name and power limit, then as its last line {"ok": true,
+Prints JSON lines for the write path, the read path, the LZ4 path and the
+kernels, the card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
 """
@@ -375,12 +387,16 @@ def read_all(r) -> bytes:
         parts.append(b)
 
 
-def phase_read(archive: bytes, data: bytes, card: str) -> dict:
-    """Phase 5: the read path through the port's Reader on the card."""
+def phase_read(archive: bytes, data: bytes, card: str, D=None,
+               name: str = "K4") -> dict:
+    """Phase 5 (and the LZ4 path's read): the read path through the
+    port's Reader on the card; `D` is the decoder's module, whose launch
+    count the measured sequential pass must raise."""
     import numpy as np
     import torch
     from libzseek_tpu_torch import Reader
-    from libzseek_tpu_torch.ops import decode as D
+    if D is None:
+        from libzseek_tpu_torch.ops import decode as D
     with Reader(archive, device="cuda") as r:          # warm-up pass
         check(read_all(r) == data, "warm-up read differs from the input")
     D.launches = 0
@@ -392,7 +408,7 @@ def phase_read(archive: bytes, data: bytes, card: str) -> dict:
     launches = D.launches
     r.close()
     check(got == data, "sequential read differs from the input")
-    check(launches > 0, "K4 never launched on the read path")
+    check(launches > 0, f"{name} never launched on the read path")
     mib_s = len(data) / MIB / dt
     r = Reader(archive, device="cuda")
     offs = np.random.default_rng(7).integers(0, len(data) - 4096, 1000)
@@ -415,12 +431,12 @@ def phase_read(archive: bytes, data: bytes, card: str) -> dict:
           "device_cache frames are not CUDA tensors")
     rd.close()
     print(f"read path: 64 MiB sequential in {dt:.3f} s = {mib_s:.2f} MiB/s "
-          f"(K4 launches {launches}); 1000 random 4 KiB preads p50 "
+          f"({name} launches {launches}); 1000 random 4 KiB preads p50 "
           f"{p50:.1f} us, p99 {p99:.1f} us ({hits} cache hits); 16 "
           f"device-cache preads equal, {len(cached)} frames on the card",
           flush=True)
     return {"card": card, "read_mib_s": mib_s, "pread_p50_us": p50,
-            "pread_p99_us": p99, "k4_launches": launches}
+            "pread_p99_us": p99, "launches": launches}
 
 
 class Sink:
@@ -434,11 +450,12 @@ class Sink:
         return b"".join(self.parts)
 
 
-def write_archive(data: bytes, device: str) -> tuple[bytes, float]:
+def write_archive(data: bytes, device: str, codec: str = "zstd",
+                  level: int = 3) -> tuple[bytes, float]:
     import torch
     from libzseek_tpu_torch import Writer
     sink = Sink()
-    w = Writer(sink, level=3, device=device, min_frame_size=MIB,
+    w = Writer(sink, codec, level=level, device=device, min_frame_size=MIB,
                batch_frames=16)
     t0 = time.perf_counter()
     for pos in range(0, len(data), MIB):
@@ -452,6 +469,262 @@ def write_archive(data: bytes, device: str) -> tuple[bytes, float]:
 def frame_bytes(archive: bytes, table, i: int) -> bytes:
     off = table.frame_c_offset(i)
     return archive[off: off + table.frame_c_size(i)]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the LZ4 path
+
+LZ4_BLOCK = 1 << 16
+# K5 at the path's batch: 128 rows = 8 whole 1 MiB frames of 16 blocks,
+# two frames from each quarter of the corpus
+LZ4_FRAMES = [f * 8 * MIB for f in range(8)]
+
+
+def k5_layout(data, offsets, frame_blocks):
+    """The LZ4 codec's host layout for full 64 KiB blocks of `data` at
+    `offsets`, in frames of `frame_blocks` blocks: (D, lens, min_ref)."""
+    import numpy as np
+    B = len(offsets)
+    D = np.zeros((B + 1, LZ4_BLOCK), np.uint8)
+    for r, off in enumerate(offsets):
+        D[r + 1] = np.frombuffer(data, np.uint8, LZ4_BLOCK, off)
+    i = np.arange(B)
+    min_ref = np.where(i % frame_blocks == 0, (i + 1) * LZ4_BLOCK,
+                       i * LZ4_BLOCK).astype(np.int32)
+    return D, np.full(B, 2 * LZ4_BLOCK, np.int32), min_ref
+
+
+def k5_small_cases(data):
+    """(D, lens, min_ref, level): three linked 4 KiB rows with
+    cross-block matches; a seeded batch (row 0 is the previous block of
+    its first row's frame, min_ref 0) with a short block; four 64 KiB
+    rows, one per quarter, at each level arm."""
+    import numpy as np
+    BK = 4096
+    D = np.zeros((4, BK), np.uint8)
+    for r in range(3):
+        D[r + 1] = np.frombuffer(data, np.uint8, BK, r * BK)
+    D[2, 100:400] = D[1, 50:350]
+    cases = [(D, np.full(3, 2 * BK, np.int32),
+              np.array([BK, BK, 2 * BK], np.int32), 0)]
+    Ds = np.zeros((4, LZ4_BLOCK), np.uint8)
+    Ds[0] = np.frombuffer(data, np.uint8, LZ4_BLOCK, 0)
+    Ds[1, :LZ4_BLOCK - 7] = Ds[0, 7:]
+    Ds[2] = np.frombuffer(data, np.uint8, LZ4_BLOCK, 16 * MIB)
+    cases.append((Ds, np.array([2 * LZ4_BLOCK - 7, 2 * LZ4_BLOCK,
+                                2 * LZ4_BLOCK], np.int32),
+                  np.array([0, 2 * LZ4_BLOCK, 2 * LZ4_BLOCK], np.int32), 0))
+    Dm, lens, mr = k5_layout(data, [q * 16 * MIB for q in range(4)], 2)
+    for level in (-1, 0, 3, 9):
+        cases.append((Dm, lens, mr, level))
+    return cases
+
+
+def lz4_small_frames():
+    """(frames, raws, independent): frames of the port's LZ4 codec on the
+    card and of stock liblz4, linked and independent, over text, every
+    mixed regime, noise (stored raw) and a tiny frame."""
+    import numpy as np
+    from libzseek_tpu_torch import LZ4Codec
+    from libzseek_tpu_torch.testing import golden
+    from libzseek_tpu_torch.testing.corpus import mixed_corpus, text_corpus
+    rng = np.random.default_rng(5)
+    raws = [text_corpus(rng, 2 * LZ4_BLOCK + 5000).tobytes(),
+            mixed_corpus(rng, 4 * LZ4_BLOCK).tobytes(),
+            rng.integers(0, 256, LZ4_BLOCK + 99, np.uint8).tobytes(),
+            b"abcabcabcabc"]
+    out = []
+    for independent in (False, True):
+        frames = LZ4Codec(device="cuda", block_independent=independent) \
+            .compress_frames(raws)
+        frames += [golden.lz4f_compress(r, block_independent=independent)
+                   for r in raws]
+        out.append((frames, raws + raws, independent))
+    return out
+
+
+def lz4_rows(frames, damaged: int = 0, seed: int = 5):
+    """The codec's padded decoder inputs for `frames` (comp, clens, unc
+    as tensors, F, linked), plus `damaged` copies of the first frame with
+    random bytes of its second block changed."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch.format import lz4f
+    parsed = []
+    for f in frames:
+        info = lz4f.parse_frame_header(f)
+        parsed.append((info, lz4f.parse_blocks(f, info, info.header_size)[0]))
+    K = max(max(1, len(b)) for _, b in parsed)
+    K = 1 << (K - 1).bit_length()
+    M = max(max((x.size for x in b), default=1) for _, b in parsed)
+    M = (M + 4095) // 4096 * 4096
+    n = len(frames) + damaged
+    comp = np.zeros((n, K, M), np.uint8)
+    clens = np.zeros((n, K), np.int32)
+    unc = np.zeros((n, K), bool)
+    for r, (f, (_, blocks)) in enumerate(zip(frames, parsed)):
+        for k, b in enumerate(blocks):
+            comp[r, k, : b.size] = np.frombuffer(f, np.uint8, b.size,
+                                                 b.offset)
+            clens[r, k] = b.size
+            unc[r, k] = b.uncompressed
+    rng = np.random.default_rng(seed)
+    for j in range(damaged):
+        r = len(frames) + j
+        comp[r], clens[r], unc[r] = comp[0], clens[0], unc[0]
+        for p in rng.integers(0, int(clens[r, 1]), 1 + j % 3).tolist():
+            comp[r, 1, p] = int(rng.integers(0, 256))
+    sizes = [(int(info.content_size or 0)) for info, _ in parsed]
+    F = (max(sizes + [1]) + LZ4_BLOCK - 1) // LZ4_BLOCK * LZ4_BLOCK
+    t = torch.from_numpy
+    return (t(comp), t(clens), t(unc)), F, \
+        not parsed[0][0].block_independent
+
+
+def decoder_against_plain(name, args, F, linked, n_valid):
+    """The LZ4 decoder on the card and its plain version on the CPU, same
+    rows: equal ok and out_lens everywhere, equal out where ok; the first
+    n_valid frames must be ok.  Returns (max_abs_err, plain ms)."""
+    import torch
+    from libzseek_tpu_torch.ops.lz4_decode import lz4_decode_frames
+    cuda = torch.device("cuda")
+    got = lz4_decode_frames(*[a.to(cuda) for a in args], F, linked=linked)
+    torch.cuda.synchronize()
+    plain_ms, ref = time_host(
+        lambda: lz4_decode_frames(*args, F, linked=linked))
+    ok = ref[2]
+    err = max_abs_err([got[1], got[2], got[0][ok.to(cuda)]],
+                      [ref[1], ref[2], ref[0][ok]])
+    check(err == 0, f"{name} differs from its plain version (max err {err})")
+    check(bool(ok[:n_valid].all()), f"{name}: a valid frame failed")
+    return err, plain_ms, got
+
+
+def phase_lz4(data, card, report) -> dict:
+    """Phase 6: K5 and the LZ4 decoder against their plain versions, then
+    the LZ4 write and read paths."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import LZ4Codec
+    from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
+    from libzseek_tpu_torch.ops import lz4_decode, lz4_emit
+    from libzseek_tpu_torch.testing import golden
+    cuda = torch.device("cuda")
+    t = lambda a: torch.from_numpy(a)
+
+    # K5: small cases, then the path's 128-row batch
+    errs = []
+    for D, lens, mr, level in k5_small_cases(data):
+        kw = LZ4Codec._level_params(level)
+        cap = lz4_emit.out_cap(D.shape[1])
+        e, _ = against_plain(f"K5 (level {level}, {len(lens)} rows)",
+                             lambda *a: lz4_emit.lz4_emit(*a, cap, **kw),
+                             [t(D).to(cuda), t(lens).to(cuda),
+                              t(mr).to(cuda)])
+        errs.append(e)
+    offs = [f + j * LZ4_BLOCK for f in LZ4_FRAMES for j in range(16)]
+    D, lens, mr = k5_layout(data, offs, 16)
+    cap = lz4_emit.out_cap()
+    big = [t(D).to(cuda), t(lens).to(cuda), t(mr).to(cuda)]
+    k5 = lambda *a: lz4_emit.lz4_emit(*a, cap)
+    e_big, plain_ms = against_plain("K5 (128 rows)", k5, big)
+    out, olen = k5(*big)
+    nb = nbytes(big) + int(olen.sum()) + olen.numel() * 4
+    entry(report, "K5 lz4_emit", "libzseek_tpu_torch/csrc/lz4_emit.cu",
+          "libzseek_tpu/ops/pallas_lz4.py:41", errs + [e_big],
+          time_cuda(lambda: k5(*big)), plain_ms, nb, big[0][1:].numel(),
+          "linked 4 KiB rows, a seeded batch, levels -1/0/3/9 on 4 rows; "
+          "128 rows in 8 chains of 16 (level 0)")
+
+    # the decoder: small frames and damaged copies
+    derrs = []
+    for frames, raws, independent in lz4_small_frames():
+        args, F, linked = lz4_rows(frames, damaged=12)
+        e, _, got = decoder_against_plain(
+            f"LZ4 decoder ({'independent' if independent else 'linked'})",
+            args, F, linked, len(frames))
+        out_h = got[0].cpu().numpy()
+        for r, raw in enumerate(raws):
+            check(out_h[r, : len(raw)].tobytes() == raw,
+                  "LZ4 decoder: bytes differ from the input")
+        derrs.append(e)
+
+    # the write path
+    write_archive(data, "cuda", "lz4", 0)            # warm-up
+    lz4_emit.launches = 0
+    archive, dt = write_archive(data, "cuda", "lz4", 0)
+    k5_launches = lz4_emit.launches
+    check(k5_launches > 0, "K5 never launched on the LZ4 write path")
+    report[-1]["launches"] = k5_launches
+    ratio = len(archive) / len(data)
+    print(f"LZ4 write path: 64 MiB in {dt:.3f} s = {64 / dt:.2f} MiB/s, "
+          f"ratio {ratio:.5f} ({len(archive)} bytes); K5 launches "
+          f"{k5_launches}", flush=True)
+    check(golden.lz4f_decompress(archive) == data,
+          "stock liblz4 does not reproduce the input")
+    table = parse_seek_table_bytes(archive)
+    check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
+    cpu_archive, cpu_dt = write_archive(data[:MIB], "cpu", "lz4", 0)
+    cpu_table = parse_seek_table_bytes(cpu_archive)
+    check(frame_bytes(cpu_archive, cpu_table, 0) ==
+          frame_bytes(archive, table, 0),
+          "first LZ4 frame differs between the card and the plain versions")
+    hc, hc_dt = write_archive(data[:8 * MIB], "cuda", "lz4", 9)
+    check(golden.lz4f_decompress(hc) == data[:8 * MIB],
+          "stock liblz4 does not reproduce the level-9 archive")
+    print(f"LZ4 archive: liblz4 decode equal, 64 frames; first frame equal "
+          f"to plain (CPU, {cpu_dt:.1f} s); level 9, 8 MiB: ratio "
+          f"{len(hc) / (8 * MIB):.5f}, liblz4 decode equal", flush=True)
+
+    # the decoder at the reader's window: 4 frames, one per quarter
+    frames = [frame_bytes(archive, table, i) for i in range(64)]
+    win = [frames[16 * q] for q in range(4)]
+    args, F, linked = lz4_rows(win)
+    e_big, plain_ms, got = decoder_against_plain(
+        "LZ4 decoder (4 archive frames)", args, F, linked, 4)
+    check(all(got[0][r, :MIB].cpu().numpy().tobytes() ==
+              data[16 * q * MIB: (16 * q + 1) * MIB]
+              for r, q in enumerate(range(4))),
+          "LZ4 decoder: archive frames differ from the input")
+    dargs = [a.to(cuda) for a in args]
+    dec = lambda: lz4_decode.lz4_decode_frames(*dargs, F, linked=linked)
+    comp_bytes = sum(len(f) for f in win)
+    entry(report, "LZ4 decode", "libzseek_tpu_torch/csrc/lz4_decode.cu",
+          "libzseek_tpu/ops/lz4_decode.py:110 (XLA lz4_decode_frames)",
+          derrs + [e_big], time_cuda(dec), plain_ms,
+          comp_bytes + 4 * MIB, 4 * MIB,
+          "linked and independent frames of the codec and of liblz4 with "
+          "12 damaged copies each; 4 archive frames (the reader's window)")
+
+    # the read path
+    read = phase_read(archive, data, card, lz4_decode, "LZ4 decoder")
+    report[-1]["launches"] = read["launches"]
+
+    # the two decode routes over the 64 frames, 4-frame windows
+    codec = LZ4Codec(device="cuda")
+    sizes = [MIB] * 64
+    routes = {}
+    for name, fn in (("card", codec.decompress_frames),
+                     ("host", codec._decompress_frames_host)):
+        fn(frames[:4], sizes[:4])                        # warm-up
+        t0 = time.perf_counter()
+        got = []
+        for i in range(0, 64, 4):
+            got += fn(frames[i: i + 4], sizes[i: i + 4])
+        torch.cuda.synchronize()
+        routes[name] = 64 / (time.perf_counter() - t0)
+        check(b"".join(got) == data, f"{name} route differs from the input")
+    print(f"LZ4 decode routes, 64 frames in 4-frame windows: card "
+          f"{routes['card']:.2f} MiB/s, host (native) {routes['host']:.2f} "
+          f"MiB/s", flush=True)
+    return {"card": card, "write_mib_s": 64 / dt, "ratio": ratio,
+            "read_mib_s": read["read_mib_s"],
+            "pread_p50_us": read["pread_p50_us"],
+            "pread_p99_us": read["pread_p99_us"],
+            "card_route_mib_s": routes["card"],
+            "host_route_mib_s": routes["host"],
+            "k5_launches": k5_launches,
+            "decoder_launches": read["launches"]}
 
 
 def main() -> None:
@@ -487,6 +760,7 @@ def main() -> None:
     th.join()
     check("native" in built, "native host library did not build")
     check(golden.have_zstd(), "stock libzstd not found")
+    check(golden.have_lz4(), "stock liblz4 not found")
     print(f"build: native {built['native'][1]:.1f} s, CUDA kernels "
           f"{t_cuda:.1f} s (in parallel)", flush=True)
     data = mixed_corpus(np.random.default_rng(11), 64 * MIB).tobytes()
@@ -547,12 +821,16 @@ def main() -> None:
 
     # phase 5
     read = phase_read(archive, data, card)
-    report[-1]["launches"] = read["k4_launches"]
+    report[-1]["launches"] = read["launches"]
+
+    # phase 6
+    lz4_path = phase_lz4(data, card, report)
 
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
           flush=True)
     print(json.dumps({"read_path": read}), flush=True)
+    print(json.dumps({"lz4_path": lz4_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 
 The JAX package has no counterpart module: its Pallas kernels compile
 inside `jax.jit` (libzseek_tpu/ops/pallas_match.py, pallas_entropy.py,
-vector_entropy.py, pallas_decode.py).
+vector_entropy.py, pallas_decode.py, pallas_lz4.py).
 
 Route (b) of the port's kernel guide: every `csrc/*.cu` is compiled by
 `nvcc -gencode arch=compute_90a,code=sm_90a -Xcompiler -fPIC -c`, one
@@ -43,6 +43,8 @@ SIGNATURES = {
     "zk_entropy_emit": [_P] * 8 + [_I] * 7 + [_P] * 9,
     "zk_place_literals": [_P] * 3 + [_I] * 3 + [_P] * 2,
     "zk_decode": [_P] * 8 + [_I] * 4 + [_P] * 4,
+    "zk_lz4_emit": [_P] * 3 + [_I] * 6 + [_P] * 4,
+    "zk_lz4_decode": [_P] * 3 + [_I] * 6 + [_P] * 4,
 }
 
 _lock = threading.Lock()

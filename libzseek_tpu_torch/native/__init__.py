@@ -1,7 +1,7 @@
 """The port's native host library (zn.cc beside this file), bound with
 ctypes.
 
-Counterpart of libzseek_tpu/native/__init__.py, cut to the three entry
+Counterpart of libzseek_tpu/native/__init__.py, cut to the four entry
 points the port calls.  The library is built at first use with
 `c++ -O2 -std=c++17 -shared -fPIC` into `build/torch_native/` at the
 repository root (a gitignored directory), named by a hash of the source
@@ -70,6 +70,10 @@ def library() -> ctypes.CDLL:
         lib.zn_ldm_scan.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
                                     i64p, i32p, ctypes.c_int64, i64p]
         lib.zn_ldm_scan.restype = ctypes.c_int64
+        lib.zn_lz4_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_int64, ctypes.c_int64]
+        lib.zn_lz4_decode.restype = ctypes.c_int64
         _lib = lib
         return lib
 
@@ -110,3 +114,19 @@ def ldm_scan(x: np.ndarray, nblocks: int, bsize: int,
                     np.ascontiguousarray(lens, np.int32),
                     min_dist, out.reshape(-1))
     return out
+
+
+def lz4_block_decode(src: np.ndarray, out: np.ndarray, base: int,
+                     lo: int = 0) -> int:
+    """Decode one LZ4 block into the uint8 frame buffer `out` at `base`;
+    matches may reach back to byte `lo` (the frame start for linked
+    blocks).  Returns the decompressed size, or -1 on corrupt input."""
+    lib = library()
+    src = np.ascontiguousarray(src, np.uint8)
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("out must be a contiguous uint8 array")
+    if not 0 <= lo <= base <= out.shape[0]:
+        raise ValueError(f"need 0 <= lo <= base <= len(out), got lo={lo}, "
+                         f"base={base}, len(out)={out.shape[0]}")
+    return int(lib.zn_lz4_decode(src.ctypes.data, src.shape[0],
+                                 out.ctypes.data, out.shape[0], base, lo))

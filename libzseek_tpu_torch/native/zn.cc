@@ -9,7 +9,9 @@
 //   * zn_huf_tree_batch: Huffman tree-description serialization (direct
 //     4-bit weights or FSE-compressed weights, whichever is smaller,
 //     RFC 8878 §4.2.1.2) from the weights the device plan builds;
-//   * zn_xxh64: XXH64, the seek table's per-frame checksum.
+//   * zn_xxh64: XXH64, the seek table's per-frame checksum;
+//   * zn_lz4_decode: one LZ4 block into a frame buffer, the LZ4 codec's
+//     host decode route.
 //
 // A plain C ABI consumed through ctypes.  libzseek_tpu_torch/native/
 // __init__.py compiles this file with `c++ -O2 -std=c++17 -shared -fPIC`
@@ -343,6 +345,58 @@ uint64_t zn_xxh64(const uint8_t* p, int64_t n, uint64_t seed) {
   h *= P3;
   h ^= h >> 32;
   return h;
+}
+
+// ---------------------------------------------------------------------------
+// LZ4 block decode into a frame buffer (linked-block window: matches may
+// reach back to byte `lo` of `out`, i.e. the frame start for linked
+// frames or the block start for independent ones).  LZ4 has no entropy
+// stage: decode is token-driven memcpy of bytes the host already holds.
+// Returns the decompressed size or -1 on corrupt input.
+int64_t zn_lz4_decode(const uint8_t* src, int64_t n, uint8_t* out,
+                      int64_t out_cap, int64_t base, int64_t lo) {
+  int64_t ip = 0, op = base;
+  while (ip < n) {
+    uint8_t tok = src[ip++];
+    int64_t ll = tok >> 4;
+    if (ll == 15) {
+      uint8_t b;
+      do {
+        if (ip >= n) return -1;
+        b = src[ip++];
+        ll += b;
+      } while (b == 255);
+    }
+    if (ip + ll > n || op + ll > out_cap) return -1;
+    std::memcpy(out + op, src + ip, (size_t)ll);
+    ip += ll;
+    op += ll;
+    if (ip >= n) break;  // final literal run
+    if (ip + 2 > n) return -1;
+    int64_t off = src[ip] | ((int64_t)src[ip + 1] << 8);
+    ip += 2;
+    if (off < 1 || off > op - lo) return -1;
+    int64_t ml = (tok & 15) + 4;
+    if ((tok & 15) == 15) {
+      uint8_t b;
+      do {
+        if (ip >= n) return -1;
+        b = src[ip++];
+        ml += b;
+      } while (b == 255);
+    }
+    if (op + ml > out_cap) return -1;
+    int64_t seed = off < ml ? off : ml;
+    std::memcpy(out + op, out + op - off, (size_t)seed);
+    int64_t c = seed;
+    while (c < ml) {
+      int64_t k = c < ml - c ? c : ml - c;
+      std::memcpy(out + op + c, out + op, (size_t)k);
+      c += k;
+    }
+    op += ml;
+  }
+  return op - base;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,17 +1,19 @@
 """Where one write of the port's main path, and one read of what it
 wrote, spend their time on the GPU.
 
-    python -m libzseek_tpu_torch.profile_write
+    python -m libzseek_tpu_torch.profile_write [zstd|lz4]
 
-Writes 64 MiB of mixed_corpus(seed 11) through the port's Writer at
-level 3 (1 MiB frames, batch_frames=16, 1 MiB writes), once to warm up
+Writes 64 MiB of mixed_corpus(seed 11) through the port's Writer with
+the codec named (zstd, the default, at level 3; lz4 at level 0; 1 MiB
+frames, batch_frames=16, 1 MiB writes), once to warm up
 and once under torch.profiler with CPU and CUDA activities; then reads
 the archive back through the port's Reader(device="cuda") in 1 MiB
 reads, likewise once to warm up and once profiled.  For each, prints
 the wall time, the device's busy share of it (union of CUDA kernel and
 copy intervals), the CUDA time per kernel name, and the host time
 inside each stage range (`zseek.*`, see runtime/zstd_codec.py,
-ops/zstd_encode.py and ops/zstd_decode.py), after the card's name and
+ops/zstd_encode.py and ops/zstd_decode.py; the LZ4 codec has none),
+after the card's name and
 power limit.  Host ranges reach the profiler from the calling thread
 only: the write's finishing stages run on the codec's worker thread and
 the read's prefetched windows on the reader's two prefetch threads, so
@@ -23,6 +25,7 @@ _finish_chain) and ops/zstd_decode.py (decode_frames).
 
 from __future__ import annotations
 
+import functools
 import io
 import subprocess
 import sys
@@ -32,11 +35,11 @@ MIB = 1 << 20
 SIZE_MIB = 64    # the main path's write (bench.py, chip_smoke.py)
 
 
-def _write(data: bytes) -> bytes:
+def _write(data: bytes, codec: str = "zstd") -> bytes:
     import torch
     from libzseek_tpu_torch import Writer
     sink = io.BytesIO()
-    w = Writer(sink, level=3, device="cuda", min_frame_size=MIB,
+    w = Writer(sink, codec, device="cuda", min_frame_size=MIB,
                batch_frames=16)
     for pos in range(0, len(data), MIB):
         w.write(data[pos: pos + MIB])
@@ -113,10 +116,15 @@ def report(prof, wall: float) -> None:
         print(f"  {ms:10.3f} {n:6d}  {k}")
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     import numpy as np
     import torch
     from libzseek_tpu_torch.testing.corpus import mixed_corpus
+    codec = argv[0] if argv else "zstd"
+    if codec not in ("zstd", "lz4") or len(argv) > 1:
+        print("usage: python -m libzseek_tpu_torch.profile_write [zstd|lz4]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
         return 1
@@ -125,18 +133,21 @@ def main() -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip())
     data = mixed_corpus(np.random.default_rng(11), SIZE_MIB * MIB).tobytes()
-    archive, prof, wall = _profiled(_write, data)
-    print(f"write {SIZE_MIB} MiB: {wall:.3f} s = {SIZE_MIB / wall:.2f} MiB/s,"
+    archive, prof, wall = _profiled(functools.partial(_write, codec=codec),
+                                    data)
+    print(f"{codec} write {SIZE_MIB} MiB: {wall:.3f} s = "
+          f"{SIZE_MIB / wall:.2f} MiB/s,"
           f" ratio {len(archive) / len(data):.5f}")
     report(prof, wall)
     got, prof, wall = _profiled(_read, archive)
     if got != data:
         print("the read differs from the input", file=sys.stderr)
         return 1
-    print(f"read {SIZE_MIB} MiB: {wall:.3f} s = {SIZE_MIB / wall:.2f} MiB/s")
+    print(f"{codec} read {SIZE_MIB} MiB: {wall:.3f} s = "
+          f"{SIZE_MIB / wall:.2f} MiB/s")
     report(prof, wall)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

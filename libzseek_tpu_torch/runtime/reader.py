@@ -4,8 +4,8 @@ Copy of libzseek_tpu/runtime/reader.py around the port's codec.  Parity
 with the reference read path (src/decompress.c of the reference library):
 
   * open sniffs the codec from the archive's first 4 bytes
-    (ZSTD_MAGIC 0xFD2FB528 / LZ4_MAGIC 0x184D2204, :22-23,261-288); the
-    port decodes zstd archives only, with its ZstdCodec on `device`;
+    (ZSTD_MAGIC 0xFD2FB528 / LZ4_MAGIC 0x184D2204, :22-23,261-288) and
+    decodes with the port's ZstdCodec or LZ4Codec on `device`;
   * the seek table is read from EOF via the pluggable pread/fsize callbacks;
   * pread(size, offset) binary-searches the covering frame, serves from the
     decompressed-frame LRU cache or decodes the frame (on the card) on a
@@ -48,9 +48,9 @@ DEFAULT_CACHE_FRAMES = 8
 
 
 class Reader:
-    """Random-access reader of a zstd seekable archive (bytes, or a source
-    with pread/fsize), decoding frames with K4 on `device` ("cuda"; "cpu"
-    runs the plain version, for tests)."""
+    """Random-access reader of a zstd or LZ4 seekable archive (bytes, or a
+    source with pread/fsize), decoding frames on `device` (K4 or the LZ4
+    decoder on "cuda"; "cpu" runs their plain versions, for tests)."""
 
     def __init__(self, source, *, device="cuda",
                  cache_frames: int = DEFAULT_CACHE_FRAMES,
@@ -74,8 +74,8 @@ class Reader:
             raise FormatError("archive too small")
         magic = struct.unpack("<I", magic_bytes)[0]
         if magic == LZ4F_MAGIC:
-            raise ParameterError("LZ4 archive: the port has no LZ4 codec yet "
-                                 "(ROADMAP A8)")
+            from libzseek_tpu_torch.runtime.codec import LZ4Codec
+            self._codec = LZ4Codec(device=device)
         elif magic == ZSTD_MAGIC:
             from libzseek_tpu_torch.runtime.zstd_codec import ZstdCodec
             self._codec = ZstdCodec(device=device)

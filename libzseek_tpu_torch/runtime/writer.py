@@ -16,7 +16,8 @@ calling thread — completed frames are queued and compressed in device
 batches (every block of a frame group is a row of one batched chain on
 the card), then written to the sink in order.  The API contract (not
 concurrency-safe, like src/zseek.h:278) is unchanged.  A codec given by
-name can only be the port's zstd codec.
+name is the port's ZstdCodec ("zstd", default level 3) or LZ4Codec
+("lz4", default level 0) on `device`.
 """
 
 from __future__ import annotations
@@ -31,19 +32,21 @@ from libzseek_tpu_torch.runtime.stats import WriterStats
 DEFAULT_MIN_FRAME_SIZE = 1 << 20
 
 
-def _make_codec(codec, level):
+def _make_codec(codec, level, device):
     if hasattr(codec, "compress_frames"):
         return codec
+    if codec == "lz4":
+        from libzseek_tpu_torch.runtime.codec import LZ4Codec
+        return LZ4Codec(level=0 if level is None else level, device=device)
     if codec == "zstd":
         from libzseek_tpu_torch.runtime.zstd_codec import ZstdCodec
-        return ZstdCodec(level=3 if level is None else level)
-    if codec == "lz4":
-        raise ParameterError("the port has no LZ4 codec yet (ROADMAP A8)")
+        return ZstdCodec(level=3 if level is None else level, device=device)
     raise ParameterError(f"unknown codec {codec!r}")
 
 
 class Writer:
     def __init__(self, sink, codec="zstd", *, level: int | None = None,
+                 device: str = "cuda",
                  min_frame_size: int = DEFAULT_MIN_FRAME_SIZE,
                  batch_frames: int = 8, checksums: bool = False,
                  owned_file=None):
@@ -55,7 +58,7 @@ class Writer:
         # file handle opened on the Writer's behalf (open_writer with a
         # path); closed by close() after the seek table lands
         self._owned_file = owned_file
-        self._codec = _make_codec(codec, level)
+        self._codec = _make_codec(codec, level, device)
         self._min_frame_size = min_frame_size
         self._batch_frames = max(1, batch_frames)
         # per-frame seek-table checksums (low 32 bits of XXH64 of the

@@ -139,7 +139,13 @@ def test_validation_and_unported_parts():
             ZstdCodec(device="cpu", block=block)
     with pytest.raises(ParameterError):
         ZstdCodec(level=4, device="cpu")
-    # the port writes zstd only: the LZ4 codec is ROADMAP A8
+    # "lz4" names the port's LZ4Codec at its default level 0; its sort
+    # parser is not ported (ROADMAP A9)
+    from libzseek_tpu_torch import LZ4Codec
     from libzseek_tpu_torch.runtime.writer import Writer as PortWriter
-    with pytest.raises(ParameterError, match="A8"):
-        PortWriter(_Sink(), "lz4")
+    w = PortWriter(_Sink(), "lz4", device="cpu")
+    assert isinstance(w._codec, LZ4Codec) and w._codec.level == 0
+    with pytest.raises(ParameterError, match="A9"):
+        LZ4Codec(device="cpu", parser="sort")
+    with pytest.raises(ParameterError):
+        PortWriter(_Sink(), "brotli", device="cpu")

@@ -3,8 +3,9 @@ for its device explicitly: "cuda" without a card raises.
 
 The test session itself imports jax and the JAX package
 (tests/conftest.py), so the import check runs in a fresh interpreter: it
-writes an archive with the port's Writer and reads it back with the
-port's Reader and the port's own format and testing copies."""
+writes a zstd and an LZ4 archive with the port's Writer and reads them
+back with the port's Reader and the port's own format and testing
+copies."""
 
 import os
 import subprocess
@@ -22,9 +23,10 @@ import io, sys
 import libzseek_tpu_torch as port
 from libzseek_tpu_torch import convert, kernels, native
 from libzseek_tpu_torch.ops import (common, decode, entropy, fse, fse_plan,
-                                    huffman, huffman_plan, parse_linked,
-                                    vector_entropy, zstd_decode,
-                                    zstd_encode)
+                                    huffman, huffman_plan, lz4_decode,
+                                    lz4_emit, parse_linked, vector_entropy,
+                                    zstd_decode, zstd_encode)
+from libzseek_tpu_torch.runtime import codec
 from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
 from libzseek_tpu_torch.testing import golden
 from libzseek_tpu_torch.testing.corpus import mixed_corpus
@@ -43,6 +45,19 @@ if golden.have_zstd():
     assert golden.zstd_decompress(archive) == data
 r = port.Reader(archive, device="cpu", verify_checksums=True)
 assert r.pread_full(len(data), 0) == data
+sink = io.BytesIO()
+w = port.Writer(sink, "lz4", device="cpu", min_frame_size=16 * 1024,
+                checksums=True)
+for pos in range(0, len(data), 16 * 1024):
+    w.write(data[pos: pos + 16 * 1024])
+w.close()
+archive = sink.getvalue()
+assert parse_seek_table_bytes(archive).num_frames == 4
+if golden.have_lz4():
+    assert golden.lz4f_decompress(archive) == data
+r = port.Reader(archive, device="cpu", verify_checksums=True)
+assert isinstance(r._codec, port.LZ4Codec)
+assert r.pread_full(len(data), 0) == data
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "libzseek_tpu") or
                 m.startswith(("jax.", "libzseek_tpu.")))
@@ -60,13 +75,15 @@ def test_port_never_imports_jax():
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
-    from libzseek_tpu_torch import ZstdCodec
+    from libzseek_tpu_torch import LZ4Codec, ZstdCodec
     from libzseek_tpu_torch.utils.device import resolve_device
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ParameterError):
         resolve_device("cuda")
     with pytest.raises(ParameterError):
         ZstdCodec()                        # device="cuda" is the default
+    with pytest.raises(ParameterError):
+        LZ4Codec()
     with pytest.raises(ParameterError):
         resolve_device("mps")
     assert resolve_device("cpu").type == "cpu"
