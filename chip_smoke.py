@@ -45,10 +45,22 @@ Phases, each of which must pass (any failure exits non-zero):
      versions', a level-9 write of 8 MiB decodes through liblz4; the
      Reader reads it as in phase 5 (the decoder must launch), and the
      codec's host route (native block decoder) and the card route decode
-     the 64 frames in 4-frame windows, timed.
+     the 64 frames in 4-frame windows, timed;
+  7. the per-block hash-parser path: K7 (hash parse) against its plain
+     version, exact, on four 16 KiB rows (text, repeats, zeros, noise)
+     and at the path's 64-row batch of 128 KiB blocks (8 frames of 8
+     blocks, two per quarter of the corpus); then the port's
+     Writer(sink, ZstdCodec(parser="hash")) writes the same 64 MiB with
+     1 MiB frames and batch_frames=16 (warm-up, then the measured run,
+     during which K7 and K2 must launch and every batch must take the K2
+     arm); stock libzstd decodes it, the seek table lists 64 frames, the
+     first frame equals the plain versions', and the port's Reader reads
+     it back sequentially; 8 MiB of log-like lines (seed 13) written the
+     same way must take the XLA entropy arm in every batch and decode
+     through libzstd.
 
-Prints JSON lines for the write path, the read path, the LZ4 path and the
-kernels, the card's name and power limit, then as its last line {"ok": true,
+Prints JSON lines for the write path, the read path, the LZ4 path, the
+hash path and the kernels, the card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
 """
@@ -727,6 +739,128 @@ def phase_lz4(data, card, report) -> dict:
             "decoder_launches": read["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the per-block hash-parser path
+
+# K7's small check: one 16 KiB row from each quarter of the corpus
+K7_ROWS = [q * 16 * MIB for q in range(4)]
+
+
+def hash_rows(data, offsets, n=N):
+    """(x (B, n) uint8, lens) rows of `data` at `offsets`, as the hash
+    path lays them out (no context row)."""
+    import numpy as np
+    x = np.stack([np.frombuffer(data, np.uint8, n, off) for off in offsets])
+    return x, np.full(len(offsets), n, np.int32)
+
+
+def hash_write(data: bytes, device: str):
+    """`data` through Writer(sink, ZstdCodec(parser="hash")), 1 MiB frames
+    and writes, batch_frames=16: (archive, seconds, codec), the codec's
+    two entropy arms counted per batch in codec.arms."""
+    import torch
+    from libzseek_tpu_torch import Writer, ZstdCodec
+    codec = ZstdCodec(device=device, parser="hash")
+    codec.arms = {"smem": 0, "xla": 0}
+    for arm in codec.arms:
+        def counted(*a, _arm=arm, _fn=getattr(codec, f"_entropy_{arm}")):
+            codec.arms[_arm] += 1
+            return _fn(*a)
+        setattr(codec, f"_entropy_{arm}", counted)
+    sink = Sink()
+    w = Writer(sink, codec, min_frame_size=MIB, batch_frames=16)
+    t0 = time.perf_counter()
+    for pos in range(0, len(data), MIB):
+        w.write(data[pos: pos + MIB])
+    w.close()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return sink.value(), time.perf_counter() - t0, codec
+
+
+def phase_hash(data, card, report) -> dict:
+    """Phase 7: K7 against its plain version, then the hash-parser write
+    of the 64 MiB corpus and of 8 MiB of log-like lines."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import Reader
+    from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
+    from libzseek_tpu_torch.ops import entropy, hash_parse
+    from libzseek_tpu_torch.testing import golden
+    from libzseek_tpu_torch.testing.corpus import log_corpus
+    cuda = torch.device("cuda")
+    t = lambda a: torch.from_numpy(a).to(cuda)
+
+    small = [t(a) for a in hash_rows(data, K7_ROWS, 16384)]
+    e_small, _ = against_plain("K7 (4 rows)", hash_parse.hash_parse, small)
+    big = [t(a) for a in hash_rows(data, BATCH_ROWS)]
+    e_big, plain_ms = against_plain("K7 (64 rows)", hash_parse.hash_parse,
+                                    big)
+    n_seq = hash_parse.hash_parse(*big)[3]
+    # bytes: each row's bytes and length read, its n_seq sequences (three
+    # int32 each), n_seq and cover_end written; operations: at least one
+    # per input byte (the walk hashes or compares every byte)
+    nb = int(big[1].sum()) + nbytes(big[1]) + 12 * int(n_seq.sum()) + \
+        8 * len(BATCH_ROWS)
+    entry(report, "K7 hash_parse", "libzseek_tpu_torch/csrc/hash_parse.cu",
+          "libzseek_tpu/ops/pallas_match.py:37", [e_small, e_big],
+          time_cuda(lambda: hash_parse.hash_parse(*big)), plain_ms, nb,
+          int(big[1].sum()),
+          f"4 rows of 16 KiB, one per quarter; 64 rows of 128 KiB (8 "
+          f"frames x 8 blocks, two per quarter), {int(n_seq.sum())} "
+          f"sequences")
+    k7 = report[-1]
+
+    # the 64 MiB write
+    hash_write(data, "cuda")                        # warm-up
+    hash_parse.launches = entropy.launches = 0
+    archive, dt, codec = hash_write(data, "cuda")
+    k7["launches"] = hash_parse.launches
+    k2_launches = entropy.launches
+    check(hash_parse.launches > 0, "K7 never launched on the hash write")
+    check(k2_launches > 0, "K2 never launched on the hash write")
+    check(codec.arms["xla"] == 0, "a batch of the corpus took the XLA arm")
+    ratio = len(archive) / len(data)
+    print(f"hash write path: 64 MiB in {dt:.3f} s = {64 / dt:.2f} MiB/s, "
+          f"ratio {ratio:.5f} ({len(archive)} bytes); K7 launches "
+          f"{k7['launches']}, K2 launches {k2_launches}, arms "
+          f"{codec.arms}", flush=True)
+    check(golden.zstd_decompress(archive) == data,
+          "stock libzstd does not reproduce the hash archive")
+    table = parse_seek_table_bytes(archive)
+    check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
+    cpu_archive, cpu_dt, _ = hash_write(data[:MIB], "cpu")
+    check(frame_bytes(cpu_archive, parse_seek_table_bytes(cpu_archive), 0)
+          == frame_bytes(archive, table, 0),
+          "first hash frame differs between the card and the plain versions")
+    t0 = time.perf_counter()
+    with Reader(archive, device="cuda") as r:
+        got = read_all(r)
+    read_s = time.perf_counter() - t0
+    check(got == data, "the Reader's read of the hash archive differs")
+    print(f"hash archive: libzstd decode equal, 64 frames, first frame equal "
+          f"to plain (CPU, {cpu_dt:.1f} s), sequential Reader read equal "
+          f"({64 / read_s:.2f} MiB/s)", flush=True)
+
+    # 8 MiB of log-like lines: every batch keeps > 4096 sequences a block
+    logs = log_corpus(np.random.default_rng(13), 8 * MIB).tobytes()
+    hash_write(logs[:2 * MIB], "cuda")               # warm-up
+    log_archive, log_dt, log_codec = hash_write(logs, "cuda")
+    check(log_codec.arms["xla"] > 0 and log_codec.arms["smem"] == 0,
+          f"the log-like write took arms {log_codec.arms}")
+    check(golden.zstd_decompress(log_archive) == logs,
+          "stock libzstd does not reproduce the log-like archive")
+    log_ratio = len(log_archive) / len(logs)
+    print(f"hash write, log-like 8 MiB: {log_dt:.3f} s = {8 / log_dt:.2f} "
+          f"MiB/s, ratio {log_ratio:.5f}, arms {log_codec.arms}; libzstd "
+          f"decode equal", flush=True)
+    return {"card": card, "write_mib_s": 64 / dt, "ratio": ratio,
+            "read_mib_s": 64 / read_s, "k7_launches": k7["launches"],
+            "k2_launches": k2_launches, "arms": codec.arms,
+            "log_write_mib_s": 8 / log_dt, "log_ratio": log_ratio,
+            "log_arms": log_codec.arms}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "libzseek_tpu_torch")):
         fail("libzseek_tpu_torch is not beside chip_smoke.py")
@@ -826,11 +960,15 @@ def main() -> None:
     # phase 6
     lz4_path = phase_lz4(data, card, report)
 
+    # phase 7
+    hash_path = phase_hash(data, card, report)
+
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
           flush=True)
     print(json.dumps({"read_path": read}), flush=True)
     print(json.dumps({"lz4_path": lz4_path}), flush=True)
+    print(json.dumps({"hash_path": hash_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,7 @@ SIGNATURES = {
     "zk_decode": [_P] * 8 + [_I] * 4 + [_P] * 4,
     "zk_lz4_emit": [_P] * 3 + [_I] * 6 + [_P] * 4,
     "zk_lz4_decode": [_P] * 3 + [_I] * 6 + [_P] * 4,
+    "zk_hash_parse": [_P] * 2 + [_I] * 4 + [_P] * 5,
 }
 
 _lock = threading.Lock()

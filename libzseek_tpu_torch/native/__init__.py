@@ -1,9 +1,11 @@
 """The port's native host library (zn.cc beside this file), bound with
 ctypes.
 
-Counterpart of libzseek_tpu/native/__init__.py, cut to the four entry
-points the port calls.  The library is built at first use with
-`c++ -O2 -std=c++17 -shared -fPIC` into `build/torch_native/` at the
+Counterpart of libzseek_tpu/native/__init__.py, cut to the entry points
+the port calls, plus `gate_entropy` (the hash parser's gate scale, which
+the reference computes on its device).  The library is built at first use
+with `c++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off` (no fused
+multiply-adds but the ones zn.cc writes) into `build/torch_native/` at the
 repository root (a gitignored directory), named by a hash of the source
 and flags, exactly as kernels/__init__.py builds the CUDA kernels: an
 edited source rebuilds, an unchanged one loads at once, and concurrent
@@ -32,7 +34,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "zn.cc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "torch_native")
-CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _lib = None
@@ -62,6 +64,13 @@ def library() -> ctypes.CDLL:
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.zn_huf_build_batch.argtypes = [u32p, ctypes.c_int, i32p, i32p,
+                                           u8p, i32p, i32p]
+        lib.zn_huf_build_batch.restype = None
+        lib.zn_gate_entropy.argtypes = [i32p, ctypes.c_int, f32p]
+        lib.zn_gate_entropy.restype = None
         lib.zn_huf_tree_batch.argtypes = [u8p, ctypes.c_int, u8p, i32p]
         lib.zn_huf_tree_batch.restype = None
         lib.zn_xxh64.argtypes = [ctypes.c_char_p, ctypes.c_int64,
@@ -76,6 +85,37 @@ def library() -> ctypes.CDLL:
         lib.zn_lz4_decode.restype = ctypes.c_int64
         _lib = lib
         return lib
+
+
+def huf_build_batch(hists: np.ndarray):
+    """hists: (nh, 256) uint32 -> (lengths (nh, 256) int32, codes (nh,
+    256) int32, trees list[bytes | None], max_bits (nh,) int32).
+    max_bits 0 = degenerate (< 2 symbols), -1 = unserializable tree."""
+    lib = library()
+    nh = hists.shape[0]
+    hists = np.ascontiguousarray(hists, np.uint32)
+    lengths = np.zeros((nh, 256), np.int32)
+    codes = np.zeros((nh, 256), np.int32)
+    trees = np.zeros((nh, 200), np.uint8)
+    tree_lens = np.zeros(nh, np.int32)
+    max_bits = np.zeros(nh, np.int32)
+    lib.zn_huf_build_batch(hists.reshape(-1), nh, lengths.reshape(-1),
+                           codes.reshape(-1), trees.reshape(-1), tree_lens,
+                           max_bits)
+    tree_list = [trees[i, : tree_lens[i]].tobytes() if max_bits[i] > 0
+                 else None for i in range(nh)]
+    return lengths, codes, tree_list, max_bits
+
+
+def gate_entropy(hists: np.ndarray) -> np.ndarray:
+    """(nh, 256) byte histograms -> (nh,) float32 entropy in bits, clipped
+    to [1, 8], equal bit for bit to the reference's XLA computation on the
+    CPU (zn.cc zn_gate_entropy)."""
+    lib = library()
+    hists = np.ascontiguousarray(hists, np.int32)
+    out = np.zeros(hists.shape[0], np.float32)
+    lib.zn_gate_entropy(hists.reshape(-1), hists.shape[0], out)
+    return out
 
 
 def huf_tree_batch(weights: np.ndarray) -> list[bytes | None]:

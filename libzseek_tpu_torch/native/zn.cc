@@ -9,15 +9,22 @@
 //   * zn_huf_tree_batch: Huffman tree-description serialization (direct
 //     4-bit weights or FSE-compressed weights, whichever is smaller,
 //     RFC 8878 §4.2.1.2) from the weights the device plan builds;
+//   * zn_huf_build_batch: per-block literal Huffman tables on the host
+//     (length-limited package-merge, canonical values, serialization),
+//     the hash-parser path's table decisions;
+//   * zn_gate_entropy: the hash parser's gate entropy, bit for bit as the
+//     reference's XLA code computes it on the CPU (not in the reference's
+//     native library: the reference computes it on its device);
 //   * zn_xxh64: XXH64, the seek table's per-frame checksum;
 //   * zn_lz4_decode: one LZ4 block into a frame buffer, the LZ4 codec's
 //     host decode route.
 //
 // A plain C ABI consumed through ctypes.  libzseek_tpu_torch/native/
-// __init__.py compiles this file with `c++ -O2 -std=c++17 -shared -fPIC`
-// at first use into build/torch_native/.
+// __init__.py compiles this file with `c++ -O2 -std=c++17 -shared -fPIC
+// -ffp-contract=off` at first use into build/torch_native/.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -59,6 +66,121 @@ struct BitWriter {
 };
 
 int highbit(uint32_t v) { return 31 - __builtin_clz(v); }
+
+// ---------------------------------------------------------------------------
+// package-merge length-limited Huffman (exact optimal under max_bits)
+// ---------------------------------------------------------------------------
+void package_merge(const uint32_t* hist, int n_sym, int max_bits,
+                   int32_t* lengths /*256*/) {
+  std::memset(lengths, 0, 256 * sizeof(int32_t));
+  std::vector<int> syms;
+  for (int s = 0; s < n_sym; ++s)
+    if (hist[s]) syms.push_back(s);
+  int n = (int)syms.size();
+  if (n == 0) return;
+  if (n == 1) {
+    lengths[syms[0]] = 1;
+    return;
+  }
+  // item = (weight, per-symbol multiplicity)
+  struct Item {
+    uint64_t w;
+    std::vector<uint16_t> cnt;
+  };
+  auto cmp = [](const Item& a, const Item& b) { return a.w < b.w; };
+  std::vector<Item> base(n);
+  for (int i = 0; i < n; ++i) {
+    base[i].w = hist[syms[i]];
+    base[i].cnt.assign(n, 0);
+    base[i].cnt[i] = 1;
+  }
+  std::sort(base.begin(), base.end(), cmp);
+  // list_1 = base; list_j = merge(base, package(list_{j-1})); take the
+  // 2n-2 cheapest items of list_max_bits (max_bits - 1 package steps)
+  std::vector<Item> lst(base);
+  for (int it = 0; it < max_bits - 1; ++it) {
+    std::vector<Item> packaged;
+    for (size_t k = 0; k + 1 < lst.size(); k += 2) {
+      Item x;
+      x.w = lst[k].w + lst[k + 1].w;
+      x.cnt.assign(n, 0);
+      for (int i = 0; i < n; ++i)
+        x.cnt[i] = lst[k].cnt[i] + lst[k + 1].cnt[i];
+      packaged.push_back(std::move(x));
+    }
+    std::vector<Item> merged;
+    merged.reserve(packaged.size() + base.size());
+    std::merge(packaged.begin(), packaged.end(), base.begin(), base.end(),
+               std::back_inserter(merged), cmp);
+    lst = std::move(merged);
+  }
+  int take = std::min<int>(2 * (n - 1), (int)lst.size());
+  std::vector<uint32_t> lcount(n, 0);
+  for (int k = 0; k < take; ++k)
+    for (int i = 0; i < n; ++i) lcount[i] += lst[k].cnt[i];
+  for (int i = 0; i < n; ++i) lengths[syms[i]] = (int32_t)lcount[i];
+}
+
+// zstd canonical code values: longest first, symbol order within a length
+void canonical_codes(const int32_t* lengths, int32_t* codes /*256*/,
+                     int* max_used_out) {
+  int max_used = 0;
+  for (int s = 0; s < 256; ++s) max_used = std::max(max_used, (int)lengths[s]);
+  std::vector<int> nb_per_rank(max_used + 2, 0);
+  for (int s = 0; s < 256; ++s)
+    if (lengths[s] > 0) nb_per_rank[lengths[s]]++;
+  std::vector<int64_t> val_per_rank(max_used + 2, 0);
+  int64_t mn = 0;
+  for (int nb = max_used; nb > 0; --nb) {
+    val_per_rank[nb] = mn;
+    mn += nb_per_rank[nb];
+    mn >>= 1;
+  }
+  std::vector<int64_t> cursor(val_per_rank);
+  for (int s = 0; s < 256; ++s) {
+    codes[s] = lengths[s] > 0 ? (int32_t)cursor[lengths[s]]++ : 0;
+  }
+  *max_used_out = max_used;
+}
+
+// ---------------------------------------------------------------------------
+// the hash parser's gate entropy, float for float as the reference computes
+// it under XLA on the CPU
+// ---------------------------------------------------------------------------
+// XLA's CPU backend lowers a float32 log to the Cephes polynomial below and
+// lets LLVM fuse its multiply-adds (TargetOptions AllowFPOpFusion = Fast);
+// fmaf here stands for each fused pair, and every other step is one
+// rounded float operation (this file is built with -ffp-contract=off).
+float xla_logf(float in) {
+  const float P0 = 0x1.204376p-4f, P1 = -0x1.d7a370p-4f,
+              P2 = 0x1.de4a34p-4f, P3 = -0x1.fcba9ep-4f,
+              P4 = 0x1.23d37ep-3f, P5 = -0x1.555ca0p-3f,
+              P6 = 0x1.999d58p-3f, P7 = -0x1.fffff8p-3f,
+              P8 = 0x1.555554p-2f, Q1 = -0x1.bd0106p-13f,
+              Q2 = 0x1.63p-1f, SQRTHF = 0x1.6a09e6p-1f;
+  const float MIN_NORM = 0x1p-126f;
+  float x = MIN_NORM >= in ? MIN_NORM : in;
+  uint32_t bits;
+  std::memcpy(&bits, &x, 4);
+  float e = 1.0f + (float)((int32_t)(bits >> 23) - 127);
+  uint32_t mbits = (bits & 0x807fffffu) | 0x3f000000u;  // mantissa in [.5, 1)
+  float m;
+  std::memcpy(&m, &mbits, 4);
+  bool low = m < SQRTHF;
+  float t = (m - 1.0f) + (low ? m : 0.0f);
+  e = e - (low ? 1.0f : 0.0f);
+  float t2 = t * t, t3 = t2 * t;
+  float y = std::fmaf(t, P0, P1), y1 = std::fmaf(t, P3, P4),
+        y2 = std::fmaf(t, P6, P7);
+  y = std::fmaf(y, t, P2);
+  y1 = std::fmaf(y1, t, P5);
+  y2 = std::fmaf(y2, t, P8);
+  y = std::fmaf(y, t3, y1);
+  y = std::fmaf(y, t3, y2);
+  y = std::fmaf(y, t3, Q1 * e);
+  float s = std::fmaf(-0.5f, t2, t) + y;
+  return std::fmaf(Q2, e, s);
+}
 
 // ---------------------------------------------------------------------------
 // FSE (RFC 8878 §4.1): normalization, table build, ncount serialization
@@ -248,6 +370,92 @@ bool write_weights_fse(const uint8_t* weights, int n,
 }  // namespace
 
 extern "C" {
+
+// Build the zstd literal Huffman table for one histogram.
+//   hist: uint32[256]; lengths, codes: int32[256] out (0 = unused,
+//   canonical values); tree: uint8[200] out, the serialized description;
+//   tree_len: out.
+// Returns max_bits (> 0), 0 if the table is degenerate (< 2 symbols), -1
+// if the description cannot be serialized.
+int zn_huf_build(const uint32_t* hist, int32_t* lengths, int32_t* codes,
+                 uint8_t* tree, int32_t* tree_len) {
+  package_merge(hist, 256, 11, lengths);
+  int n_used = 0, last = -1;
+  for (int s = 0; s < 256; ++s)
+    if (lengths[s] > 0) {
+      n_used++;
+      last = s;
+    }
+  if (n_used < 2) return 0;
+  int max_bits = 0;
+  canonical_codes(lengths, codes, &max_bits);
+  // weights: maxBits + 1 - length, last symbol implied
+  std::vector<uint8_t> weights(last);
+  for (int s = 0; s < last; ++s)
+    weights[s] = lengths[s] > 0 ? (uint8_t)(max_bits + 1 - lengths[s]) : 0;
+  std::vector<uint8_t> fsec;
+  bool have_fse = write_weights_fse(weights.data(), (int)weights.size(), fsec);
+  // direct: header 127+num, 4-bit nibbles
+  std::vector<uint8_t> direct;
+  if ((int)weights.size() <= 127) {
+    direct.push_back((uint8_t)(127 + weights.size()));
+    for (size_t i = 0; i < weights.size(); i += 2) {
+      uint8_t hi = weights[i] << 4;
+      uint8_t lo = i + 1 < weights.size() ? weights[i + 1] : 0;
+      direct.push_back(hi | lo);
+    }
+  }
+  const std::vector<uint8_t>* best = nullptr;
+  if (have_fse && (!direct.size() || fsec.size() < direct.size()))
+    best = &fsec;
+  else if (direct.size())
+    best = &direct;
+  if (!best) return -1;
+  if (best->size() > 200) return -1;
+  std::memcpy(tree, best->data(), best->size());
+  *tree_len = (int32_t)best->size();
+  return max_bits;
+}
+
+// Batched variant: nh histograms in a row-major (nh, 256) array.
+// outputs: lengths/codes (nh, 256), trees (nh, 200), tree_lens (nh),
+// max_bits (nh).  The hash-parser path's per-block literal tables.
+void zn_huf_build_batch(const uint32_t* hists, int nh, int32_t* lengths,
+                        int32_t* codes, uint8_t* trees, int32_t* tree_lens,
+                        int32_t* max_bits) {
+  for (int i = 0; i < nh; ++i) {
+    max_bits[i] = zn_huf_build(hists + 256 * i, lengths + 256 * i,
+                               codes + 256 * i, trees + 200 * i,
+                               tree_lens + i);
+  }
+}
+
+// The hash parser's gate entropy per row of nh (nh, 256) int32 byte
+// histograms: H = -sum p log2 p over p = count / max(total, 1), clipped to
+// [1, 8], in XLA's order of operations: log2 as log times 1.44269502f,
+// the 256 terms summed as eight sequential windows of 32, and the window
+// sums summed in order.
+void zn_gate_entropy(const int32_t* hists, int nh, float* out) {
+  const float LOG2E = 0x1.715476p+0f, TINY = 0x1.12e0bep-30f;  // 1e-9f
+  for (int i = 0; i < nh; ++i) {
+    const int32_t* h = hists + 256 * i;
+    int32_t total = 0;
+    for (int s = 0; s < 256; ++s) total += h[s];
+    float denom = std::max((float)total, 1.0f);
+    float acc = 0.0f;
+    for (int w = 0; w < 8; ++w) {
+      float win = 0.0f;
+      for (int s = 32 * w; s < 32 * w + 32; ++s) {
+        float p = (float)h[s] / denom;
+        float term = 0.0f;
+        if (p > 0.0f) term = p * (xla_logf(std::max(p, TINY)) * LOG2E);
+        win = win + term;
+      }
+      acc = acc + win;
+    }
+    out[i] = std::min(std::max(-acc, 1.0f), 8.0f);
+  }
+}
 
 // Serialize tree descriptions from device-built weight tables (the
 // Huffman tables themselves are constructed on the GPU by

@@ -1,12 +1,21 @@
-"""zstd block encoder, linked-parse subset: the stages around K1.
+"""zstd block encoder: the stages around K1 (the linked parse) and K7
+(the per-block hash parse).
 
 Counterparts in libzseek_tpu/ops/zstd_encode.py: GATE_FIXED_BITS (:39),
-_const_byte (:79), compact_payload (:544), _hist_quarters (:596),
-_rep1_rewrite (:612), block_entropy_h16 (:668), _linked_post (:695),
-level_search_params (:740), apply_ldm_override (:768),
-ldm_literal_stats (:833) and zstd_sequences_linked (:862).  The `ZN_*`
-environment knobs of the reference are not ported; their defaults are
-constants here.
+SORT_GATE_BITS (:41), _const_byte (:79), _fast_post (:416),
+_fast_post_nolit (:473), extract_literals (:525), compact_payload (:544),
+_hist_quarters (:596), _rep1_rewrite (:612), block_entropy_h16 (:668),
+_linked_post (:695), level_search_params (:740), apply_ldm_override
+(:768), ldm_literal_stats (:833), zstd_sequences_linked (:862),
+zstd_sequences_fast (:895) and zstd_sequences_fast_nolit (:905).  The
+`ZN_*` environment knobs of the reference are not ported; their defaults
+are constants here.
+
+Both float entropies are taken on the host from a device histogram, so
+the card and the CPU agree: h16 is rounded to 1/16 bit, but the hash
+path's gate compares ml * H with an integer cost unrounded, where one ulp
+of H flips a sequence, so gate_entropy reproduces the reference's XLA
+arithmetic bit for bit (native zn_gate_entropy).
 """
 
 from __future__ import annotations
@@ -14,13 +23,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from libzseek_tpu_torch import native
 from libzseek_tpu_torch.errors import ParameterError
 from libzseek_tpu_torch.ops import common as C
 from libzseek_tpu_torch.ops.common import u32_to_i32
+from libzseek_tpu_torch.ops.entropy import exp_of
+from libzseek_tpu_torch.ops.hash_parse import hash_parse
 from libzseek_tpu_torch.ops.parse_linked import parse_linked
 
 # fixed per-sequence bit cost the in-kernel profitability gate charges
 GATE_FIXED_BITS = 14
+# the hash parse's gate: fixed bits per sequence on top of the offset's
+SORT_GATE_BITS = 20.0
 # the gate's cost scale samples this many leading bytes of each block
 H16_SAMPLE = 32768
 
@@ -133,6 +147,102 @@ def _linked_post(x, lengths, ll, ml, offv, n_seq, cover, cap: int,
                 const=_const_byte(x, lengths, in_range), lit_mask=lit_mask)
 
 
+def gate_entropy(hist: torch.Tensor) -> torch.Tensor:
+    """(B, 256) byte histograms -> (B,) float32 byte entropy in bits,
+    clipped to [1, 8], on the histogram's device: the hash gate's cost
+    scale, computed on the host as the reference's XLA code does."""
+    h = native.gate_entropy(hist.cpu().numpy())
+    return torch.from_numpy(h).to(hist.device)
+
+
+def _fast_post(x, lengths, ll, ml, offv, n_seq, cover, cap: int,
+               plane: bool = True):
+    """The hash parse's profitability gate and recompaction after K7: a
+    sequence stays when ml * H > SORT_GATE_BITS + floor(log2(offv)), and
+    the literal runs around dropped ones re-join; then the literal
+    statistics and, with `plane`, the compacted literal plane (the XLA
+    entropy arm's input)."""
+    B, N = x.shape
+    dev = x.device
+    seq_end = torch.cumsum(ll + ml, 1, dtype=torch.int32)
+    seq_start = seq_end - ml
+    idx = torch.arange(cap, device=dev)[None, :]
+    valid = idx < n_seq[:, None]
+    in_range = torch.arange(N, device=dev)[None, :] < lengths[:, None]
+    H = gate_entropy(C.hist256(x, in_range))
+    cost = SORT_GATE_BITS + exp_of(torch.clamp(offv, min=1)) \
+        .to(torch.float32)
+    keep = valid & (ml.to(torch.float32) * H[:, None] > cost)
+    rank = torch.cumsum(keep, 1, dtype=torch.int32) - 1
+    n2 = keep.sum(1, dtype=torch.int32)
+    zero = torch.zeros((B, cap), dtype=torch.int32, device=dev)
+    start_k, end_k, off_k = (C.scatter1_set(zero, rank, v, keep)
+                             for v in (seq_start, seq_end, offv))
+    valid2 = idx < n2[:, None]
+    prev_end = torch.nn.functional.pad(end_k[:, :-1], (1, 0))
+    ll2 = torch.where(valid2, start_k - prev_end, zero)
+    ml2 = torch.where(valid2, end_k - start_k, zero)
+    off2 = _rep1_rewrite(torch.where(valid2, off_k, zero), ll2, valid2)
+    cover2 = torch.where(valid2, end_k, zero).max(1).values
+    is_lit = ~C.fill_regions(N, start_k, end_k, valid2) & in_range
+    lit_count = is_lit.sum(1, dtype=torch.int32)
+    hist_q = _hist_quarters(x, is_lit, lit_count)
+    out = dict(ll=ll2, ml=ml2, offv=off2, n_seq=n2,
+               last_literals=lengths - cover2, lit_count=lit_count,
+               hist=hist_q.sum(1, dtype=torch.int32), hist_q=hist_q,
+               const=_const_byte(x, lengths, in_range))
+    if plane:
+        out["literals"] = _literal_plane(x, is_lit)
+    return out
+
+
+def _fast_post_nolit(x, lengths, ll, ml, offv, n_seq, cover, cap: int):
+    """_fast_post without the literal plane (K2 reads literals from the
+    raw rows)."""
+    return _fast_post(x, lengths, ll, ml, offv, n_seq, cover, cap,
+                      plane=False)
+
+
+def _literal_plane(x, is_lit):
+    """(B, N) uint8: each row's literal bytes compacted to its front."""
+    rank = C.exclusive_cumsum(is_lit.to(torch.int32), dim=1)
+    return C.scatter1_set(torch.zeros_like(x), rank, x, is_lit)
+
+
+def extract_literals(x, lengths, ll, ml, n_seq):
+    """The compacted literal plane of final sequences (B, N) uint8: the
+    XLA entropy arm's input when the parse did not make one."""
+    B, N = x.shape
+    cap = ll.shape[1]
+    dev = x.device
+    seq_end = torch.cumsum(ll + ml, 1, dtype=torch.int32)
+    valid = torch.arange(cap, device=dev)[None, :] < n_seq[:, None]
+    in_match = C.fill_regions(N, seq_end - ml, seq_end, valid)
+    is_lit = ~in_match & (torch.arange(N, device=dev)[None, :]
+                          < lengths[:, None])
+    return _literal_plane(x, is_lit)
+
+
+def zstd_sequences_fast(x: torch.Tensor, lengths: torch.Tensor):
+    """K7 plus the gate, with the literal plane (the XLA entropy arm)."""
+    span = torch.profiler.record_function
+    with span("zseek.parse"):
+        ll, ml, offv, n_seq, cover = hash_parse(x, lengths)
+    with span("zseek.fast_post"):
+        return _fast_post(x, lengths, ll, ml, offv, n_seq, cover,
+                          ll.shape[1])
+
+
+def zstd_sequences_fast_nolit(x: torch.Tensor, lengths: torch.Tensor):
+    """K7 plus the gate, without the literal plane (the K2 arm)."""
+    span = torch.profiler.record_function
+    with span("zseek.parse"):
+        ll, ml, offv, n_seq, cover = hash_parse(x, lengths)
+    with span("zseek.fast_post"):
+        return _fast_post_nolit(x, lengths, ll, ml, offv, n_seq, cover,
+                                ll.shape[1])
+
+
 def level_search_params(level: int) -> dict:
     """zstd compression level -> linked-parse search effort (the level
     <= 3 rows of the reference's ladder)."""
@@ -167,12 +277,14 @@ def zstd_sequences_linked(x2: torch.Tensor, lengths: torch.Tensor,
 
 
 def apply_ldm_override(seqs: dict, spans: np.ndarray, lengths: np.ndarray,
-                       lit_hist: np.ndarray) -> dict:
+                       lit_hist: np.ndarray,
+                       lit_plane: np.ndarray | None = None) -> dict:
     """Replace covered blocks' parse output with the single long-match
     sequence of the LDM pre-pass (native zn_ldm_scan): spans (B, 3)
     [dist, s, e), lit_hist (B, 4, 256) per-stream literal histograms of
-    the covered rows' remaining literals.  Covered rows' literal bitmask
-    is rebuilt from the span."""
+    the covered rows' remaining literals, lit_plane (B, N) their literal
+    rows, for sequences that carry a literal plane.  Covered rows'
+    literal bitmask, where there is one, is rebuilt from the span."""
     dev = seqs["ll"].device
     t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
     cm = torch.from_numpy(spans[:, 0] > 0).to(dev)
@@ -196,6 +308,12 @@ def apply_ldm_override(seqs: dict, spans: np.ndarray, lengths: np.ndarray,
     out["hist_q"] = torch.where(cm[:, None, None], t(lit_hist),
                                 seqs["hist_q"])
     out["hist"] = out["hist_q"].sum(1).to(torch.int32)
+    if lit_plane is not None and "literals" in seqs:
+        out["literals"] = torch.where(
+            cm[:, None], torch.from_numpy(lit_plane).to(dev),
+            seqs["literals"])
+    if "lit_mask" not in seqs:
+        return out
     NW32 = seqs["lit_mask"].shape[1]
     w0 = torch.arange(NW32, device=dev, dtype=torch.int64)[None, :] * 32
     lo = torch.clamp(sv[:, None].long() - w0, 0, 32)
@@ -228,6 +346,20 @@ def ldm_literal_stats(spans: np.ndarray, blocks, Bp: int):
                 if len(part):
                     hist[i, k] = np.bincount(part, minlength=256)
     return spans_p, hist
+
+
+def ldm_literal_plane(spans: np.ndarray, blocks, Bp: int, N: int):
+    """(Bp, N) uint8 literal rows [block[:s] || block[e:]] of the
+    LDM-covered blocks (zeros elsewhere), for sequences that carry a
+    literal plane."""
+    plane = np.zeros((Bp, N), np.uint8)
+    for i in range(len(spans)):
+        d, s, e = spans[i]
+        if d > 0:
+            blk = np.asarray(blocks[i])
+            lits = np.concatenate([blk[:s], blk[e:]])
+            plane[i, : len(lits)] = lits
+    return plane
 
 
 def compact_payload(lit_words: torch.Tensor, lit_bytes: torch.Tensor,

@@ -1,11 +1,12 @@
 """Where one write of the port's main path, and one read of what it
 wrote, spend their time on the GPU.
 
-    python -m libzseek_tpu_torch.profile_write [zstd|lz4]
+    python -m libzseek_tpu_torch.profile_write [zstd|lz4|hash]
 
 Writes 64 MiB of mixed_corpus(seed 11) through the port's Writer with
-the codec named (zstd, the default, at level 3; lz4 at level 0; 1 MiB
-frames, batch_frames=16, 1 MiB writes), once to warm up
+the codec named (zstd, the default, at level 3; lz4 at level 0; hash,
+ZstdCodec(parser="hash") at level 3; 1 MiB frames, batch_frames=16,
+1 MiB writes), once to warm up
 and once under torch.profiler with CPU and CUDA activities; then reads
 the archive back through the port's Reader(device="cuda") in 1 MiB
 reads, likewise once to warm up and once profiled.  For each, prints
@@ -37,7 +38,9 @@ SIZE_MIB = 64    # the main path's write (bench.py, chip_smoke.py)
 
 def _write(data: bytes, codec: str = "zstd") -> bytes:
     import torch
-    from libzseek_tpu_torch import Writer
+    from libzseek_tpu_torch import Writer, ZstdCodec
+    if codec == "hash":
+        codec = ZstdCodec(device="cuda", parser="hash")
     sink = io.BytesIO()
     w = Writer(sink, codec, device="cuda", min_frame_size=MIB,
                batch_frames=16)
@@ -121,8 +124,9 @@ def main(argv: list[str]) -> int:
     import torch
     from libzseek_tpu_torch.testing.corpus import mixed_corpus
     codec = argv[0] if argv else "zstd"
-    if codec not in ("zstd", "lz4") or len(argv) > 1:
-        print("usage: python -m libzseek_tpu_torch.profile_write [zstd|lz4]",
+    if codec not in ("zstd", "lz4", "hash") or len(argv) > 1:
+        print("usage: python -m libzseek_tpu_torch.profile_write "
+              "[zstd|lz4|hash]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

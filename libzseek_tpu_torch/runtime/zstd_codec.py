@@ -1,8 +1,10 @@
 """zstd seekable-frame codec on the GPU: the level <= 3 write path and
 the read path.
 
-Counterpart of libzseek_tpu/runtime/zstd_codec.py ZstdCodec with
-parser="linked", entropy="smem" (the reference's device chain):
+Counterpart of libzseek_tpu/runtime/zstd_codec.py ZstdCodec with its
+`parser` ("auto" = "linked", "linked", "hash") and `entropy` ("auto",
+"smem", "xla") keywords (:119-181).  The device chain (parser="linked",
+entropy "auto" or "smem"):
 
   host:   batch layout (Bp+1, N) with Bp = max(8, pow2) rows, row r+1 =
           block r and row r its context, min_abs frame fences, and the
@@ -16,12 +18,29 @@ parser="linked", entropy="smem" (the reference's device chain):
           tree serialization and frame assembly (_finish_chain, :511;
           _assemble, :1039; _assemble_frames, :216).
 
+The per-block path (parser="hash", or entropy="xla" with either parser):
+
+  host:   batch layout (Bp, N), no context row, and the long-distance
+          pre-pass (:354-394);
+  device: K7 hash parse -> gate and recompaction (_fast_post, with the
+          literal plane when the XLA arm is asked for) (:375-382);
+  host:   the small per-block results, Huffman tables per block (native
+          huf_build_batch) and literal-mode decisions (_finish_blocks,
+          _decide_modes, :641-791);
+  device: K2 with host-built codes and predefined sequence tables
+          (_entropy_smem, :819) or, when a block of the batch holds more
+          than SMEM_SEQ_MAX sequences, the XLA arm: literal extraction,
+          4-stream Huffman and FSE as torch ops with a host state walk
+          (_entropy_xla, :911; ops/xla_entropy.py); compaction;
+  host:   one fetch, the exact Huffman-to-raw fallback of the XLA arm,
+          and assembly with all-predefined sequence tables.
+
 The host assembly helpers are copies of the reference's (they sit in a
 module that imports JAX); the byte-identity tests hold them to it.  The
 reference's ZN_* environment knobs are not ported (their defaults are
-fixed), nor its `workers` round-robin and its adaptive vector-literal
-hint: every row K3 accepts goes through K3, with identical bits either
-way.
+fixed), nor its `workers` round-robin, its sort parser (ROADMAP A9) and
+its adaptive vector-literal hint: every row K3 accepts goes through K3,
+with identical bits either way.
 
 Decoding (decompress_frames, the Reader's codec call) is the fused
 route of the reference's decode_frames: host frame parse and row
@@ -46,11 +65,16 @@ from libzseek_tpu_torch.ops import entropy as E
 from libzseek_tpu_torch.ops import fse_plan as fpl
 from libzseek_tpu_torch.ops import huffman_plan as hp
 from libzseek_tpu_torch.ops import vector_entropy as VE
+from libzseek_tpu_torch.ops import xla_entropy as XE
 from libzseek_tpu_torch.ops import zstd_decode
 from libzseek_tpu_torch.ops.parse_linked import CAP
 from libzseek_tpu_torch.ops.zstd_encode import (apply_ldm_override,
                                                 compact_payload,
+                                                extract_literals,
+                                                ldm_literal_plane,
                                                 ldm_literal_stats,
+                                                zstd_sequences_fast,
+                                                zstd_sequences_fast_nolit,
                                                 zstd_sequences_linked)
 from libzseek_tpu_torch.utils.device import resolve_device
 
@@ -64,6 +88,10 @@ LDM_MIN_DIST = 1 << 17        # long-distance matches beyond the window
 MAX_BATCH_BLOCKS = 64         # blocks per device batch
 LIT_ANCHOR_INTERVAL = E.LIT_ANCHOR_INTERVAL
 SEQ_ANCHOR_INTERVAL = E.SEQ_ANCHOR_INTERVAL
+SMEM_SEQ_MAX = 4096   # beyond this many sequences in a block: the XLA arm
+SMEM_SEQ_MIN = 512    # lower bound on K2's sequence bucket
+PARSERS = ("linked", "hash")
+ENTROPIES = ("auto", "smem", "xla")
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -136,7 +164,18 @@ class ZstdCodec:
     supports_device_frames = True
 
     def __init__(self, level: int = 3, device: str = "cuda",
-                 block: int = BLOCK):
+                 block: int = BLOCK, parser: str = "auto",
+                 entropy: str = "auto"):
+        if parser == "sort":
+            raise ParameterError(
+                'parser="sort": the sort parser is not ported (ROADMAP A9)')
+        parser = "linked" if parser == "auto" else parser
+        if parser not in PARSERS:
+            raise ParameterError(f"unknown parser {parser!r}: one of "
+                                 f"'auto', {', '.join(map(repr, PARSERS))}")
+        if entropy not in ENTROPIES:
+            raise ParameterError(f"unknown entropy {entropy!r}: one of "
+                                 f"{', '.join(map(repr, ENTROPIES))}")
         if level >= 4:
             raise ParameterError(
                 f"level {level}: the port compresses levels <= 3 only")
@@ -147,6 +186,12 @@ class ZstdCodec:
         self.level = level
         self.device = resolve_device(device)
         self.block = block
+        # "linked": K1 across each frame's blocks, the device chain;
+        # "hash": K7 on every block alone, the per-block path
+        self.parser = parser
+        # "auto"/"smem": K2 (the chain, or the per-block path's K2 arm while
+        # its blocks hold <= SMEM_SEQ_MAX sequences); "xla": the XLA arm
+        self.entropy = entropy
         # adaptive payload-fetch cap, sized from recent batches
         self._cap_hint: int | None = None
         self._needs = deque([1], maxlen=8)
@@ -215,36 +260,52 @@ class ZstdCodec:
 
     def _dispatch_parse(self, blocks: list[np.ndarray],
                         first_flags: list[bool] | None = None):
-        """Upload one batch and dispatch the device chain.  first_flags[i]
-        marks a frame's first block; frame starts and the batch start are
-        fenced off from the preceding row (min_abs)."""
+        """Upload one batch and dispatch its device stages.  first_flags[i]
+        marks a frame's first block; the linked parser fences frame starts
+        and the batch start off from the preceding row (min_abs)."""
+        linked = self.parser == "linked"
         with _span("zseek.layout"):
-            X, lens, min_abs, ldm, lens_parse = self._layout(blocks,
-                                                             first_flags)
+            X, lens, min_abs, ldm, lens_parse = self._layout(
+                blocks, first_flags, linked)
         dev = self.device
         t = lambda a: torch.from_numpy(a).to(dev)
+        B = len(blocks)
         X2d = t(X)
-        seqs = zstd_sequences_linked(
-            X2d, t(lens), t(min_abs), level=self.level,
-            parse_lengths=None if lens_parse is None else t(lens_parse))
+        if linked:
+            seqs = zstd_sequences_linked(
+                X2d, t(lens), t(min_abs), level=self.level,
+                parse_lengths=None if lens_parse is None else t(lens_parse))
+            X2d = X2d[1:]
+        elif self.entropy == "xla":
+            seqs = zstd_sequences_fast(X2d, t(lens))
+        else:
+            seqs = zstd_sequences_fast_nolit(X2d, t(lens))
         if ldm is not None:
-            seqs = apply_ldm_override(seqs, ldm[0], lens, ldm[1])
-        return self._dispatch_chain(seqs, lens[:len(blocks)], X2d[1:], lens)
+            plane = ldm_literal_plane(ldm[0], blocks, len(lens), self.block) \
+                if "literals" in seqs else None
+            seqs = apply_ldm_override(seqs, ldm[0], lens, ldm[1], plane)
+        if linked and self.entropy != "xla":
+            return self._dispatch_chain(seqs, lens[:B], X2d, lens)
+        packed = torch.cat([seqs["hist"].reshape(-1), seqs["lit_count"],
+                            seqs["n_seq"], seqs["const"]]).to(torch.int32)
+        return {"kind": "blocks", "seqs": seqs, "lens": lens[:B],
+                "x": X2d, "lens_pad": lens, "packed": packed}
 
-    def _layout(self, blocks, first_flags):
-        """Host batch layout: (Bp+1, N) rows with Bp = max(8, pow2), block
-        r in row r+1, lengths, min_abs fences, and the native
-        long-distance pre-pass."""
+    def _layout(self, blocks, first_flags, linked: bool = True):
+        """Host batch layout: Bp = max(8, pow2) rows of N bytes, block r in
+        row r+1 below a context row when `linked`, else in row r;
+        lengths, min_abs fences, and the native long-distance pre-pass."""
         B = len(blocks)
         Bp = max(8, 1 << max(0, (B - 1).bit_length()))
         N = self.block
-        X = np.zeros((Bp + 1, N), np.uint8)
+        off = 1 if linked else 0
+        X = np.zeros((Bp + off, N), np.uint8)
         lens = np.zeros((Bp,), np.int32)
         min_abs = np.zeros((Bp,), np.int32)
         frame_base = np.full((Bp,), -1, np.int64)
         fb = 0
         for i, blk in enumerate(blocks):
-            X[i + 1, : len(blk)] = blk
+            X[i + off, : len(blk)] = blk
             lens[i] = len(blk)
             first = (first_flags is None or first_flags[i] or i == 0
                      or len(blocks[i - 1]) < N)
@@ -255,19 +316,19 @@ class ZstdCodec:
         for i in range(B, Bp):
             min_abs[i] = (i + 1) * N
         # long-distance pre-pass (host, native): whole-block matches beyond
-        # the parse's window become single long-match sequences; covered
-        # rows skip the parse, except the last of each run, which keeps
-        # the hash table warm for the next uncovered block
+        # the parse's window become single long-match sequences; with the
+        # linked parser covered rows skip the parse, except the last of
+        # each run, which keeps the hash table warm for the next block
         ldm = None
         lens_parse = None
-        d = native.ldm_scan(X[1: B + 1].reshape(-1), B, N, frame_base[:B],
-                            lens[:B], LDM_MIN_DIST)
+        d = native.ldm_scan(X[off: B + off].reshape(-1), B, N,
+                            frame_base[:B], lens[:B], LDM_MIN_DIST)
         if (d[:, 0] > 0).any():
             ldm = ldm_literal_stats(d, blocks, Bp)
             cov = d[:, 0] > 0
             skip = cov.copy()
             skip[:-1] = cov[:-1] & cov[1:]
-            if skip.any():
+            if linked and skip.any():
                 lens_parse = lens.copy()
                 lens_parse[:B][skip] = 0
         return X, lens, min_abs, ldm, lens_parse
@@ -341,7 +402,8 @@ class ZstdCodec:
                  weights_packed, base_w, lw_w, osz, sflags, norms, rle_syms,
                  rep23, lanch, sanch]
         small = torch.cat([p.to(torch.int32).reshape(-1) for p in parts])
-        return {"B": len(lens), "Bp": Bp, "lens": lens, "small": small,
+        return {"kind": "chain", "B": len(lens), "Bp": Bp, "lens": lens,
+                "small": small,
                 "flat": flat, "cap_words": cap_words,
                 "streams": (lit_w, lit_bytes, seq_w, seq_bytes)}
 
@@ -424,12 +486,284 @@ class ZstdCodec:
             return self._assemble(B, lens, lit_count[:B], n_seq[:B], modes,
                                   trees, ent, const=const[:B], rle=rle_byte)
 
+    def _finish_blocks(self, staged):
+        """Finish one batch: the device chain's fetch and assembly, or the
+        per-block path's table decisions, entropy arm and assembly."""
+        if staged["kind"] == "chain":
+            return self._finish_chain(staged)
+        seqs, lens, x_dev = staged["seqs"], staged["lens"], staged["x"]
+        B = len(lens)
+        Bp = seqs["n_seq"].shape[0]
+        with _span("zseek.fetch"):
+            packed = staged["packed"].cpu().numpy()
+        hist = packed[: Bp * 256].reshape(Bp, 256)[:B]
+        lit_count = packed[Bp * 256: Bp * 257][:B]
+        n_seq = packed[Bp * 257: Bp * 258][:B]
+        const = packed[Bp * 258:][:B]
+        nmax = int(n_seq.max()) if B else 0
+        smax = min(max(16, 1 << max(0, nmax - 1).bit_length()),
+                   seqs["ll"].shape[1])
+        want_smem = self.entropy == "smem" or (
+            self.entropy == "auto" and "literals" not in seqs)
+        use_smem = want_smem and smax <= SMEM_SEQ_MAX
+        if "literals" not in seqs and not use_smem:
+            seqs = dict(seqs)
+            seqs["literals"] = extract_literals(
+                x_dev, torch.from_numpy(staged["lens_pad"]).to(x_dev.device),
+                seqs["ll"], seqs["ml"], seqs["n_seq"])
+        with _span("zseek.tables"):
+            modes, trees, ests, code_vals, code_bits = self._decide_modes(
+                hist, lit_count, n_seq, lens, Bp, exact=not use_smem,
+                const=const)
+        if use_smem:
+            ent = self._entropy_smem(seqs, x_dev, lens, lit_count, n_seq,
+                                     modes, ests, code_vals, code_bits, smax)
+        else:
+            ent = self._entropy_xla(seqs, lens, lit_count, n_seq, modes,
+                                    trees, ests, code_vals, code_bits, smax)
+        with _span("zseek.assemble"):
+            return self._assemble(B, lens, lit_count, n_seq, modes, trees,
+                                  ent, const=const, hist=hist)
+
+    def _decide_modes(self, hist, lit_count, n_seq, lens, Bp, exact,
+                      const):
+        """Per-block literal-section modes and Huffman tables: "rleblock",
+        "none", "rle", "raw", "huf", "huf1" or "skip" (stored raw, no
+        streams).  Without `exact` (the K2 arm) the Huffman-or-raw choice
+        uses the provable size bound, since K2's literals never reach the
+        host, and blocks below 256 literals take the 1-stream layout."""
+        B = len(lens)
+        code_vals = np.zeros((Bp, 256), np.int32)
+        code_bits = np.zeros((Bp, 256), np.int32)
+        trees: list[bytes | None] = [None] * B
+        modes: list[str] = ["raw"] * B
+        ests: list[int] = [0] * B
+        n_lengths, n_codes, n_trees, _mb = native.huf_build_batch(
+            hist.astype(np.uint32))
+        for i in range(B):
+            lc = int(lit_count[i])
+            blen = int(lens[i])
+            if blen > 4 and const[i] >= 0:
+                modes[i] = "rleblock"   # the whole block is one byte value
+                continue
+            if lc == 0:
+                modes[i] = "none"
+                continue
+            raw_hdr = 1 if lc < 32 else (2 if lc < 4096 else 3)
+            if np.count_nonzero(hist[i]) == 1:
+                modes[i] = "rle"
+                continue
+            if lc < 64:
+                ests[i] = lc + 8
+                continue  # raw literals
+            tree, lengths, codes = n_trees[i], n_lengths[i], n_codes[i]
+            if tree is None:
+                ests[i] = lc + 8
+                continue
+            one = lc < 256 and not exact   # 1-stream (K2 arm only)
+            jump = 0 if one else 6
+            pad = 2 if one else 8          # per-stream sentinel/rounding
+            est_bits = int(np.sum(hist[i] * lengths))
+            stream_bound = est_bits // 8 + pad
+            est = est_bits // 8 + len(tree) + jump + pad
+            if est >= lc:
+                ests[i] = lc + 8
+                continue
+            if not exact:
+                payload_bound = len(tree) + jump + stream_bound
+                hdr = 3 if (lc <= 1023 and payload_bound <= 1023) else \
+                    4 if (lc <= 16383 and payload_bound <= 16383) else 5
+                if hdr + payload_bound >= raw_hdr + lc:
+                    ests[i] = lc + 8
+                    continue
+            trees[i] = tree
+            modes[i] = "huf1" if one else "huf"
+            ests[i] = stream_bound
+            code_vals[i] = codes
+            code_bits[i] = lengths
+        # raw-literal rows whose minimal payload already reaches the block
+        # size are certain to be stored raw: no streams for them
+        for i in range(B):
+            if modes[i] != "raw":
+                continue
+            lc = int(lit_count[i])
+            raw_hdr = 1 if lc < 32 else (2 if lc < 4096 else 3)
+            if lc > 0 and raw_hdr + lc + 1 >= int(lens[i]):
+                modes[i] = "skip"
+                ests[i] = 0
+        return modes, trees, ests, code_vals, code_bits
+
+    def _fetch_payload(self, lit_w, lit_bytes, seq_w, seq_bytes, cap_words,
+                       arrays):
+        """compact_payload and one device-to-host transfer of the payload
+        with `arrays` (device tensors): (flat bytes, base_w, lw_w, the
+        arrays on the host in their shapes)."""
+        Bp = lit_w.shape[0]
+        with _span("zseek.compact"):
+            flat, base_w, lw_w = compact_payload(lit_w, lit_bytes, seq_w,
+                                                 seq_bytes, cap_words)
+        parts = [base_w, lw_w] + [a.reshape(-1) for a in arrays]
+        with _span("zseek.fetch"):
+            got = torch.cat([p.to(torch.int32) for p in parts + [flat]]) \
+                .cpu().numpy()
+        pos = 2 * Bp
+        outs = []
+        for a in arrays:
+            outs.append(got[pos: pos + a.numel()].reshape(a.shape))
+            pos += a.numel()
+        return got[pos:].view(np.uint8), got[:Bp], got[Bp: 2 * Bp], outs
+
+    @staticmethod
+    def _cap_words(ests, n_seq, Bp) -> int:
+        """Payload words the compaction reserves: the literal estimates,
+        9 bytes per sequence, and two 128-byte tiles of padding per row."""
+        cap_bytes = sum(e + 16 for e in ests) + \
+            int(np.sum(n_seq.astype(np.int64) * 9 + 12)) + 256 + 256 * Bp
+        return max(1024, 1 << int(cap_bytes // 4).bit_length())
+
+    @staticmethod
+    def _check_need(B, base_w, lw_w, seq_sizes, cap_words):
+        if B:
+            need = int(base_w[B - 1] + lw_w[B - 1]
+                       + (int(seq_sizes[B - 1]) + 3) // 4)
+            if need > cap_words:
+                raise RuntimeError(f"payload compaction overflow: {need} > "
+                                   f"{cap_words} words")
+
+    def _entropy_smem(self, seqs, x_dev, lens, lit_count, n_seq, modes,
+                      ests, code_vals, code_bits, smax):
+        """The K2 arm: host-built codes, per-stream byte sizes from the
+        per-stream histograms, predefined sequence tables."""
+        dev = x_dev.device
+        B = len(lens)
+        Bp = seqs["n_seq"].shape[0]
+        N = self.block
+        S = max(SMEM_SEQ_MIN, smax)
+        mode_bits = np.zeros((Bp,), np.int32)
+        for i in range(B):
+            m = modes[i]
+            if m == "huf":
+                mode_bits[i] = E.MODE_HUF | E.MODE_SEQ
+            elif m == "huf1":
+                mode_bits[i] = E.MODE_HUF | E.MODE_HUF1 | E.MODE_SEQ
+            elif m == "raw" and int(lit_count[i]) > 0:
+                mode_bits[i] = E.MODE_RAWLIT | E.MODE_SEQ
+            elif m in ("none", "rle", "raw"):
+                mode_bits[i] = E.MODE_SEQ
+        meta = np.zeros((Bp, 8), np.int32)
+        meta[:B, 0] = lens
+        meta[:B, 1] = lit_count
+        meta[:B, 2] = n_seq
+        meta[:B, 3] = mode_bits[:B]
+        # exact per-stream byte sizes place K2's four literal streams
+        hq = seqs["hist_q"][:B].cpu().numpy().astype(np.int64)
+        bits_q = np.sum(hq * code_bits[:B, None, :], axis=2)
+        for i in range(B):
+            if modes[i] == "huf":
+                meta[i, 4:8] = (bits_q[i] + 1 + 7) >> 3
+            elif modes[i] == "huf1":
+                meta[i, 4] = (int(bits_q[i].sum()) + 1 + 7) >> 3
+        codes = torch.from_numpy((code_vals << 4) | code_bits).to(dev)
+        cut = lambda a: a[:, :S].contiguous()
+        with _span("zseek.entropy"):
+            lit_w, seq_w, osz, lanch, sanch = E.entropy_emit(
+                x_dev, cut(seqs["ll"]), cut(seqs["ml"]), cut(seqs["offv"]),
+                torch.from_numpy(meta).to(dev), codes, S,
+                _ceil_to(N + 64, 128), _ceil_to(9 * S + 64, 128))
+        offv = seqs["offv"]
+        rep23 = ((offv == 2) | (offv == 3)).sum(1)
+        cap_words = self._cap_words(ests, n_seq, Bp)
+        flat_bytes, base_w, lw_w, (osz, lanch, sa, rep23) = \
+            self._fetch_payload(lit_w, osz[:, :4].sum(1), seq_w, osz[:, 4],
+                                cap_words, [osz, lanch, sanch, rep23])
+        self._check_need(B, base_w, lw_w, osz[:, 4], cap_words)
+        lit_rows = {i: flat_bytes[4 * int(base_w[i]):
+                                  4 * int(base_w[i]) + int(lit_count[i])]
+                    for i in range(B) if mode_bits[i] & E.MODE_RAWLIT}
+        return dict(sizes4=osz[:, :4], seq_sizes=osz[:, 4],
+                    flat_bytes=flat_bytes, base_w=base_w, lw_w=lw_w,
+                    lit_anchors=lanch, sa_bits=sa[:, 0],
+                    sa_states=np.stack([sa[:, 1], sa[:, 2], sa[:, 3]], 2),
+                    sa_rep1=sa[:, 4], lit_rows=lit_rows, modes=modes,
+                    rep23=rep23)
+
+    def _entropy_xla(self, seqs, lens, lit_count, n_seq, modes, trees,
+                     ests, code_vals, code_bits, smax):
+        """The XLA arm (ops/xla_entropy.py): 4-stream Huffman over the
+        literal plane of the "huf" rows and FSE with the predefined tables,
+        then the exact Huffman-to-raw fallback from the fetched sizes."""
+        dev = seqs["ll"].device
+        t = lambda a: torch.from_numpy(a).to(dev)
+        B = len(lens)
+        Bp = seqs["n_seq"].shape[0]
+        N = self.block
+        # rows already decided non-Huffman are masked out of the literal
+        # stage, so they do not widen it to the block size
+        huf = np.array([m == "huf" for m in modes], bool)
+        lit_count_huf = np.zeros((Bp,), np.int32)
+        lit_count_huf[:B] = np.where(huf, lit_count, 0)
+        lmax = int(lit_count_huf.max())
+        lcap = min(N, max(128, 1 << max(0, lmax - 1).bit_length()))
+        with _span("zseek.huffman"):
+            streams, sizes4, lanch = XE.huffman_encode_literals(
+                seqs["literals"][:, :lcap], t(lit_count_huf), t(code_vals),
+                t(code_bits), _ceil_to(lcap + 64, 128),
+                anchor_interval=LIT_ANCHOR_INTERVAL, return_words=True)
+        cut = lambda a: a[:, :smax]
+        with _span("zseek.fse"):
+            seq_w, seq_sizes, (sa_bits, sa_states, sa_rep1) = \
+                XE.fse_encode_sequences(
+                    cut(seqs["ll"]), cut(seqs["ml"]), cut(seqs["offv"]),
+                    seqs["n_seq"], _ceil_to(min(N // 2, 11 * smax) + 64, 128),
+                    smax=smax, anchor_interval=SEQ_ANCHOR_INTERVAL,
+                    return_words=True)
+        huf_mask = np.zeros((Bp,), np.int32)
+        huf_mask[:B] = huf
+        offv = seqs["offv"]
+        rep23 = ((offv == 2) | (offv == 3)).sum(1)
+        cap_words = self._cap_words(ests, n_seq, Bp)
+        flat_bytes, base_w, lw_w, outs = self._fetch_payload(
+            streams, sizes4.sum(1) * t(huf_mask), seq_w, seq_sizes,
+            cap_words, [sizes4, seq_sizes, lanch, sa_bits, sa_states,
+                        sa_rep1, rep23])
+        sizes4, seq_sizes, lanch, sa_bits, sa_states, sa_rep1, rep23 = outs
+        self._check_need(B, base_w, lw_w, seq_sizes, cap_words)
+        # the exact Huffman-or-raw choice, now that the sizes are known
+        for i in range(B):
+            if modes[i] != "huf":
+                continue
+            lc = int(lit_count[i])
+            payload_len = len(trees[i]) + 6 + int(sizes4[i].sum())
+            hdr = 3 if (lc <= 1023 and payload_len <= 1023) else \
+                4 if (lc <= 16383 and payload_len <= 16383) else 5
+            raw_hdr = 1 if lc < 32 else (2 if lc < 4096 else 3)
+            if hdr + payload_len >= raw_hdr + lc:
+                modes[i] = "raw"
+                trees[i] = None
+        need_rows = [i for i in range(B)
+                     if modes[i] == "raw" and lit_count[i] > 0]
+        lit_rows = {}
+        if need_rows:
+            with _span("zseek.fetch"):
+                picked = seqs["literals"][t(np.array(need_rows))].cpu() \
+                    .numpy()
+            lit_rows = {r: picked[k][: int(lit_count[r])]
+                        for k, r in enumerate(need_rows)}
+        return dict(sizes4=sizes4, seq_sizes=seq_sizes,
+                    flat_bytes=flat_bytes, base_w=base_w, lw_w=lw_w,
+                    lit_anchors=lanch, sa_bits=sa_bits, sa_states=sa_states,
+                    sa_rep1=sa_rep1, lit_rows=lit_rows, modes=modes,
+                    rep23=rep23)
+
     @staticmethod
     def _seq_table_desc(ent, i) -> bytes:
         """Compression-modes byte + table descriptions (RFC 8878
         §3.1.1.3.2.1): Predefined (0), RLE (1: one symbol byte) or
         FSE_Compressed (2: serialized normalized counts), in LL, OF, ML
-        order."""
+        order.  The per-block path plans no sequence tables: all
+        predefined."""
+        if "sflags" not in ent:
+            return bytes([0x00])
         fl = int(ent["sflags"][i])
         out = bytearray()
         modes2 = []
@@ -459,7 +793,7 @@ class ZstdCodec:
         return bytes(out)
 
     def _assemble(self, B, lens, lit_count, n_seq, modes, trees, ent,
-                  const, rle):
+                  const, rle=None, hist=None):
         """Build per-block payloads + decode hints from fetched streams."""
         sizes4 = ent["sizes4"]
         seq_sizes = ent["seq_sizes"]
@@ -487,7 +821,9 @@ class ZstdCodec:
             if modes[i] == "none":
                 lit_sec = _lit_section_raw(b"")
             elif modes[i] == "rle":
-                lit_sec = _lit_section_rle(int(rle[i]), lc)
+                b = int(rle[i]) if rle is not None \
+                    else int(np.argmax(hist[i]))
+                lit_sec = _lit_section_rle(b, lc)
             elif modes[i] == "huf1":
                 lo = 4 * int(base_w[i])
                 payload = trees[i] + \
@@ -576,7 +912,7 @@ class _ZstdStream:
                  for fi, s, sz in chunk],
                 first_flags=[s == 0 for _, s, _ in chunk])
             g["batches"].append(
-                (lo, self._pool.submit(codec._finish_chain, st)))
+                (lo, self._pool.submit(codec._finish_blocks, st)))
             self._inflight += 1
         self._groups.append(g)
         return self._drain(self._depth)
