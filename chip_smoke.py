@@ -57,10 +57,20 @@ Phases, each of which must pass (any failure exits non-zero):
      first frame equals the plain versions', and the port's Reader reads
      it back sequentially; 8 MiB of log-like lines (seed 13) written the
      same way must take the XLA entropy arm in every batch and decode
-     through libzstd.
+     through libzstd;
+  8. the lane decode route (ZstdCodec(decoder="lanes")): every call the
+     route makes to the Huffman lane decoder, the sequence lane decoder
+     and K6 (the block executor) is replayed on the CPU's plain versions,
+     exact, on the small frames of phase 2 and on the archive's first 8
+     frames (64 blocks) with and without its decode hints; the kernels
+     are timed at those 8 frames; then Reader(decoder="lanes") reads the
+     64 MiB archive as in phase 5 (anchored lanes and K6 must run), the
+     log-like archive of phase 7 is read back, and the long-window frame
+     decodes through the pointer-doubling executor; each route's frame
+     and batch counts are printed.
 
 Prints JSON lines for the write path, the read path, the LZ4 path, the
-hash path and the kernels, the card's name and power limit, then as its last line {"ok": true,
+hash path, the lane route and the kernels, the card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
 """
@@ -327,10 +337,10 @@ def k4_against_plain(name, frames, raws):
     return err, plain_ms, args, n, rows
 
 
-def k4_small():
-    """K4 on the small frames: the test_decode_smem.py cases (seed 91) by
-    the port's codec on the card and by stock libzstd at levels 1, 3, 19,
-    and a long-window frame with a match ~400 KiB back."""
+def k4_small_frames():
+    """The small frames: the test_decode_smem.py cases (seed 91) by the
+    port's codec on the card and by stock libzstd at levels 1, 3, 19,
+    and a long-window frame with a match ~400 KiB back: (frames, raws)."""
     import numpy as np
     from libzseek_tpu_torch import ZstdCodec
     from libzseek_tpu_torch.testing import golden
@@ -352,6 +362,12 @@ def k4_small():
     blk = rng.integers(0, 256, 400 * 1024, np.uint8).tobytes()
     raws.append(blk + bytes(16) + blk)
     frames.append(golden.zstd_compress(raws[-1], level=19, strategy=None))
+    return frames, raws
+
+
+def k4_small():
+    """K4 on the small frames."""
+    frames, raws = k4_small_frames()
     err, _, _, _, rows = k4_against_plain("K4 (small frames)", frames, raws)
     return err, f"{len(frames)} small frames, {len(rows['meta'])} blocks"
 
@@ -400,29 +416,35 @@ def read_all(r) -> bytes:
 
 
 def phase_read(archive: bytes, data: bytes, card: str, D=None,
-               name: str = "K4") -> dict:
-    """Phase 5 (and the LZ4 path's read): the read path through the
-    port's Reader on the card; `D` is the decoder's module, whose launch
-    count the measured sequential pass must raise."""
+               name: str = "K4", decoder: str = "fused",
+               counted=None) -> dict:
+    """Phase 5 (and the LZ4 and lane routes' reads): the read path through
+    the port's Reader on the card; `D` is the decoder's module, whose
+    launch count the measured sequential pass must raise, and `counted`
+    maps more names to (module, counter attribute) to count in that pass
+    (all set to 0 just before it)."""
     import numpy as np
     import torch
     from libzseek_tpu_torch import Reader
     if D is None:
         from libzseek_tpu_torch.ops import decode as D
-    with Reader(archive, device="cuda") as r:          # warm-up pass
+    counted = dict(counted or {}, **{name: (D, "launches")})
+    with Reader(archive, device="cuda", decoder=decoder) as r:  # warm-up
         check(read_all(r) == data, "warm-up read differs from the input")
-    D.launches = 0
-    r = Reader(archive, device="cuda")
+    for mod, attr in counted.values():
+        setattr(mod, attr, 0)
+    r = Reader(archive, device="cuda", decoder=decoder)
     t0 = time.perf_counter()
     got = read_all(r)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = D.launches
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in counted.items()}
+    launches = counts[name]
     r.close()
     check(got == data, "sequential read differs from the input")
     check(launches > 0, f"{name} never launched on the read path")
     mib_s = len(data) / MIB / dt
-    r = Reader(archive, device="cuda")
+    r = Reader(archive, device="cuda", decoder=decoder)
     offs = np.random.default_rng(7).integers(0, len(data) - 4096, 1000)
     lat = []
     for off in offs.tolist():
@@ -433,7 +455,7 @@ def phase_read(archive: bytes, data: bytes, card: str, D=None,
     hits = r.stats().cache_hits
     r.close()
     p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
-    rd = Reader(archive, device="cuda", device_cache=True)
+    rd = Reader(archive, device="cuda", device_cache=True, decoder=decoder)
     for off in offs[:16].tolist():
         check(rd.pread_full(4096, off) == data[off: off + 4096],
               f"device-cache pread at {off} differs")
@@ -442,13 +464,13 @@ def phase_read(archive: bytes, data: bytes, card: str, D=None,
                          for c in cached),
           "device_cache frames are not CUDA tensors")
     rd.close()
-    print(f"read path: 64 MiB sequential in {dt:.3f} s = {mib_s:.2f} MiB/s "
-          f"({name} launches {launches}); 1000 random 4 KiB preads p50 "
-          f"{p50:.1f} us, p99 {p99:.1f} us ({hits} cache hits); 16 "
-          f"device-cache preads equal, {len(cached)} frames on the card",
+    print(f"read path ({decoder}): 64 MiB sequential in {dt:.3f} s = "
+          f"{mib_s:.2f} MiB/s (launches {counts}); 1000 random 4 KiB "
+          f"preads p50 {p50:.1f} us, p99 {p99:.1f} us ({hits} cache hits); "
+          f"16 device-cache preads equal, {len(cached)} frames on the card",
           flush=True)
     return {"card": card, "read_mib_s": mib_s, "pread_p50_us": p50,
-            "pread_p99_us": p99, "launches": launches}
+            "pread_p99_us": p99, "launches": launches, "counts": counts}
 
 
 class Sink:
@@ -778,9 +800,10 @@ def hash_write(data: bytes, device: str):
     return sink.value(), time.perf_counter() - t0, codec
 
 
-def phase_hash(data, card, report) -> dict:
+def phase_hash(data, card, report, keep: dict) -> dict:
     """Phase 7: K7 against its plain version, then the hash-parser write
-    of the 64 MiB corpus and of 8 MiB of log-like lines."""
+    of the 64 MiB corpus and of 8 MiB of log-like lines (kept in `keep`
+    for phase 8, with the input)."""
     import numpy as np
     import torch
     from libzseek_tpu_torch import Reader
@@ -850,6 +873,7 @@ def phase_hash(data, card, report) -> dict:
           f"the log-like write took arms {log_codec.arms}")
     check(golden.zstd_decompress(log_archive) == logs,
           "stock libzstd does not reproduce the log-like archive")
+    keep.update(log_archive=log_archive, logs=logs)
     log_ratio = len(log_archive) / len(logs)
     print(f"hash write, log-like 8 MiB: {log_dt:.3f} s = {8 / log_dt:.2f} "
           f"MiB/s, ratio {log_ratio:.5f}, arms {log_codec.arms}; libzstd "
@@ -859,6 +883,167 @@ def phase_hash(data, card, report) -> dict:
             "k2_launches": k2_launches, "arms": codec.arms,
             "log_write_mib_s": 8 / log_dt, "log_ratio": log_ratio,
             "log_arms": log_codec.arms}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the lane decode route
+
+LANE_KERNELS = (("huf_lanes", "Huffman lanes", "huf_launches",
+                 "libzseek_tpu_torch/csrc/huf_lanes.cu",
+                 "libzseek_tpu/ops/zstd_decode.py:401,578 (XLA "
+                 "huf_decode_lanes, huf_decode_anchored)"),
+                ("seq_lanes", "sequence lanes", "seq_launches",
+                 "libzseek_tpu_torch/csrc/fse_lanes.cu",
+                 "libzseek_tpu/ops/zstd_decode.py:443,620 (XLA "
+                 "fse_decode_seq_lanes, fse_decode_anchored)"),
+                ("execute_blocks", "K6 exec_blocks", "launches",
+                 "libzseek_tpu_torch/csrc/exec_blocks.cu",
+                 "libzseek_tpu/ops/pallas_match.py:954"))
+
+
+def lane_calls(frames, sizes, hints):
+    """The lane route on the card with every call of its three kernel
+    wrappers recorded: (its result, {wrapper: [(fn, args, kwargs, out)]})."""
+    from libzseek_tpu_torch.ops import exec_blocks, lanes
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    calls = {}
+    saved = []
+    for mod, fname in ((lanes, "huf_lanes"), (lanes, "seq_lanes"),
+                       (exec_blocks, "execute_blocks")):
+        real = getattr(mod, fname)
+        saved.append((mod, fname, real))
+
+        def spy(*a, _real=real, _name=fname, **kw):
+            out = _real(*a, **kw)
+            calls.setdefault(_name, []).append((_real, a, kw, out))
+            return out
+        setattr(mod, fname, spy)
+    try:
+        res = ZD.decode_frames_lanes(frames, sizes, hints, device="cuda")
+    finally:
+        for mod, fname, real in saved:
+            setattr(mod, fname, real)
+    return res, calls
+
+
+def replay_plain(name, calls):
+    """Each recorded card call again on CPU copies of its inputs (the
+    plain version): (max_abs_err, plain ms summed).  Fails unless equal."""
+    import torch
+    cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+    err, ms = 0, 0.0
+    for fn, a, kw, out in calls:
+        t, ref = time_host(lambda: fn(*[cpu(v) for v in a],
+                                      **{k: cpu(v) for k, v in kw.items()}))
+        ms += t
+        err = max(err, max_abs_err(list(out), list(ref)))
+    check(err == 0, f"{name} differs from its plain version (max err {err})")
+    return err, ms
+
+
+def lane_work(fname, call):
+    """(bytes read and written once, operations) of one recorded call:
+    every tensor in and out; operations one per symbol (Huffman), ten per
+    sequence (sequences: three table reads, three extra-bit reads, three
+    state updates, the repcode) or one per output byte (K6)."""
+    fn, a, kw, out = call
+    nb = nbytes(list(a), list(kw.values()), list(out))
+    if fname == "execute_blocks":
+        return nb, out[0].numel()
+    n = int(kw["n"].sum())
+    return nb, n if fname == "huf_lanes" else 10 * n
+
+
+def phase_lanes(archive, table, data, kept, card, report) -> dict:
+    """Phase 8: the lane decoders and K6 against their plain versions on
+    small frames and on the phase-3 archive's first 8 frames (with and
+    without its hints), then the lane route through the Reader on the
+    64 MiB archive, the log-like archive of phase 7 and a long-window
+    libzstd frame."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import Reader
+    from libzseek_tpu_torch.ops import exec_blocks, lanes
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    errs = {k[0]: [] for k in LANE_KERNELS}
+    plain_lanes = {}
+
+    def run(tag, frames, sizes, hints, raws):
+        res, calls = lane_calls(frames, sizes, hints)
+        check(b"".join(res) == b"".join(raws),
+              f"lane route ({tag}) differs from the input")
+        for fname, (err, ms) in ((f, replay_plain(f"{f} ({tag})", c))
+                                 for f, c in calls.items()):
+            errs[fname].append(err)
+            plain_lanes[f"{fname} ({tag})"] = ms
+        return calls
+
+    small, raws = k4_small_frames()    # the long-window frame comes last
+    run("small frames", small[:-1], [len(r) for r in raws[:-1]], None,
+        raws[:-1])
+    r = Reader(archive, device="cuda", decoder="lanes")
+    hints8 = [r._frame_hints(i) for i in range(8)]
+    r.close()
+    frames = [frame_bytes(archive, table, i) for i in range(8)]
+    raws8 = [data[i * MIB: (i + 1) * MIB] for i in range(8)]
+    bare = run("8 frames, no hints", frames, [MIB] * 8, None, raws8)
+    full = run("8 frames", frames, [MIB] * 8, hints8, raws8)
+
+    # the main path: Reader(decoder="lanes") over the 64 MiB archive
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    counted = {"Huffman lanes": (lanes, "huf_launches"),
+               "sequence lanes": (lanes, "seq_launches")}
+    read = phase_read(archive, data, card, exec_blocks, "K6 exec_blocks",
+                      "lanes", counted)
+    main_routes = dict(ZD.routes)
+    check(main_routes["anchored_frames"] > 0,
+          "no frame took the anchored lanes on the lane read")
+    for k in ("Huffman lanes", "sequence lanes"):
+        check(read["counts"][k] > 0, f"{k} never launched on the lane read")
+
+    for fname, name, attr, source, replaces in LANE_KERNELS:
+        cl = full[fname]
+        check(len(cl) >= 1, f"{name}: no call at the 8-frame batch")
+        nb, ops = map(sum, zip(*(lane_work(fname, c) for c in cl)))
+        ms = time_cuda(lambda: [c[0](*c[1], **c[2]) for c in cl])
+        ms_bare = time_cuda(lambda: [c[0](*c[1], **c[2])
+                                     for c in bare.get(fname, [])])
+        kind = ", ".join("anchored" if c[2].get("exact", c[2].get(
+            "tagged", True)) is False else "plain" for c in cl) \
+            if fname != "execute_blocks" else "one chain per frame"
+        entry(report, name, source, replaces, errs[fname], ms,
+              plain_lanes[f"{fname} (8 frames)"], nb, ops,
+              f"small frames and the archive's first 8 frames (64 blocks) "
+              f"with and without hints equal to plain; timed at the 8 "
+              f"frames with hints ({kind}, {len(cl)} call(s)); without "
+              f"hints card {ms_bare:.3f} ms, plain "
+              f"{plain_lanes.get(f'{fname} (8 frames, no hints)', 0):.1f} ms")
+        report[-1]["launches"] = read["counts"][name]
+        report[-1]["ms_without_hints"] = ms_bare
+
+    # the log-like archive of phase 7 and a long-window libzstd frame
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    with Reader(kept["log_archive"], device="cuda", decoder="lanes") as r:
+        check(read_all(r) == kept["logs"],
+              "the lane read of the log-like archive differs")
+    log_routes = dict(ZD.routes)
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    run("long-window frame", small[-1:], [len(raws[-1])], None, raws[-1:])
+    lw_routes = dict(ZD.routes)
+    check(lw_routes["pointer_doubling_batches"] == 1,
+          f"the long-window frame took {lw_routes}")
+    torch.cuda.synchronize()
+    print(f"lane routes: 64 MiB read {main_routes}; log-like 8 MiB "
+          f"{log_routes}; long-window frame {lw_routes}", flush=True)
+    return {"card": card, "read_mib_s": read["read_mib_s"],
+            "pread_p50_us": read["pread_p50_us"],
+            "pread_p99_us": read["pread_p99_us"],
+            "launches": read["counts"], "routes_main": main_routes,
+            "routes_log": log_routes, "routes_long_window": lw_routes,
+            "plain_ms": plain_lanes}
 
 
 def main() -> None:
@@ -961,7 +1146,11 @@ def main() -> None:
     lz4_path = phase_lz4(data, card, report)
 
     # phase 7
-    hash_path = phase_hash(data, card, report)
+    kept = {}
+    hash_path = phase_hash(data, card, report, kept)
+
+    # phase 8
+    lane_path = phase_lanes(archive, table, data, kept, card, report)
 
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
@@ -969,6 +1158,7 @@ def main() -> None:
     print(json.dumps({"read_path": read}), flush=True)
     print(json.dumps({"lz4_path": lz4_path}), flush=True)
     print(json.dumps({"hash_path": hash_path}), flush=True)
+    print(json.dumps({"lane_path": lane_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

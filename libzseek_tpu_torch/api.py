@@ -54,11 +54,13 @@ def open_writer(path_or_file, codec: str = "zstd", *,
 
 def open_reader(path_or_file, *, device: str = "cuda", cache_frames: int = 8,
                 readahead: int = 8, verify_checksums: bool = False,
-                device_cache: bool = False) -> Reader:
+                device_cache: bool = False, decoder: str = "fused") -> Reader:
     """Reader on a path, a binary file object, or a pread/fsize source.
-    A path's file stays open for the reader's lifetime."""
+    A path's file stays open for the reader's lifetime.  `decoder` picks
+    the zstd decode route ("fused" or "lanes", Reader)."""
     kw = dict(device=device, cache_frames=cache_frames, readahead=readahead,
-              verify_checksums=verify_checksums, device_cache=device_cache)
+              verify_checksums=verify_checksums, device_cache=device_cache,
+              decoder=decoder)
     if isinstance(path_or_file, (str, Path)):
         return Reader(FileIO(open(path_or_file, "rb")), **kw)
     if isinstance(path_or_file, io.IOBase):

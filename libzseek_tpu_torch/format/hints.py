@@ -1,13 +1,15 @@
 """Decode-hints sidecar: a skippable frame of bitstream anchors.
 
-Copy of the writer's half of libzseek_tpu/format/hints.py: the anchor
-records and `serialize`.  The encoder knows every emission's absolute bit
-offset, so it publishes anchors (bit position [, tANS states] every A
-symbols) into a skippable frame appended before the seek table; stock
-zstd tooling skips it (0x184D2A5n magic).  The JAX package's reader
-parses it to split Huffman/FSE walks into anchored lanes; the port's
-fused decoder walks whole streams and needs no anchors, so `parse` is
-not copied.  Archives stay byte-identical to the JAX Writer's.
+Copy of libzseek_tpu/format/hints.py: the anchor records, `serialize`
+(the Writer's half) and `parse` (the Reader's half).  The encoder knows
+every emission's absolute bit offset, so it publishes anchors (bit
+position [, tANS states, rep1] every A symbols) into a skippable frame
+appended before the seek table; stock zstd tooling skips it (0x184D2A5n
+magic).  The port's Reader parses it for the lane decode route
+(`ZstdCodec(decoder="lanes")`, ops/zstd_decode.py decode_frames_lanes),
+which splits Huffman and FSE walks into anchored lanes; the fused route
+walks whole streams and needs no anchors.  Archives stay byte-identical
+to the JAX Writer's.
 
 Layout (all little-endian), payload of skippable frame magic 0x184D2A5A:
 
@@ -80,3 +82,59 @@ def serialize(frames: list[list[BlockHints | None]]) -> bytes:
     total = 8 + len(body) + 4
     body += struct.pack("<I", total)
     return struct.pack("<II", HINTS_MAGIC, len(body)) + bytes(body)
+
+
+def parse(data: bytes, offset: int = 0) -> list[list[BlockHints | None]] | None:
+    """Parse a hints skippable frame at `offset`; None if absent/foreign."""
+    if len(data) - offset < 16:
+        return None
+    magic, size = struct.unpack_from("<II", data, offset)
+    if magic != HINTS_MAGIC:
+        return None
+    pos = offset + 8
+    end = pos + size
+    try:
+        version, nframes = struct.unpack_from("<II", data, pos)
+        pos += 8
+        if version != VERSION:
+            return None
+        frames = []
+        for _ in range(nframes):
+            (nblocks,) = struct.unpack_from("<I", data, pos)
+            pos += 4
+            blocks: list[BlockHints | None] = []
+            for _ in range(nblocks):
+                kind = data[pos]
+                pos += 1
+                if kind == 0:
+                    blocks.append(None)
+                    continue
+                nstreams, lit_interval = struct.unpack_from("<BH", data, pos)
+                pos += 3
+                streams = []
+                for _ in range(nstreams):
+                    (cnt,) = struct.unpack_from("<H", data, pos)
+                    pos += 2
+                    streams.append(list(struct.unpack_from(f"<{cnt}I", data,
+                                                           pos)))
+                    pos += 4 * cnt
+                seq_interval, nseq = struct.unpack_from("<HH", data, pos)
+                pos += 4
+                bps, states, rep1 = [], [], []
+                for _ in range(nseq):
+                    bp, sl, so, sm, r1 = struct.unpack_from("<IHHHI", data,
+                                                            pos)
+                    pos += 14
+                    bps.append(bp)
+                    states.append((sl, so, sm))
+                    rep1.append(r1)
+                lit = StreamAnchors(lit_interval, streams) if streams else None
+                seq = (SeqAnchors(seq_interval, bps, states, rep1)
+                       if seq_interval else None)
+                blocks.append(BlockHints(lit, seq))
+            frames.append(blocks)
+        if pos > end:
+            return None
+        return frames
+    except (struct.error, IndexError):
+        return None

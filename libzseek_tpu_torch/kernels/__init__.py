@@ -2,7 +2,8 @@
 
 The JAX package has no counterpart module: its Pallas kernels compile
 inside `jax.jit` (libzseek_tpu/ops/pallas_match.py, pallas_entropy.py,
-vector_entropy.py, pallas_decode.py, pallas_lz4.py).
+vector_entropy.py, pallas_decode.py, pallas_lz4.py).  Headers
+(`csrc/*.cuh`) are hashed with the sources and included by them.
 
 Route (b) of the port's kernel guide: every `csrc/*.cu` is compiled by
 `nvcc -gencode arch=compute_90a,code=sm_90a -Xcompiler -fPIC -c`, one
@@ -46,6 +47,9 @@ SIGNATURES = {
     "zk_lz4_emit": [_P] * 3 + [_I] * 6 + [_P] * 4,
     "zk_lz4_decode": [_P] * 3 + [_I] * 6 + [_P] * 4,
     "zk_hash_parse": [_P] * 2 + [_I] * 4 + [_P] * 5,
+    "zk_huf_lanes": [_P] * 6 + [_I] * 6 + [_P] * 3,
+    "zk_fse_lanes": [_P] * 10 + [_I] * 6 + [_P] * 6,
+    "zk_exec_blocks": [_P] * 7 + [_I] * 3 + [_P] * 3,
 }
 
 _lock = threading.Lock()

@@ -1,41 +1,56 @@
-"""zstd frame decode: host container parse and the fused route around K4.
+"""zstd frame decode: host container parse, the fused route around K4 and
+the lane route around the lane decoders and K6.
 
-Counterpart of the host half of libzseek_tpu/ops/zstd_decode.py that its
-fused route uses:
+Counterpart of libzseek_tpu/ops/zstd_decode.py:
 
   host   — frame and block headers, literal-section headers, Huffman
            weight and FSE table descriptions (_parse_frame_impl :336,
            _parse_lit_section :220, _parse_seq_section :290), deduplicated
-           into table registries (_HufReg :69 without its XLA-lane
-           packed(), _FseReg :141), then packed into K4's rows as
-           _try_decode_smem does (:788-871);
-  device — build_dtabs (the jitted _build_dtabs, :117-138, as torch ops)
-           and K4 (ops/decode.py, csrc/decode.cu).
+           into table registries (_HufReg :69, _FseReg :141);
+  fused  — (decode_frames) the rows packed as _try_decode_smem does
+           (:788-871), build_dtabs (the jitted _build_dtabs, :117-138, as
+           torch ops) and K4 (ops/decode.py, csrc/decode.cu);
+  lanes  — (decode_frames_lanes, the reference's :1323-1771 with
+           ZN_DECODE_SMEM=off) Huffman lanes, plain or anchored at the
+           Writer's sidecar hints (format/hints.py), FSE sequence lanes,
+           plain with tagged repcodes or anchored (ops/lanes.py,
+           csrc/huf_lanes.cu, csrc/fse_lanes.cu), host assembly of the
+           per-block records, then K6 (ops/exec_blocks.py,
+           csrc/exec_blocks.cu) on batches inside its limits and the
+           pointer-doubling executor execute_sequences (:709, torch ops)
+           on the rest.
 
 Every RFC 8878 block, literal and table mode is parsed (raw, RLE,
 compressed and treeless literals; predefined, RLE, compressed and repeat
 FSE tables), so frames written by stock libzstd decode too.  Not ported:
-the XLA lane passes (:380-749), the hint-anchored lanes and the
-transcode route (:948); see ROADMAP.md.  Unlike _try_decode_smem, the
-packer predicts no block sizes: K4 places each block where the previous
-one ended, checks a block's size only where its header gives it (raw
-and RLE blocks, meta[1]; -1 otherwise) and decode_frames checks each
+the transcode route (:948); see ROADMAP.md.  Unlike _try_decode_smem, the
+fused packer predicts no block sizes: K4 places each block where the
+previous one ended, checks a block's size only where its header gives it
+(raw and RLE blocks, meta[1]; -1 otherwise) and decode_frames checks each
 frame's total against its content size.  There is no second route: a
-block K4 rejects raises FormatError.
+block K4 rejects raises FormatError.  The lane route takes the
+reference's TPU branch on every device: Huffman symbols stay on the
+device and are scattered into K6's literal plane, and K6 runs whenever
+the batch meets the reference's rule (:1578-1586).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import threading
 
 import numpy as np
 import torch
 
 from libzseek_tpu_torch.errors import FormatError
 from libzseek_tpu_torch.format import zstd_frame as zf
+from libzseek_tpu_torch.ops import common as C
 from libzseek_tpu_torch.ops import decode as D
+from libzseek_tpu_torch.ops import exec_blocks as X
 from libzseek_tpu_torch.ops import fse
 from libzseek_tpu_torch.ops import huffman
+from libzseek_tpu_torch.ops import lanes as L
 
 _HUF_PEEK = D.HUF_PEEK  # libzstd's HUF_TABLELOG_MAX: accept 12-bit tables
 # profiler ranges around the read path's stages (free when no profiler
@@ -114,7 +129,7 @@ def build_dtabs(weights: torch.Tensor, tls: torch.Tensor) -> torch.Tensor:
 
 class _FseReg:
     """Deduplicated FSE decode tables packed as sym | nb<<8 | base<<16,
-    padded to 512 entries."""
+    padded to 512 entries; packed() stacks them for the sequence lanes."""
 
     def __init__(self):
         self.ids: dict[tuple, int] = {}
@@ -143,6 +158,11 @@ class _FseReg:
                 0, np.array([symbol], np.int32), np.zeros(1, np.int32),
                 np.zeros(1, np.int32))))
         return self.ids[key]
+
+    def packed(self) -> np.ndarray:
+        if not self.tables:
+            return np.zeros((1, 512), np.int32)
+        return np.stack(self.tables)
 
 
 _PREDEF = {
@@ -465,3 +485,488 @@ def decode_frames(datas, d_sizes=None, to_device: bool = False,
         host = out.cpu().numpy()
         return [host[frame_off[f]: frame_off[f + 1]].tobytes()
                 for f in range(len(datas))]
+
+
+# ---------------------------------------------------------------------------
+# the lane route
+# ---------------------------------------------------------------------------
+
+K6_SEQ_SLOTS = 8191         # K6's sequence slots a block (pseudo-sequence in)
+K6_MAX_OFFSET = 1 << 17     # the reference K6's ring bound on an offset
+
+# the lane route's frames and executor batches by the way they went (read
+# by chip_smoke.py); the Reader decodes from two threads, hence the lock
+routes = {"anchored_frames": 0, "plain_frames": 0, "k6_batches": 0,
+          "pointer_doubling_batches": 0}
+_routes_lock = threading.Lock()
+
+
+def _count_route(key: str, n: int = 1) -> None:
+    with _routes_lock:
+        routes[key] += n
+
+
+def _ceil_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _resolve_tags(vals: np.ndarray, reps: np.ndarray) -> np.ndarray:
+    """Replace tagged rep values -(k*REP_TAG + d) with reps[k-1] - d."""
+    tagged = vals < 0
+    if not tagged.any():
+        return vals
+    enc = -vals[tagged]
+    k = enc // L.REP_TAG
+    d = enc % L.REP_TAG
+    out = vals.copy()
+    out[tagged] = reps[k - 1] - d
+    return out
+
+
+def _frame_hints_usable(plan: _FramePlan, fh) -> bool:
+    """Hints apply only when every compressed block of the frame has them
+    (our encoder's output) — mixing anchored and tagged-rep blocks would
+    break the cross-block repcode chain."""
+    if fh is None:
+        return False
+    if len(fh) != len(plan.blocks):
+        return False
+    for bp, bh in zip(plan.blocks, fh):
+        if not (bp.huf_lanes or bp.n_seq > 0):
+            continue
+        if bh is None:
+            return False
+        if bp.huf_lanes and (bh.lit is None or bh.lit.interval <= 0 or
+                             len(bh.lit.bitpos) != len(bp.huf_lanes)):
+            return False
+        if bp.n_seq > 0 and (bh.seq is None or bh.seq.interval <= 0):
+            return False
+    return True
+
+
+def _init_seq_states(stream: bytes, tls=(6, 5, 6)):
+    """Host-side read of the three initial tANS states.  tls = the block's
+    per-stream accuracy logs (LL, OF, ML): an RLE-mode stream has log 0 —
+    no initial-state bits and a constant state 0."""
+    total = _sentinel_bits(stream)
+    val = int.from_bytes(stream, "little")
+    pos = total
+    states = []
+    for log in tls:
+        if log:
+            states.append((val >> (pos - log)) & ((1 << log) - 1))
+            pos -= log
+        else:
+            states.append(0)
+    return pos, tuple(states)
+
+
+def execute_sequences(pool, lit_src, lit_len, lit_dst, m_off, m_len, m_dst,
+                      out_size: int):
+    """Frame-wide LZ sequence execution (literal scatter + pointer-doubled
+    back-reference chains), torch ops on the tensors' device.  pool: (B, P)
+    uint8 literal bytes; the six sequence arrays are (B, S) int32.  Returns
+    (out (B, out_size) uint8, ok (B,) bool), ok false where a match reaches
+    before the frame's start."""
+    B, P = pool.shape
+    S = lit_src.shape[1]
+    F = out_size
+    dev = pool.device
+    i32 = torch.int32
+    seq_valid = lit_len > 0
+    is_lit_src = C.fill_regions(P, lit_src, lit_src + lit_len, seq_valid)
+    src_region = C.region_index(P, lit_src, seq_valid)
+    lr_rank = torch.cumsum(seq_valid.to(i32), 1, dtype=i32) - 1
+    zeros = torch.zeros((B, S), dtype=i32, device=dev)
+    lit_src_tab = C.scatter1_set(zeros, lr_rank, lit_src, seq_valid)
+    lit_dst_tab = C.scatter1_set(zeros, lr_rank, lit_dst, seq_valid)
+    jpos = torch.arange(P, dtype=i32, device=dev).expand(B, P)
+    ldst = C.take1(lit_dst_tab, src_region) + \
+        (jpos - C.take1(lit_src_tab, src_region))
+    val_layer = C.scatter1_set(torch.zeros((B, F), dtype=i32, device=dev),
+                               ldst, pool.to(i32), is_lit_src)
+    m_valid = m_len > 0
+    in_match = C.fill_regions(F, m_dst, m_dst + m_len, m_valid)
+    m_region = C.region_index(F, m_dst, m_valid)
+    mr_rank = torch.cumsum(m_valid.to(i32), 1, dtype=i32) - 1
+    m_off_tab = C.scatter1_set(torch.ones((B, S), dtype=i32, device=dev),
+                               mr_rank, m_off, m_valid)
+    ipos = torch.arange(F, dtype=i32, device=dev).expand(B, F)
+    ref = ipos - C.take1(m_off_tab, m_region)
+    bad = (in_match & (ref < 0)).any(1)
+    src0 = torch.where(in_match, ref.clamp(0, F - 1), ipos)
+    rounds = max(1, int(math.ceil(math.log2(max(2, F)))))
+    src_final = C.resolve_copy_chains(src0, rounds)
+    out = C.take1(val_layer, src_final).to(torch.uint8)
+    return out, ~bad
+
+
+def _lit_len(bp: _BlockPlan) -> int:
+    if bp.huf_lanes:
+        return sum(l.n_out for l in bp.huf_lanes)
+    if bp.lit_direct is not None:
+        return len(bp.lit_direct)
+    return 0
+
+
+def _scatter_chunks(plane, syms, dst, n):
+    """Scatter lane symbols into the flat literal plane (1, BL * PW): lane
+    row r covers plane[dst[r] : dst[r] + n[r]) (the reference's
+    _scatter_chunks, :1249)."""
+    col = torch.arange(syms.shape[1], device=syms.device)
+    idx = dst[:, None] + col
+    mask = col < n[:, None]
+    return C.scatter1_set(plane, idx.reshape(1, -1), syms.reshape(1, -1),
+                          mask.reshape(1, -1))
+
+
+def huf_lane_inputs(lanes, anchors=None) -> tuple[dict, np.ndarray]:
+    """The Huffman lane decoder's numpy inputs for `lanes` (_HufLane list).
+
+    anchors None (pass A, :1333-1352): one lane per stream from its
+    sentinel, exact consumption.  Else anchors[j] = (StreamAnchors, the
+    stream's index in its block) for lanes[j] (pass A', :1366-1405): one
+    lane per interval chunk from the anchor bit positions.  Returns
+    (ops/lanes.huf_lanes's keyword arguments but dtabs, each lane's first
+    symbol within its stream)."""
+    bank = L.stream_bank([l.stream for l in lanes])
+    starts = [_sentinel_bits(l.stream) for l in lanes]
+    if anchors is None:
+        n = np.array([l.n_out for l in lanes], np.int32)
+        return dict(bank=bank, sid=np.arange(len(lanes), dtype=np.int32),
+                    bits=np.array(starts, np.int32), n=n,
+                    tid=np.array([l.tid for l in lanes], np.int32),
+                    cap=max(1, _ceil_pow2(int(n.max()))), exact=True), \
+            np.zeros(len(lanes), np.int64)
+    chunks = []       # (stream, start bit, count, table, first symbol)
+    for sid, (lane, (lh, s)) in enumerate(zip(lanes, anchors)):
+        iv = lh.interval
+        n_chunks = max(1, -(-lane.n_out // iv))
+        if len(lh.bitpos[s]) < n_chunks - 1:
+            raise FormatError("decode hints: too few literal anchors")
+        for k in range(n_chunks):
+            chunks.append((sid, starts[sid] if k == 0 else lh.bitpos[s][k - 1],
+                           min(iv, lane.n_out - k * iv), lane.tid, k * iv))
+    c = np.array(chunks, np.int64)
+    i32 = c[:, :4].astype(np.int32)
+    return dict(bank=bank, sid=i32[:, 0], bits=i32[:, 1], n=i32[:, 2],
+                tid=i32[:, 3], cap=max(lh.interval for lh, _ in anchors),
+                exact=False), c[:, 4]
+
+
+def seq_lane_inputs(bps, anchors=None) -> tuple[dict, list]:
+    """The sequence lane decoder's numpy inputs for blocks `bps` (_BlockPlan
+    list with n_seq > 0).
+
+    anchors None (pass B, :1433-1455): one lane per block, tagged
+    repcodes.  Else anchors[j] = the SeqAnchors of bps[j] (pass B',
+    :1466-1516): one lane per interval chunk from the checkpoints (the
+    first from the stream's top, rep1 = 1).  Returns (ops/lanes.seq_lanes's
+    keyword arguments but tabs, each block's (first lane, lane count))."""
+    bank = L.stream_bank([bp.seq_stream for bp in bps])
+    tids = [(bp.ll_tid, bp.of_tid, bp.ml_tid) for bp in bps]
+    tls = [(bp.ll_tl, bp.of_tl, bp.ml_tl) for bp in bps]
+    if anchors is None:
+        nb = len(bps)
+        n = np.array([bp.n_seq for bp in bps], np.int32)
+        return dict(bank=bank, sid=np.arange(nb, dtype=np.int32),
+                    bits=np.array([_sentinel_bits(bp.seq_stream)
+                                   for bp in bps], np.int32),
+                    n=n, states=np.zeros((nb, 3), np.int32),
+                    rep1=np.ones(nb, np.int32),
+                    tids=np.array(tids, np.int32),
+                    tls=np.array(tls, np.int32),
+                    cap=max(1, _ceil_pow2(int(n.max()))), tagged=True), \
+            [(j, 1) for j in range(nb)]
+    chunks = []   # (block, bit, count, s_ll, s_of, s_ml, rep1, 3 tables)
+    spans = []
+    for bi, (bp, sh) in enumerate(zip(bps, anchors)):
+        iv = sh.interval
+        pos0, st0 = _init_seq_states(bp.seq_stream, tls[bi])
+        n_chunks = max(1, -(-bp.n_seq // iv))
+        if min(len(sh.bitpos), len(sh.states),
+               len(sh.rep1)) < n_chunks - 1:
+            raise FormatError("decode hints: too few sequence anchors")
+        spans.append((len(chunks), n_chunks))
+        for k in range(n_chunks):
+            if k == 0:
+                bits, st, r1 = pos0, st0, 1
+            else:
+                bits = sh.bitpos[k - 1]
+                # an RLE stream's state is identically 0 (its hint slot
+                # holds the encoder's internal masked-walk state)
+                st = tuple(v if tl else 0 for v, tl in
+                           zip(sh.states[k - 1], tls[bi]))
+                r1 = sh.rep1[k - 1]
+            chunks.append((bi, bits, min(iv, bp.n_seq - k * iv), *st, r1,
+                           *tids[bi]))
+    c = np.array(chunks, np.int64).astype(np.int32)
+    return dict(bank=bank, sid=c[:, 0].copy(), bits=c[:, 1].copy(),
+                n=c[:, 2].copy(), states=c[:, 3:6].copy(),
+                rep1=c[:, 6].copy(), tids=c[:, 7:10].copy(),
+                tls=np.zeros((len(c), 3), np.int32),
+                cap=max(sh.interval for sh in anchors), tagged=False), spans
+
+
+def _tensor(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def _upload(inp: dict, dev) -> dict:
+    """A lane-input dict with its numpy arrays moved to `dev`."""
+    return {k: _tensor(v, dev) if isinstance(v, np.ndarray) else v
+            for k, v in inp.items()}
+
+
+def decode_frames_lanes(datas, d_sizes=None, hints=None,
+                        to_device: bool = False, device="cpu"):
+    """Decode a batch of zstd frames through the lane route on `device`.
+
+    hints: per-frame decode-anchor lists (format/hints.py, the Writer's
+    sidecar) or None; a frame whose hints cover every compressed block
+    (_frame_hints_usable) decodes in anchored chunk lanes, the others in
+    one lane per Huffman stream and per sequence section.  Returns host
+    `bytes` per frame, or with to_device=True one uint8 tensor per frame
+    on `device`.  A corrupt frame raises FormatError."""
+    if not datas:
+        return []
+    if d_sizes is None:
+        d_sizes = [None] * len(datas)
+    if hints is None:
+        hints = [None] * len(datas)
+    dev = torch.device(device)
+
+    def up(a):
+        return _tensor(a, dev)
+
+    with _span("zseek.parse"):
+        hufreg, fsereg = _HufReg(), _FseReg()
+        plans = [_parse_frame_impl(d, hufreg, fsereg, sz)
+                 for d, sz in zip(datas, d_sizes)]
+    use_hints = [_frame_hints_usable(p, fh) for p, fh in zip(plans, hints)]
+    _count_route("anchored_frames", sum(use_hints))
+    _count_route("plain_frames", len(plans) - sum(use_hints))
+    blocks = [bp for p in plans for bp in p.blocks]
+    hint_of: dict[int, object] = {}      # block index -> its BlockHints
+    i = 0
+    for p, fh, uh in zip(plans, hints, use_hints):
+        for bi in range(len(p.blocks)):
+            if uh:
+                hint_of[i] = fh[bi]
+            i += 1
+    BL = len(blocks)
+    lit_lens = [_lit_len(bp) for bp in blocks]
+    PW = max([zf.BLOCK_MAX] + lit_lens)   # literal plane row width
+
+    # --- the literal plane: raw / RLE literal bytes from the host, the
+    # Huffman lanes' symbols scattered in on the device ---
+    with _span("zseek.upload"):
+        template = np.zeros((BL, PW), np.uint8)
+        for i, bp in enumerate(blocks):
+            if not bp.huf_lanes and bp.lit_direct:
+                template[i, : len(bp.lit_direct)] = np.frombuffer(
+                    bp.lit_direct, np.uint8)
+        plane = up(template).reshape(1, -1)
+        dtabs = None
+        if any(bp.huf_lanes for bp in blocks):
+            W, TLS = hufreg.weights_arr()
+            dtabs = build_dtabs(up(W), up(TLS))
+        tabs = up(fsereg.packed())
+    checks = []     # (ok tensor, message), checked in the reference's order
+
+    # --- pass A: one lane per Huffman stream; pass A': one lane per
+    # anchored chunk ---
+    with _span("zseek.huf_lanes"):
+        plain, anch = [], []      # (plane offset, lane, anchors)
+        for i, bp in enumerate(blocks):
+            po = i * PW
+            for s, lane in enumerate(bp.huf_lanes or ()):
+                if i in hint_of:
+                    anch.append((po, lane, (hint_of[i].lit, s)))
+                else:
+                    plain.append((po, lane, None))
+                po += lane.n_out
+        for group, anchored, msg in (
+                (plain, False, "huffman literal stream underflow"),
+                (anch, True, "anchored huffman stream underflow")):
+            if not group:
+                continue
+            inp, first = huf_lane_inputs([g[1] for g in group],
+                                         [g[2] for g in group]
+                                         if anchored else None)
+            syms, ok = L.huf_lanes(dtabs=dtabs, **_upload(inp, dev))
+            dst = np.array([g[0] for g in group], np.int64)[inp["sid"]] + \
+                first
+            plane = _scatter_chunks(plane, syms, up(dst), up(inp["n"]))
+            checks.append((ok, msg))
+
+    # --- pass B: one lane per sequence section, tagged repcodes; pass B':
+    # one lane per anchored chunk ---
+    seq_res: dict[int, tuple] = {}   # block -> (ll, ml, off, rep_final)
+    with _span("zseek.seq_lanes"):
+        passes = []
+        for anchored, msg in ((False, "sequence bitstream underflow"),
+                              (True, "anchored sequence stream underflow")):
+            idx = [i for i, bp in enumerate(blocks)
+                   if bp.n_seq > 0 and (i in hint_of) == anchored]
+            if not idx:
+                continue
+            inp, spans = seq_lane_inputs(
+                [blocks[i] for i in idx],
+                [hint_of[i].seq for i in idx] if anchored else None)
+            res = L.seq_lanes(tabs=tabs, **_upload(inp, dev))
+            checks.append((res[4], msg))
+            passes.append((idx, inp["n"], spans, anchored, res))
+
+    with _span("zseek.fetch"):
+        for ok, msg in checks:
+            if not bool(ok.all()):
+                raise FormatError(msg)
+        for idx, cnt, spans, anchored, res in passes:
+            lls, mls, offs, rep_fin = (t.cpu().numpy() for t in res[:4])
+            for i, (first, k) in zip(idx, spans):
+                rows = range(first, first + k)
+                seq_res[i] = tuple(
+                    np.concatenate([a[r, : cnt[r]] for r in rows])
+                    for a in (lls, mls, offs)) + (
+                    # anchored blocks leave reps (1, 4, 8) behind (:1528)
+                    np.array([1, 4, 8], np.int32) if anchored
+                    else rep_fin[first],)
+
+    # --- host: per-block records (lengths and sequences; literal bytes
+    # stay on the device) ---
+    recs = []          # (ll, ml, off, content, d_off) per block
+    i = 0
+    for p in plans:
+        d_off = 0
+        reps = np.array([1, 4, 8], np.int64)
+        for bp in p.blocks:
+            ln = lit_lens[i]
+            if bp.n_seq > 0:
+                ll, ml, off, rep_fin = seq_res[i]
+                off = _resolve_tags(off.astype(np.int64), reps)
+                reps = _resolve_tags(rep_fin.astype(np.int64), reps)
+                if (off <= 0).any():
+                    raise FormatError("non-positive match offset")
+                covered = int(ll.sum() + ml.sum())
+                trailing = ln - int(ll.sum())
+                if trailing < 0:
+                    raise FormatError("literal pool underrun")
+                content = covered + trailing
+                b_ll, b_ml, b_off = ll, ml, off.astype(np.int32)
+            else:
+                content = ln
+                b_ll = b_ml = b_off = np.zeros(0, np.int32)
+            recs.append((b_ll, b_ml, b_off, content, d_off))
+            d_off += content
+            i += 1
+        if d_off != p.content_size:
+            raise FormatError(f"frame regenerated {d_off} != declared "
+                              f"{p.content_size}")
+
+    # --- execution: K6 when the batch meets the reference's rule
+    # (:1578-1586, its TPU branch), else the pointer-doubling executor ---
+    eligible = all(len(ll) + 1 <= K6_SEQ_SLOTS and content <= zf.BLOCK_MAX
+                   and d_off % 4 == 0 and
+                   not (len(off) and int(off.max()) >= K6_MAX_OFFSET)
+                   for ll, _, off, content, d_off in recs)
+    if eligible:
+        _count_route("k6_batches")
+        out, ok, spans = _execute_k6(plans, recs, plane.reshape(BL, PW), up)
+        msg = ("corrupt sequences: a match reaches before its frame or a "
+               "block overruns its size")
+    else:
+        _count_route("pointer_doubling_batches")
+        out, ok, spans = _execute_pointer_doubling(plans, recs, lit_lens,
+                                                   plane, PW, up)
+        msg = "match offset before frame start"
+    with _span("zseek.fetch"):
+        if not bool(ok.all()):
+            raise FormatError(msg)
+        if to_device:
+            return [out[a: b] for a, b in spans]
+        host = out.cpu().numpy()
+        return [host[a: b].tobytes() for a, b in spans]
+
+
+def _execute_k6(plans, recs, lit, up):
+    """K6 on the batch's per-block records (ll, ml, off, content, d_off)
+    and literal plane `lit` (BL, PW): (flat output, ok per block, each
+    frame's (start, end) in it)."""
+    BL = len(recs)
+    S2 = max(64, _ceil_pow2(1 + max(len(r[0]) for r in recs)))
+    lla = np.zeros((BL, S2), np.int32)
+    mla = np.zeros((BL, S2), np.int32)
+    offa = np.ones((BL, S2), np.int32)
+    meta = np.zeros((BL, 3), np.int32)
+    for i, (ll, ml, off, content, d_off) in enumerate(recs):
+        ns = len(ll)
+        lla[i, :ns], mla[i, :ns], offa[i, :ns] = ll, ml, off
+        trail = content - (int(ll.sum() + ml.sum()) if ns else 0)
+        if trail > 0:                 # the trailing-literals pseudo-sequence
+            lla[i, ns] = trail
+            ns += 1
+        meta[i] = (ns, content, d_off)
+    chain = np.concatenate(
+        [[0], np.cumsum([len(p.blocks) for p in plans])]).astype(np.int32)
+    frame_off = np.concatenate(
+        [[0], np.cumsum([p.content_size for p in plans])]).astype(np.int64)
+    with _span("zseek.k6"):
+        out, ok = X.execute_blocks(lit, up(lla), up(mla), up(offa), up(meta),
+                                   up(chain), up(frame_off),
+                                   int(frame_off[-1]))
+    return out, ok, [(int(a), int(b)) for a, b in
+                     zip(frame_off, frame_off[1:])]
+
+
+def _execute_pointer_doubling(plans, recs, lit_lens, plane, PW, up):
+    """execute_sequences on per-frame literal pools gathered from the
+    plane (1, BL * PW) and the reference's sequence arrays (:1699-1765):
+    (the (B, F) output flattened, ok per frame, each frame's (start, end)
+    in it)."""
+    frames_exec = []
+    i = 0
+    for p in plans:
+        pidx, seqs = [], [[] for _ in range(6)]
+        pool_pos = out_pos = 0
+        for _ in p.blocks:
+            ll, ml, off, content, _d = recs[i]
+            pidx.append(i * PW + np.arange(lit_lens[i], dtype=np.int64))
+            ns = len(ll)
+            covered = int(ll.sum() + ml.sum()) if ns else 0
+            if ns:
+                ll64 = ll.astype(np.int64)
+                ldst = out_pos + np.cumsum(ll64 + ml) - (ll64 + ml)
+                for k, v in enumerate((pool_pos + np.cumsum(ll64) - ll64, ll,
+                                       ldst, off, ml, ldst + ll)):
+                    seqs[k].append(v)
+            trail = content - covered
+            consumed = int(ll.sum()) if ns else 0
+            if trail > 0:
+                for k, v in enumerate((pool_pos + consumed, trail,
+                                       out_pos + covered, 1, 0,
+                                       out_pos + content)):
+                    seqs[k].append(np.array([v]))
+            pool_pos += consumed + max(0, trail)
+            out_pos += content
+            i += 1
+        frames_exec.append((np.concatenate(pidx),
+                            [np.concatenate(v).astype(np.int32) if v
+                             else np.zeros(0, np.int32) for v in seqs],
+                            out_pos))
+    B = len(frames_exec)
+    F = max(1, _ceil_pow2(max(fe[2] for fe in frames_exec)))
+    P = max(1, _ceil_pow2(max(len(fe[0]) for fe in frames_exec)))
+    S = max(1, _ceil_pow2(max(len(fe[1][0]) for fe in frames_exec)))
+    pool_idx = np.full((B, P), plane.shape[1], np.int64)  # an appended zero
+    arrs = [np.zeros((B, S), np.int32) for _ in range(6)]
+    for f, (pi, seqs, _n) in enumerate(frames_exec):
+        pool_idx[f, : len(pi)] = pi
+        for k in range(6):
+            arrs[k][f, : len(seqs[k])] = seqs[k]
+    with _span("zseek.execute"):
+        flat = torch.cat([plane.reshape(-1), plane.new_zeros(1)])
+        out, ok = execute_sequences(flat[up(pool_idx)],
+                                    *[up(a) for a in arrs], F)
+    return out.reshape(-1), ok, [(f * F, f * F + fe[2])
+                                 for f, fe in enumerate(frames_exec)]

@@ -23,9 +23,11 @@ happens outside the locks so concurrent readers overlap device work
 :484-553); two prefetch threads decode the next sequential windows, so
 the codec is called from two threads at once.
 
-The JAX reader also loads the Writer's decode-anchor sidecar for its
-anchored decode lanes; the port's fused decoder walks whole streams, so
-the sidecar is skipped here (stock zstd readers skip it too).
+`decoder` picks the zstd decode route: "fused" (K4, the default) walks
+whole streams and skips the Writer's decode-anchor sidecar, as stock zstd
+readers do; "lanes" (the lane decoders and K6) loads the sidecar, as the
+JAX reader does (_load_hints), and passes each frame's anchors to the
+codec.  LZ4 archives have one decoder, "fused".
 """
 
 from __future__ import annotations
@@ -49,13 +51,14 @@ DEFAULT_CACHE_FRAMES = 8
 
 class Reader:
     """Random-access reader of a zstd or LZ4 seekable archive (bytes, or a
-    source with pread/fsize), decoding frames on `device` (K4 or the LZ4
-    decoder on "cuda"; "cpu" runs their plain versions, for tests)."""
+    source with pread/fsize), decoding frames on `device` (K4, the lane
+    route or the LZ4 decoder on "cuda"; "cpu" runs their plain versions,
+    for tests)."""
 
     def __init__(self, source, *, device="cuda",
                  cache_frames: int = DEFAULT_CACHE_FRAMES,
                  readahead: int = 8, verify_checksums: bool = False,
-                 device_cache: bool = False):
+                 device_cache: bool = False, decoder: str = "fused"):
         """device_cache=True keeps decompressed frames on the card (a
         device frame cache): cached entries are uint8 tensors and pread
         copies only the requested span to the host.  cache_frames=0 (no
@@ -74,14 +77,19 @@ class Reader:
             raise FormatError("archive too small")
         magic = struct.unpack("<I", magic_bytes)[0]
         if magic == LZ4F_MAGIC:
+            if decoder != "fused":
+                raise ParameterError(
+                    f"decoder {decoder!r}: LZ4 archives decode with 'fused'")
             from libzseek_tpu_torch.runtime.codec import LZ4Codec
             self._codec = LZ4Codec(device=device)
         elif magic == ZSTD_MAGIC:
             from libzseek_tpu_torch.runtime.zstd_codec import ZstdCodec
-            self._codec = ZstdCodec(device=device)
+            self._codec = ZstdCodec(device=device, decoder=decoder)
         else:
             raise FormatError(f"unknown archive magic 0x{magic:08X}")
         self._table: SeekTable = parse_seek_table(source.pread, self._fsize)
+        # the Writer's decode anchors, read by the lane route only
+        self._hints = self._load_hints() if decoder == "lanes" else None
         self._cache = FrameCache(cache_frames) if cache_frames > 0 else None
         self._lock = threading.Lock()          # the cursor
         self._cache_lock = threading.Lock()    # the cache
@@ -186,11 +194,38 @@ class Reader:
         seek-table checksums when asked to."""
         datas = [self._read_frame_bytes(i) for i in idxs]
         d_sizes = [self._table.frame_d_size(i) for i in idxs]
+        kw = {} if self._hints is None else \
+            {"frame_hints": [self._frame_hints(i) for i in idxs]}
         frames = self._codec.decompress_frames(datas, d_sizes,
-                                               to_device=to_device)
+                                               to_device=to_device, **kw)
         for i, fr in zip(idxs, frames):
             self._check_frame(i, fr)
         return frames
+
+    def _load_hints(self):
+        """Locate the decode-anchor sidecar (format/hints.py): a skippable
+        frame immediately before the seek table, self-sized by its trailing
+        u32.  Absent or foreign -> None (every frame takes plain lanes)."""
+        from libzseek_tpu_torch.format import hints as H
+        entry = 12 if self._table.checksums is not None else 8
+        table_bytes = 8 + entry * self._table.num_frames + 9
+        end = self._fsize - table_bytes
+        if end < 16:
+            return None
+        tail = self._src.pread(end - 4, 4)
+        if len(tail) != 4:
+            return None
+        total = int.from_bytes(tail, "little")
+        if total < 16 or total > end:
+            return None
+        blob = self._src.pread(end - total, total)
+        parsed = H.parse(blob, 0)
+        if parsed is None or len(parsed) != self._table.num_frames:
+            return None
+        return parsed
+
+    def _frame_hints(self, idx: int):
+        return self._hints[idx] if self._hints is not None else None
 
     def _check_frame(self, idx: int, frame) -> None:
         if not self._verify:

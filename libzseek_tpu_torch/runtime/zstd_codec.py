@@ -42,9 +42,14 @@ fixed), nor its `workers` round-robin, its sort parser (ROADMAP A9) and
 its adaptive vector-literal hint: every row K3 accepts goes through K3,
 with identical bits either way.
 
-Decoding (decompress_frames, the Reader's codec call) is the fused
-route of the reference's decode_frames: host frame parse and row
-packing, then K4 on the device (ops/zstd_decode.py, ops/decode.py).
+Decoding (decompress_frames, the Reader's codec call) takes one of two
+routes of the reference's decode_frames (ops/zstd_decode.py), chosen by
+`decoder`: "fused" (the default) is host frame parse and row packing,
+then K4 on the device (ops/decode.py); "lanes" is the route the
+reference runs with ZN_DECODE_SMEM=off: Huffman and FSE lane decoders,
+anchored at the Writer's decode hints where a frame has them
+(ops/lanes.py), then K6 (ops/exec_blocks.py) or the pointer-doubling
+executor.
 """
 
 from __future__ import annotations
@@ -92,6 +97,7 @@ SMEM_SEQ_MAX = 4096   # beyond this many sequences in a block: the XLA arm
 SMEM_SEQ_MIN = 512    # lower bound on K2's sequence bucket
 PARSERS = ("linked", "hash")
 ENTROPIES = ("auto", "smem", "xla")
+DECODERS = ("fused", "lanes")
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -165,7 +171,7 @@ class ZstdCodec:
 
     def __init__(self, level: int = 3, device: str = "cuda",
                  block: int = BLOCK, parser: str = "auto",
-                 entropy: str = "auto"):
+                 entropy: str = "auto", decoder: str = "fused"):
         if parser == "sort":
             raise ParameterError(
                 'parser="sort": the sort parser is not ported (ROADMAP A9)')
@@ -176,6 +182,9 @@ class ZstdCodec:
         if entropy not in ENTROPIES:
             raise ParameterError(f"unknown entropy {entropy!r}: one of "
                                  f"{', '.join(map(repr, ENTROPIES))}")
+        if decoder not in DECODERS:
+            raise ParameterError(f"unknown decoder {decoder!r}: one of "
+                                 f"{', '.join(map(repr, DECODERS))}")
         if level >= 4:
             raise ParameterError(
                 f"level {level}: the port compresses levels <= 3 only")
@@ -192,6 +201,9 @@ class ZstdCodec:
         # "auto"/"smem": K2 (the chain, or the per-block path's K2 arm while
         # its blocks hold <= SMEM_SEQ_MAX sequences); "xla": the XLA arm
         self.entropy = entropy
+        # "fused": K4 walks whole streams; "lanes": the lane route, which
+        # reads the Writer's decode hints
+        self.decoder = decoder
         # adaptive payload-fetch cap, sized from recent batches
         self._cap_hint: int | None = None
         self._needs = deque([1], maxlen=8)
@@ -871,15 +883,22 @@ class ZstdCodec:
 
     def decompress_frame(self, data: bytes, d_size: int,
                          frame_hints=None) -> bytes:
-        return self.decompress_frames([data], [d_size])[0]
+        return self.decompress_frames(
+            [data], [d_size],
+            None if frame_hints is None else [frame_hints])[0]
 
     def decompress_frames(self, datas, d_sizes, frame_hints=None,
                           to_device: bool = False):
-        """Decode frames with K4 on the codec's device: host bytes per
-        frame, or with to_device=True one uint8 tensor per frame on the
-        device.  frame_hints (the Writer's decode anchors) are accepted
-        for the Reader's interface and not needed: K4 walks whole streams.
-        A corrupt frame raises FormatError."""
+        """Decode frames on the codec's device through the `decoder`
+        route: host bytes per frame, or with to_device=True one uint8
+        tensor per frame on the device.  frame_hints (per frame, the
+        Writer's decode anchors, or None) anchor the lane route's walks;
+        the fused route walks whole streams and does not read them.  A
+        corrupt frame raises FormatError."""
+        if self.decoder == "lanes":
+            return zstd_decode.decode_frames_lanes(
+                datas, d_sizes, frame_hints, to_device=to_device,
+                device=self.device)
         return zstd_decode.decode_frames(datas, d_sizes, to_device=to_device,
                                          device=self.device)
 

@@ -137,3 +137,35 @@ def leftover_bits_frame():
     body = body[:-1] + b"\x00" + body[-1:]
     return (fr[:hs] + zf.build_block_header(zf.BLOCK_COMPRESSED, bsize + 1,
                                             True) + body), raw
+
+
+def record_lane_calls(monkeypatch, frames, sizes, hints, device):
+    """The lane route (decode_frames_lanes) on `device` with every call of
+    its three kernel wrappers recorded: (its result, [(wrapper, args,
+    kwargs, outputs)])."""
+    from libzseek_tpu_torch.ops import exec_blocks, lanes
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    calls = []
+    for mod, name in ((lanes, "huf_lanes"), (lanes, "seq_lanes"),
+                      (exec_blocks, "execute_blocks")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, **kw):
+            out = _real(*a, **kw)
+            calls.append((_real, a, kw, out))
+            return out
+        monkeypatch.setattr(mod, name, spy)
+    res = ZD.decode_frames_lanes(frames, sizes, hints, device=device)
+    monkeypatch.undo()
+    return res, calls
+
+
+def replay_on_cpu(calls):
+    """Each recorded call again with its tensors on the CPU (the plain
+    versions); asserts equal outputs and returns the number of calls."""
+    cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+    for fn, a, kw, out in calls:
+        ref = fn(*[cpu(v) for v in a], **{k: cpu(v) for k, v in kw.items()})
+        for x, y in zip(out, ref):
+            np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+    return len(calls)

@@ -4,8 +4,8 @@ for its device explicitly: "cuda" without a card raises.
 The test session itself imports jax and the JAX package
 (tests/conftest.py), so the import check runs in a fresh interpreter: it
 writes a zstd archive (with each parser) and an LZ4 archive with the
-port's Writer and reads them back with the port's Reader and the port's
-own format and testing copies."""
+port's Writer and reads them back with the port's Reader (the zstd one
+through both decoders) and the port's own format and testing copies."""
 
 import os
 import subprocess
@@ -22,10 +22,10 @@ _CHILD = r"""
 import io, sys
 import libzseek_tpu_torch as port
 from libzseek_tpu_torch import convert, kernels, native
-from libzseek_tpu_torch.ops import (bits, common, decode, entropy, fse,
-                                    fse_plan, hash_parse, huffman,
-                                    huffman_plan, lz4_decode, lz4_emit,
-                                    parse_linked, vector_entropy,
+from libzseek_tpu_torch.ops import (bits, common, decode, entropy,
+                                    exec_blocks, fse, fse_plan, hash_parse,
+                                    huffman, huffman_plan, lanes, lz4_decode,
+                                    lz4_emit, parse_linked, vector_entropy,
                                     xla_entropy, zstd_decode, zstd_encode)
 from libzseek_tpu_torch.runtime import codec
 from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
@@ -46,6 +46,9 @@ if golden.have_zstd():
     assert golden.zstd_decompress(archive) == data
 r = port.Reader(archive, device="cpu", verify_checksums=True)
 assert r.pread_full(len(data), 0) == data
+r = port.Reader(archive, device="cpu", decoder="lanes")
+assert r.pread_full(len(data), 0) == data
+assert zstd_decode.routes["anchored_frames"] > 0
 sink = io.BytesIO()
 w = port.Writer(sink, port.ZstdCodec(device="cpu", parser="hash"),
                 min_frame_size=16 * 1024)
