@@ -67,10 +67,26 @@ Phases, each of which must pass (any failure exits non-zero):
      64 MiB archive as in phase 5 (anchored lanes and K6 must run), the
      log-like archive of phase 7 is read back, and the long-window frame
      decodes through the pointer-doubling executor; each route's frame
-     and batch counts are printed.
+     and batch counts are printed;
+  9. levels >= 4 (64 KiB blocks, K1's dual table, lazy matching and
+     repcode probe): K1 against its plain version, exact, at levels 4, 9
+     and 16 on four 16 KiB rows (one per quarter: the text quarter takes
+     the strict arm and short4, the period-337 quarter the repcode probe)
+     and at the path's 64-row batch (4 frames of 16 blocks, one per
+     quarter), timed there; then the port's Writer(sink, level=9) writes
+     the 64 MiB with 1 MiB frames and batch_frames=16 (warm-up, then the
+     measured run, during which K1 and K2 must launch and K3 must not);
+     stock libzstd decodes it, the seek table lists 64 frames, 16 random
+     4 KiB reads decode, and its first frame equals the plain versions';
+     levels 4 and 16, and ZstdCodec(level=9, parser="hash"), each write
+     8 MiB (2 MiB of each quarter) that libzstd decodes, K1 (K7) launching;
+     the level-9 archive is read back through Reader(device="cuda")
+     (fused, K4 launching) and Reader(decoder="lanes"), with the lane
+     route's counts.
 
 Prints JSON lines for the write path, the read path, the LZ4 path, the
-hash path, the lane route and the kernels, the card's name and power limit, then as its last line {"ok": true,
+hash path, the lane route, the level >= 4 path and the kernels, the
+card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
 """
@@ -134,18 +150,18 @@ def max_abs_err(a, b) -> int:
     return err
 
 
-def batch_layout(data, offsets, frame_blocks: int):
-    """The codec's host layout for full blocks of `data` at byte offsets
-    `offsets`, in frames of `frame_blocks` blocks: x2 (B+1, N), lens,
-    min_abs."""
+def batch_layout(data, offsets, frame_blocks: int, n: int = N):
+    """The codec's host layout for full blocks of n bytes of `data` at
+    byte offsets `offsets`, in frames of `frame_blocks` blocks: x2
+    (B+1, n), lens, min_abs."""
     import numpy as np
     B = len(offsets)
-    x2 = np.zeros((B + 1, N), np.uint8)
+    x2 = np.zeros((B + 1, n), np.uint8)
     for r, off in enumerate(offsets):
-        x2[r + 1] = np.frombuffer(data, np.uint8, N, off)
+        x2[r + 1] = np.frombuffer(data, np.uint8, n, off)
     i = np.arange(B)
-    min_abs = np.where(i % frame_blocks == 0, (i + 1) * N, i * N)
-    return x2, np.full(B, N, np.int32), min_abs.astype(np.int32)
+    min_abs = np.where(i % frame_blocks == 0, (i + 1) * n, i * n)
+    return x2, np.full(B, n, np.int32), min_abs.astype(np.int32)
 
 
 # block offsets into the 64 MiB mixed corpus, whose quarters are
@@ -484,7 +500,7 @@ class Sink:
         return b"".join(self.parts)
 
 
-def write_archive(data: bytes, device: str, codec: str = "zstd",
+def write_archive(data: bytes, device: str, codec="zstd",
                   level: int = 3) -> tuple[bytes, float]:
     import torch
     from libzseek_tpu_torch import Writer
@@ -503,6 +519,25 @@ def write_archive(data: bytes, device: str, codec: str = "zstd",
 def frame_bytes(archive: bytes, table, i: int) -> bytes:
     off = table.frame_c_offset(i)
     return archive[off: off + table.frame_c_size(i)]
+
+
+def random_reads(archive: bytes, table, data: bytes) -> None:
+    """16 random 4 KiB reads (seed 7), each through stock libzstd on the
+    frames that cover it, must equal the input."""
+    import numpy as np
+    from libzseek_tpu_torch.testing import golden
+    rng = np.random.default_rng(7)
+    for off in rng.integers(0, len(data) - 4096, 16).tolist():
+        got = b""
+        pos = off
+        while len(got) < 4096:
+            i = table.frame_for_offset(pos)
+            d0 = table.frame_d_offset(i)
+            frame = golden.zstd_frame_decompress(
+                frame_bytes(archive, table, i), table.frame_d_size(i))
+            got += frame[pos - d0: pos - d0 + 4096 - len(got)]
+            pos = off + len(got)
+        check(got == data[off: off + 4096], f"random read at {off} differs")
 
 
 # ---------------------------------------------------------------------------
@@ -1046,6 +1081,137 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
             "plain_ms": plain_lanes}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: levels >= 4
+
+BLOCK_HIGH = 1 << 16
+HIGH_LEVELS = (4, 9, 16)
+# K1's small check: one 16 KiB row per quarter of the corpus, each its own
+# frame; the path's batch: 64 rows of 64 KiB = 4 whole 1 MiB frames of 16
+# blocks, one per quarter
+K1H_ROWS = [q * 16 * MIB for q in range(4)]
+K1H_BATCH = [q * 16 * MIB + j * BLOCK_HIGH for q in range(4)
+             for j in range(16)]
+
+
+def k1_level_args(data, offsets, frame_blocks, n):
+    """x2, lens, min_abs, h16 on the card for K1 at block size n."""
+    import torch
+    from libzseek_tpu_torch.ops.zstd_encode import block_entropy_h16
+    x2, lens, ma = batch_layout(data, offsets, frame_blocks, n)
+    t = lambda a: torch.from_numpy(a).to("cuda")
+    h16, _ = block_entropy_h16(t(x2[1:]), t(lens))
+    return t(x2), t(lens), t(ma), h16
+
+
+def sample_8mib(data: bytes) -> bytes:
+    """2 MiB from the start of each quarter of the corpus."""
+    return b"".join(data[q * 16 * MIB: q * 16 * MIB + 2 * MIB]
+                    for q in range(4))
+
+
+def phase_levels(data, card, report) -> dict:
+    """Phase 9: K1's level >= 4 arms against their plain versions, then
+    the level-9 write of the 64 MiB, levels 4 and 16 and the hash parser
+    at level 9 on 8 MiB, and the level-9 archive's read through both
+    decode routes."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import ZstdCodec
+    from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
+    from libzseek_tpu_torch.ops import (entropy, exec_blocks, hash_parse,
+                                        lanes, parse_linked, vector_entropy)
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    from libzseek_tpu_torch.ops.zstd_encode import (GATE_FIXED_BITS,
+                                                    level_search_params)
+    from libzseek_tpu_torch.testing import golden
+
+    small = k1_level_args(data, K1H_ROWS, 1, 16384)
+    big = k1_level_args(data, K1H_BATCH, 16, BLOCK_HIGH)
+    k1 = {}
+    for level in HIGH_LEVELS:
+        prm = {"gate_bits": GATE_FIXED_BITS, **level_search_params(level)}
+        fn = lambda *a, _p=prm: parse_linked.parse_linked(*a, **_p)
+        e_small, _ = against_plain(f"K1 level {level} (4 rows)", fn, small)
+        e_big, plain_ms = against_plain(f"K1 level {level} (64 rows)", fn,
+                                        big)
+        out = fn(*big)
+        entry(report, f"K1 parse_linked (level {level})",
+              "libzseek_tpu_torch/csrc/parse_linked.cu",
+              "libzseek_tpu/ops/pallas_match.py:194", [e_small, e_big],
+              time_cuda(lambda: fn(*big)), plain_ms, nbytes(big, out),
+              big[0][1:].numel(),
+              f"lazy {prm['lazy']}, accel_log {prm['accel_log']}, dual, "
+              f"rep_probe; 4 rows of 16 KiB, one per quarter; 64 rows of "
+              f"64 KiB in 4 chains of 16, {int(out[3].sum())} sequences")
+        k1[level] = report[-1]
+
+    # the main path at level 9
+    mods = {"K1": parse_linked, "K2": entropy, "K3": vector_entropy}
+    write_archive(data, "cuda", level=9)             # warm-up
+    for m in mods.values():
+        m.launches = 0
+    archive, dt = write_archive(data, "cuda", level=9)
+    counts = {k: m.launches for k, m in mods.items()}
+    k1[9]["launches"] = counts["K1"]
+    ratio = len(archive) / len(data)
+    print(f"level-9 write path: 64 MiB in {dt:.3f} s = {64 / dt:.2f} MiB/s, "
+          f"ratio {ratio:.5f} ({len(archive)} bytes); launches {counts}",
+          flush=True)
+    check(counts["K1"] > 0 and counts["K2"] > 0,
+          "K1 or K2 never launched on the level-9 write")
+    check(counts["K3"] == 0, "K3 launched on 64 KiB blocks")
+    check(golden.zstd_decompress(archive) == data,
+          "stock libzstd does not reproduce the level-9 archive")
+    table = parse_seek_table_bytes(archive)
+    check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
+    random_reads(archive, table, data)
+    cpu_archive, cpu_dt = write_archive(data[:MIB], "cpu", level=9)
+    check(frame_bytes(cpu_archive, parse_seek_table_bytes(cpu_archive), 0)
+          == frame_bytes(archive, table, 0),
+          "first level-9 frame differs between the card and the plain "
+          "versions")
+    print(f"level-9 archive: libzstd decode equal, 64 frames, 16 random "
+          f"4 KiB reads equal, first frame equal to plain (CPU, "
+          f"{cpu_dt:.1f} s)", flush=True)
+
+    # levels 4 and 16, and the hash parser at level 9, on 8 MiB
+    sample = sample_8mib(data)
+    others = {}
+    for name, level, codec, mod in (
+            ("level 4", 4, "zstd", parse_linked),
+            ("level 16", 16, "zstd", parse_linked),
+            ("hash level 9", 9, ZstdCodec(level=9, device="cuda",
+                                          parser="hash"), hash_parse)):
+        mod.launches = 0
+        arc, sdt = write_archive(sample, "cuda", codec, level)
+        n = mod.launches
+        check(n > 0, f"{name}: its parse kernel never launched")
+        check(golden.zstd_decompress(arc) == sample,
+              f"stock libzstd does not reproduce the {name} archive")
+        others[name] = {"write_mib_s": 8 / sdt,
+                        "ratio": len(arc) / len(sample), "launches": n}
+        if level in k1 and codec == "zstd":
+            k1[level]["launches"] = n
+        print(f"{name}, 8 MiB: {sdt:.3f} s = {8 / sdt:.2f} MiB/s, ratio "
+              f"{len(arc) / len(sample):.5f}, parse launches {n}; libzstd "
+              f"decode equal", flush=True)
+
+    # the level-9 archive read back through both decode routes
+    fused = phase_read(archive, data, card)
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    lane = phase_read(archive, data, card, exec_blocks, "K6 exec_blocks",
+                      "lanes", {"Huffman lanes": (lanes, "huf_launches"),
+                                "sequence lanes": (lanes, "seq_launches")})
+    routes = dict(ZD.routes)
+    print(f"level-9 lane routes: {routes}", flush=True)
+    return {"card": card, "write_mib_s": 64 / dt, "ratio": ratio,
+            "launches": counts, "others_8mib": others,
+            "read_fused": fused, "read_lanes": lane, "lane_routes": routes,
+            "k1_ms": {lv: k1[lv]["ms"] for lv in HIGH_LEVELS}}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "libzseek_tpu_torch")):
         fail("libzseek_tpu_torch is not beside chip_smoke.py")
@@ -1111,18 +1277,7 @@ def main() -> None:
           "stock libzstd does not reproduce the input")
     table = parse_seek_table_bytes(archive)
     check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
-    rng = np.random.default_rng(7)
-    for off in rng.integers(0, len(data) - 4096, 16).tolist():
-        got = b""
-        pos = off
-        while len(got) < 4096:
-            i = table.frame_for_offset(pos)
-            d0 = table.frame_d_offset(i)
-            frame = golden.zstd_frame_decompress(
-                frame_bytes(archive, table, i), table.frame_d_size(i))
-            got += frame[pos - d0: pos - d0 + 4096 - len(got)]
-            pos = off + len(got)
-        check(got == data[off: off + 4096], f"random read at {off} differs")
+    random_reads(archive, table, data)
     print("archive: libzstd decode equal, 64 frames, 16 random 4 KiB reads "
           "equal", flush=True)
 
@@ -1152,6 +1307,9 @@ def main() -> None:
     # phase 8
     lane_path = phase_lanes(archive, table, data, kept, card, report)
 
+    # phase 9
+    levels_path = phase_levels(data, card, report)
+
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
           flush=True)
@@ -1159,6 +1317,7 @@ def main() -> None:
     print(json.dumps({"lz4_path": lz4_path}), flush=True)
     print(json.dumps({"hash_path": hash_path}), flush=True)
     print(json.dumps({"lane_path": lane_path}), flush=True)
+    print(json.dumps({"levels_path": levels_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

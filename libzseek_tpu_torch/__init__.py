@@ -2,10 +2,13 @@
 
 Writes and reads seekable archives of zstd frames (with the seek table
 and the decode-hints sidecar) or LZ4 frames on an NVIDIA GPU.  The zstd
-level <= 3 encode chain runs hand-written CUDA kernels for the linked
-LZ77 parse (K1), the fused entropy emission (K2) and the literal
-placement (K3), with PyTorch ops around them; zstd frames decode with the
-fused decode kernel (K4).  LZ4 frames are encoded by the fused LZ4 block
+encode chain runs hand-written CUDA kernels at every level for the
+linked LZ77 parse (K1; from level 4 up with the dual table, lazy
+matching and the repcode probe, on 64 KiB blocks), the fused entropy
+emission (K2) and the literal placement (K3, on 128 KiB blocks), with
+PyTorch ops around them, or the per-block hash parse (K7); zstd frames
+decode with the fused decode kernel (K4) or the lane route (the lane
+decoders and K6).  LZ4 frames are encoded by the fused LZ4 block
 kernel (K5) and decoded by a CUDA LZ4 decoder.  A random-access Reader
 serves both.  The format, writer, reader and a
 native host library (built at first use) are the port's own copies of

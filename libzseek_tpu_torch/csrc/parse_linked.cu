@@ -1,21 +1,32 @@
-// K1: linked-block gated zstd parse (levels <= 3).
+// K1: linked-block gated zstd parse, every level.
 //
 // Replaces the TPU kernel libzseek_tpu/ops/pallas_match.py
 // _parse_linked_kernel (pallas_call at :914, wrapper
 // zstd_parse_linked_smem :853): zstd-fast's greedy LZ77 parse over a
 // window of [previous block | this block], with a persistent tagged hash
-// table {tag:7, pos:24}, the quad miss loop, the miss accelerator and the
-// in-kernel profitability gate (gated_policy "halve").
+// table {tag:7, pos:24}, the miss accelerator and the in-kernel
+// profitability gate (gated_policy "halve").  Levels <= 3 run the quad
+// miss loop on one 2^16-entry table.  Levels >= 4 add the arms of
+// make_arm / do_match_full (:338-678): `dual` (a 2^15-entry short half
+// hashed on 5 bytes and a 2^14-entry long quarter hashed on 8 bytes,
+// both probed and seeded at every position, the long candidate first;
+// in strict rows a short-only candidate confirms on 4 bytes, short4),
+// `lazy` 1 or 2 (after a confirmed hit, probe ip+1 in the long quarter
+// and take a strictly longer match) and `rep_probe` (the previous kept
+// match's distance is tried at every position and wins over the table);
+// with `dual` the walk single-steps (run_single, :680).
 //
 // On the TPU the grid runs in order and the table lives in SMEM across
 // grid steps.  Here one CUDA block walks one CHAIN of rows in order: a
 // chain starts at every row whose min_abs fences off the previous row
 // (a frame start), because an entry written before that row can never
 // pass the window check (its position is below min_abs), exactly like an
-// empty slot.  Chains run in parallel.  The 2^16-entry table (256 KiB)
-// does not fit a block's shared memory, so it is per-chain scratch in
+// empty slot, in each dual sub-table too (ops/parse_linked.py proves it).
+// Chains run in parallel.  The 2^16-entry table (256 KiB) does not fit a
+// block's shared memory, so below level 4 it is per-chain scratch in
 // device memory that the block fills with -1 at chain start; it stays
-// hot in L1/L2.
+// hot in L1/L2.  The dual arms use 2^15 + 2^14 entries (192 KiB), which
+// fit: their table lives in the block's dynamic shared memory.
 //
 // What bounds it: the parse is a dependent scalar walk (hash, table
 // load/store, byte compares), latency-bound on one thread per chain; the
@@ -35,7 +46,10 @@ constexpr uint32_t PRIME = 2654435761u;
 constexpr uint32_t GOLD = 0x9E3779B1u;
 constexpr int HASH_LOG = 16;
 constexpr int TAB_SIZE = 1 << HASH_LOG;
-constexpr int TAGB_SH = HASH_LOG - 1;
+constexpr int SHORT_LOG = HASH_LOG - 1;     // dual: short half
+constexpr int LONG_LOG = HASH_LOG - 2;      // dual: long quarter
+constexpr int LONG_OFF = 1 << SHORT_LOG;
+constexpr int DUAL_SIZE = LONG_OFF + (1 << LONG_LOG);
 constexpr int TAG_MASK = 0x7F << 24;
 constexpr int UNWRITTEN = (int)0x80000000;
 
@@ -43,8 +57,8 @@ struct Row {
   const uint32_t* win;  // words of x2 rows b and b+1
   int WW;               // words in the window
   int N, blen, base, min_abs, h16, limit, lim;
-  int cap, max_offset, gate_bits, min_match, accel_log;
-  bool strict;
+  int cap, max_offset, gate_bits, min_match, accel_log, lazy;
+  bool strict, dual, rep_probe;
   int* table;
   int* ll;
   int* ml;
@@ -84,11 +98,11 @@ __device__ __forceinline__ int byte_c(const Row& R, int i) {
   return (int)((R.win[i >> 2] >> ((i & 3) * 8)) & 0xFF);
 }
 
-// bucket + pre-shifted tag of position p.  `clamped` mirrors the
-// reference's in-match inserts, whose loads past the window end repeat
-// the last word; probes stay >= 12 bytes from the block end.
-__device__ __forceinline__ void hash_at(const Row& R, int p, bool clamped,
-                                        int& h, int& tagb) {
+// the word at p and the one after it.  `clamped` mirrors the reference's
+// in-match inserts, whose loads past the window end repeat the last word;
+// probes stay >= 12 bytes from the block end.
+__device__ __forceinline__ void load_we(const Row& R, int p, bool clamped,
+                                        uint32_t& w, uint32_t& ext4) {
   int q = p >> 2;
   uint32_t sh = (uint32_t)((p & 3) * 8);
   uint32_t lo = R.win[q];
@@ -100,17 +114,52 @@ __device__ __forceinline__ void hash_at(const Row& R, int p, bool clamped,
     hi = R.win[q + 1];
     w3 = R.win[q + 2];
   }
-  uint32_t w = sh == 0 ? lo : ((lo >> sh) | (hi << (32u - sh)));
-  uint32_t ext4 = sh == 0 ? hi : ((hi >> sh) | (w3 << (32u - sh)));
-  uint32_t u = R.strict ? (w ^ (ext4 * GOLD)) * PRIME
-                        : (w ^ ((ext4 & 0xFFu) << 13)) * PRIME;
-  h = (int)(u >> (32 - HASH_LOG));
-  tagb = ((int)(u << TAGB_SH)) & TAG_MASK;
+  w = sh == 0 ? lo : ((lo >> sh) | (hi << (32u - sh)));
+  ext4 = sh == 0 ? hi : ((hi >> sh) | (w3 << (32u - sh)));
+}
+
+// bucket (tlog bits, + off) and tag pre-shifted to bits 24..30
+__device__ __forceinline__ void bucket_tag(uint32_t u, int tlog, int off,
+                                           int& h, int& tagb) {
+  h = (int)(u >> (32 - tlog)) + off;
+  tagb = ((int)(u << (tlog - 1))) & TAG_MASK;
+}
+
+// the one table's hash (8 bytes in strict rows, else 5) or, with dual,
+// the short half's: the reference's sig_u over ext4's low byte, in the
+// row's strict or non-strict form
+__device__ __forceinline__ void hash_main(const Row& R, uint32_t w,
+                                          uint32_t ext4, int& h,
+                                          int& tagb) {
+  uint32_t ext = (R.dual || !R.strict) ? (ext4 & 0xFFu) : ext4;
+  uint32_t u = R.strict ? (w ^ (ext * GOLD)) * PRIME
+                        : (w ^ (ext << 13)) * PRIME;
+  bucket_tag(u, R.dual ? SHORT_LOG : HASH_LOG, 0, h, tagb);
+}
+
+// the dual long quarter's hash: 8 bytes
+__device__ __forceinline__ void hash_long(uint32_t w, uint32_t ext4,
+                                          int& h, int& tagb) {
+  bucket_tag((w ^ (ext4 * GOLD)) * PRIME, LONG_LOG, LONG_OFF, h, tagb);
+}
+
+// a probe's bucket and tag (probes stay >= 12 bytes from the block end)
+__device__ __forceinline__ void hash_at(const Row& R, int p, int& h,
+                                        int& tagb) {
+  uint32_t w, ext4;
+  load_we(R, p, false, w, ext4);
+  hash_main(R, w, ext4, h, tagb);
 }
 
 __device__ __forceinline__ void insert_at(const Row& R, int p) {
+  uint32_t w, ext4;
+  load_we(R, p, true, w, ext4);
   int h, tagb;
-  hash_at(R, p, true, h, tagb);
+  if (R.dual) {
+    hash_long(w, ext4, h, tagb);
+    R.table[h] = (R.base + p) | tagb;
+  }
+  hash_main(R, w, ext4, h, tagb);
   R.table[h] = (R.base + p) | tagb;
 }
 
@@ -149,12 +198,48 @@ __device__ void clear_mask(const Row& R, int ips, int lf) {
   for (int wk = wa + 1; wk < we; ++wk) R.mask[wk] = 0u;
 }
 
-// shared match arm: extend, reseed the table across the span,
-// backward-extend, gate, emit (slot cnt is written even when the match
-// is dropped; the next survivor overwrites it)
+// lazy matching: probe ip+1 (the long quarter with dual, else the one
+// table) `lazy` times, seeding the slot whether or not it was good; a
+// strictly longer confirmed match there moves the match, and the skipped
+// byte joins the literals.  The second step probes from the updated ip.
+__device__ void lazy_steps(const Row& R, int& ip, int& cand_abs, int& l) {
+  for (int z = 0; z < R.lazy; ++z) {
+    if (ip + 1 >= R.limit) continue;
+    const int p2 = ip + 1;
+    int h2, tb2;
+    if (R.dual) {
+      uint32_t w, ext4;
+      load_we(R, p2, false, w, ext4);
+      hash_long(w, ext4, h2, tb2);
+    } else {
+      hash_at(R, p2, h2, tb2);
+    }
+    const int e2 = R.table[h2];
+    const int pos2 = R.base + p2;
+    const int wlo2 = max(R.min_abs, pos2 - R.max_offset);
+    R.table[h2] = pos2 | tb2;
+    if (e2 >= tb2 + wlo2 && e2 < tb2 + pos2) {
+      const int c2_abs = e2 & 0xFFFFFF;
+      const int c2 = c2_abs - R.base;
+      if (w32(R, c2) == w32c(R, p2)) {
+        const int l2 = extend(R, p2, c2);
+        if (l2 > l) {
+          ip = p2;
+          cand_abs = c2_abs;
+          l = l2;
+        }
+      }
+    }
+  }
+}
+
+// shared match arm: extend, [lazy steps], reseed the table across the
+// span, backward-extend, gate, emit (slot cnt is written even when the
+// match is dropped; the next survivor overwrites it)
 __device__ void match_full(const Row& R, State& s, int ip, int cand_abs,
                            bool conf) {
   int l = extend(R, ip, cand_abs - R.base);
+  if (conf && R.lazy > 0) lazy_steps(R, ip, cand_abs, l);
   int pos = R.base + ip;
   int dist = pos - cand_abs;
   int cand = cand_abs - R.base;
@@ -191,13 +276,16 @@ __device__ void match_full(const Row& R, State& s, int ip, int cand_abs,
 }
 
 // confirm the candidate; the non-strict arm fast-rejects confirmed short
-// matches that cannot pass the gate
-__device__ void match_at(const Row& R, State& s, int ip, int cand_abs) {
+// matches that cannot pass the gate.  short4: the candidate came from the
+// dual short half alone, and 4 confirmed bytes suffice in a strict row
+__device__ void match_at(const Row& R, State& s, int ip, int cand_abs,
+                         bool short4) {
   int cand = cand_abs - R.base;
   bool conf4 = w32(R, cand) == w32c(R, ip);
   if (R.strict) {
     bool conf = conf4 && w32(R, cand + 4) == w32c(R, ip + 4);
     conf = conf || (conf4 && R.base + ip - cand_abs == s.rep && s.cnt > 0);
+    conf = conf || (conf4 && short4);
     match_full(R, s, ip, cand_abs, conf);
     return;
   }
@@ -227,12 +315,40 @@ __device__ void body1(const Row& R, State& s) {
   int pos = R.base + ip;
   int wlo = max(R.min_abs, pos - R.max_offset);
   int h, tagb;
-  hash_at(R, ip, false, h, tagb);
+  hash_at(R, ip, h, tagb);
   int e = R.table[h];
   bool good = e >= tagb + wlo && e < tagb + pos && s.cnt < R.cap;
   R.table[h] = pos | tagb;
   if (good) {
-    match_at(R, s, ip, e & 0xFFFFFF);
+    match_at(R, s, ip, e & 0xFFFFFF, false);
+  } else {
+    s.ip = ip + 1 + (s.miss >> R.accel_log);
+    s.miss += 1;
+  }
+}
+
+// the dual arms' position: the repcode probe, then both sub-tables (read,
+// then seeded); a rep hit wins, then the long candidate, then the short
+__device__ void body1_dual(const Row& R, State& s) {
+  const int ip = s.ip;
+  const int pos = R.base + ip;
+  const int wlo = max(R.min_abs, pos - R.max_offset);
+  const bool rep_hit = R.rep_probe && s.rep > 0 && s.cnt < R.cap &&
+                       w32(R, max(ip - s.rep, 0)) == w32c(R, ip);
+  uint32_t w, ext4;
+  load_we(R, ip, false, w, ext4);
+  int hs, ts, hl, tl;
+  hash_main(R, w, ext4, hs, ts);
+  hash_long(w, ext4, hl, tl);
+  const int es = R.table[hs], el = R.table[hl];
+  const bool good_l = el >= tl + wlo && el < tl + pos;
+  const bool good_s = es >= ts + wlo && es < ts + pos;
+  R.table[hs] = pos | ts;
+  R.table[hl] = pos | tl;
+  if (rep_hit) {
+    match_at(R, s, ip, pos - s.rep, false);
+  } else if ((good_l || good_s) && s.cnt < R.cap) {
+    match_at(R, s, ip, (good_l ? el : es) & 0xFFFFFF, !good_l);
   } else {
     s.ip = ip + 1 + (s.miss >> R.accel_log);
     s.miss += 1;
@@ -241,6 +357,12 @@ __device__ void body1(const Row& R, State& s) {
 
 __device__ void parse_row(const Row& R, int* nn) {
   State s{R.N, R.N, 0, 0, 0};
+  if (R.dual) {
+    while (s.ip < R.limit) body1_dual(R, s);
+    nn[0] = s.cnt;
+    nn[1] = s.anchor - R.N;
+    return;
+  }
   const int qlim = R.N + R.blen - 12 - 4;
   while (s.ip < R.limit) {
     // realign, then probe four word-aligned positions per iteration;
@@ -253,7 +375,7 @@ __device__ void parse_row(const Row& R, int* nn) {
       int wlo = max(R.min_abs, pos0 - (R.max_offset - 3));
       for (int k = 0; k < 4; ++k) {
         int h, tagb;
-        hash_at(R, 4 * q + k, false, h, tagb);
+        hash_at(R, 4 * q + k, h, tagb);
         int e = R.table[h];
         int pos_k = pos0 + k;
         bool good = e >= tagb + wlo && e < tagb + pos_k;
@@ -268,7 +390,7 @@ __device__ void parse_row(const Row& R, int* nn) {
     s.miss = missq;
     if (fnd != 0 && s.cnt < R.cap) {
       int k = __ffs(fnd) - 1;
-      match_at(R, s, 4 * qp + k, es[k] & 0xFFFFFF);
+      match_at(R, s, 4 * qp + k, es[k] & 0xFFFFFF, false);
     } else {
       s.ip = 4 * q;
       while (s.ip < R.limit) body1(R, s);
@@ -283,12 +405,15 @@ __global__ void parse_linked_kernel(
     const int* __restrict__ min_abs, const int* __restrict__ h16,
     const int* __restrict__ bounds, int N, int cap, int max_offset,
     int gate_bits, int min_match, int accel_log, int strict_h16_x6,
-    int* tables, int* ll, int* ml, int* off, int* nn, uint32_t* mask) {
+    int lazy, int dual, int rep_probe, int* tables, int* ll, int* ml,
+    int* off, int* nn, uint32_t* mask) {
+  extern __shared__ int dual_table[];
   const int c = blockIdx.x;
   const int r0 = bounds[c], r1 = bounds[c + 1];
   const int NW = N / 4, NWM = N / 32;
-  int* table = tables + (size_t)c * TAB_SIZE;
-  for (int i = threadIdx.x; i < TAB_SIZE; i += blockDim.x) table[i] = -1;
+  int* table = dual ? dual_table : tables + (size_t)c * TAB_SIZE;
+  const int tsize = dual ? DUAL_SIZE : TAB_SIZE;
+  for (int i = threadIdx.x; i < tsize; i += blockDim.x) table[i] = -1;
   for (int r = r0; r < r1; ++r) {
     int* llr = ll + (size_t)r * cap;
     int* mlr = ml + (size_t)r * cap;
@@ -317,7 +442,10 @@ __global__ void parse_linked_kernel(
       R.gate_bits = gate_bits;
       R.min_match = min_match;
       R.accel_log = accel_log;
+      R.lazy = lazy;
       R.strict = 6 * R.h16 <= strict_h16_x6;
+      R.dual = dual != 0;
+      R.rep_probe = rep_probe != 0;
       R.table = table;
       R.ll = llr;
       R.ml = mlr;
@@ -336,13 +464,24 @@ extern "C" int zk_parse_linked(const void* x2, const void* lens,
                                const void* bounds, int nchains, int N,
                                int cap, int max_offset, int gate_bits,
                                int min_match, int accel_log,
-                               int strict_h16_x6, void* tables, void* ll,
+                               int strict_h16_x6, int lazy, int dual,
+                               int rep_probe, void* tables, void* ll,
                                void* ml, void* off, void* nn, void* mask,
                                void* stream) {
-  parse_linked_kernel<<<nchains, 128, 0, (cudaStream_t)stream>>>(
+  // the dual table (192 KiB) is dynamic shared memory, above the 48 KB
+  // a launch gets without opting in
+  const int smem = dual ? DUAL_SIZE * (int)sizeof(int) : 0;
+  if (dual) {
+    cudaError_t e = cudaFuncSetAttribute(
+        parse_linked_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  parse_linked_kernel<<<nchains, 128, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)x2, (const int*)lens, (const int*)min_abs,
       (const int*)h16, (const int*)bounds, N, cap, max_offset, gate_bits,
-      min_match, accel_log, strict_h16_x6, (int*)tables, (int*)ll,
-      (int*)ml, (int*)off, (int*)nn, (uint32_t*)mask);
+      min_match, accel_log, strict_h16_x6, lazy, dual, rep_probe,
+      (int*)tables, (int*)ll, (int*)ml, (int*)off, (int*)nn,
+      (uint32_t*)mask);
   return (int)cudaGetLastError();
 }

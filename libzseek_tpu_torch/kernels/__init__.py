@@ -40,7 +40,7 @@ _I = ctypes.c_int
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
-    "zk_parse_linked": [_P] * 5 + [_I] * 8 + [_P] * 7,
+    "zk_parse_linked": [_P] * 5 + [_I] * 11 + [_P] * 7,
     "zk_entropy_emit": [_P] * 8 + [_I] * 7 + [_P] * 9,
     "zk_place_literals": [_P] * 3 + [_I] * 3 + [_P] * 2,
     "zk_decode": [_P] * 8 + [_I] * 4 + [_P] * 4,

@@ -1,4 +1,4 @@
-"""K1: linked-block gated zstd parse (levels <= 3).
+"""K1: linked-block gated zstd parse, every level.
 
 Counterpart of libzseek_tpu/ops/pallas_match.py zstd_parse_linked_smem
 (:853), which runs the Pallas kernel _parse_linked_kernel (:194, the
@@ -6,17 +6,38 @@ pallas_call at :914).  The CUDA kernel is csrc/parse_linked.cu; the plain
 version below is the same walk in Python ints and runs only for tensors
 on the CPU.
 
+The arms, as level_search_params (ops/zstd_encode.py) picks them:
+- levels <= 3: one 2^16-entry table, the quad miss loop with its
+  single-step head and tail, the strict (8-byte hash) and non-strict
+  (5-byte hash) arms chosen per row by 6*h16 <= 480, the in-kernel gate
+  with gated_policy "halve", min_match 5 or 6, accel_log 5 or 6;
+- levels >= 4 add `dual` (the table splits into a 2^15-entry short half
+  hashed on 5 bytes, at offset 0, and a 2^14-entry long quarter hashed on
+  8 bytes, at offset 2^15; every position probes and seeds both and the
+  long candidate wins; in strict rows a short-only candidate confirms on
+  4 bytes, `short4`), `lazy` 1 or 2 (after a confirmed hit, probe ip+1,
+  seeding the table there, and take a strictly longer confirmed match;
+  the second step probes from the updated ip), `rep_probe` (at every
+  position the previous kept match's distance is tried before the
+  table) and the single-step loop instead of the quad loop.  The
+  reference reaches rep_probe without dual only through its quad loop,
+  which only the retired ZN_REP_PROBE knob selects: that arm raises.
+
 Both walk one chain of rows per frame: a chain starts at every row whose
 min_abs fences off the previous row.  The reference keeps one table for
-the whole grid, but an entry written before a fence fails the window
-check exactly like an empty slot, so a fresh table per chain gives the
-same output.
-
-Only the level <= 3 arms exist: the quad miss loop with its single-step
-head and tail, the strict (8-byte hash) and non-strict (5-byte hash)
-arms chosen per row by 6*h16 <= 480, the in-kernel gate with
-gated_policy "halve", min_match 5 or 6, accel_log 5 or 6.  The lazy, dual
-and rep_probe arms of levels >= 4 raise.
+the whole grid; a fresh table per chain gives the same output because a
+stale entry behaves exactly like an empty slot (-1) everywhere it is
+read.  Entries are {tag:7, pos:24} and a probe at absolute position pos
+accepts an entry e only if tagb + wlo <= e < tagb + pos, where
+wlo >= min_abs of the row.  A stale entry was written by an earlier
+chain, at a position below (r0+1)*N for the chain's first row r0, and
+every row of the chain has min_abs >= (r0+1)*N: with the probe's tag it
+fails e >= tagb + wlo; with another tag it lies outside the 24-bit range
+[tagb, tagb + 2^24) (positions stay below 2^24, _check).  That holds for
+each of the two dual sub-tables with its own tag, and for the lazy probe
+(which checks the same range at ip+1, and only reads the entry when the
+check passes).  The repcode state restarts at 0 in every row, so
+rep_probe carries nothing across rows either.
 """
 
 from __future__ import annotations
@@ -46,11 +67,11 @@ def chain_bounds(min_abs: np.ndarray, N: int) -> np.ndarray:
     return np.asarray(starts + [B], np.int32)
 
 
-def _check(x2, lengths, min_abs, h16, lazy, dual, rep_probe):
-    if lazy or dual or rep_probe:
+def _check(x2, lengths, min_abs, h16, dual, rep_probe):
+    if rep_probe and not dual:
         raise ParameterError(
-            "the lazy, dual and rep_probe parse arms (levels >= 4) are "
-            "not ported")
+            "rep_probe without dual is the quad loop's repcode arm, which "
+            "only the retired ZN_REP_PROBE knob reaches: not ported")
     B1, N = x2.shape
     B = B1 - 1
     if x2.dtype != torch.uint8 or N % 32:
@@ -76,23 +97,26 @@ def parse_linked(x2: torch.Tensor, lengths: torch.Tensor,
     Returns (ll, ml, offv (B, 8192), n_seq, cover_end (B,), lit_mask
     (B, N//32)), all int32; the gate is applied, slots past n_seq hold
     whatever the walk left there."""
-    B, N, ma = _check(x2, lengths, min_abs, h16, lazy, dual, rep_probe)
-    args = (B, N, ma, gate_bits, min_match, accel_log)
+    B, N, ma = _check(x2, lengths, min_abs, h16, dual, rep_probe)
+    prm = (gate_bits, min_match, accel_log, int(lazy), bool(dual),
+           bool(rep_probe))
     if x2.device.type == "cpu":
-        return _parse_plain(x2, lengths, h16, *args)
-    return _parse_cuda(x2, lengths, min_abs, h16, *args)
+        return _parse_plain(x2, lengths, h16, B, N, ma, prm)
+    return _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, prm)
 
 
-def _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, gate_bits, min_match,
-                accel_log):
+def _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, prm):
     global launches
     from libzseek_tpu_torch import kernels
+    gate_bits, min_match, accel_log, lazy, dual, rep_probe = prm
     lib = kernels.library()
     dev = x2.device
     x2 = x2.contiguous()
     bounds = torch.from_numpy(chain_bounds(ma, N)).to(dev)
     nch = bounds.numel() - 1
-    tables = torch.empty((nch, TAB_SIZE), dtype=torch.int32, device=dev)
+    # the dual table lives in the kernel's shared memory
+    tables = torch.empty((0 if dual else nch, TAB_SIZE), dtype=torch.int32,
+                         device=dev)
     ll = torch.empty((B, CAP), dtype=torch.int32, device=dev)
     ml = torch.empty_like(ll)
     off = torch.empty_like(ll)
@@ -103,9 +127,9 @@ def _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, gate_bits, min_match,
     err = lib.zk_parse_linked(
         x2.data_ptr(), ins[0].data_ptr(), ins[1].data_ptr(),
         ins[2].data_ptr(), bounds.data_ptr(), nch, N, CAP, MAX_OFFSET,
-        gate_bits, min_match, accel_log, STRICT_H16_X6, tables.data_ptr(),
-        ll.data_ptr(), ml.data_ptr(), off.data_ptr(), nn.data_ptr(),
-        mask.data_ptr(), stream)
+        gate_bits, min_match, accel_log, STRICT_H16_X6, lazy, int(dual),
+        int(rep_probe), tables.data_ptr(), ll.data_ptr(), ml.data_ptr(),
+        off.data_ptr(), nn.data_ptr(), mask.data_ptr(), stream)
     kernels.check(err, "zk_parse_linked")
     launches += 1
     return ll, ml, off, nn[:, 0], nn[:, 1], mask
@@ -115,9 +139,20 @@ def _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, gate_bits, min_match,
 # plain version: the same walk in Python ints
 
 
-def _row_hashes(win: np.ndarray, strict: bool):
-    """(bucket, tagb) of every window position, with the reference's
-    clamped loads (words past the window end repeat the last word)."""
+def _bucket_tag(u: np.ndarray, tlog: int, off: int):
+    """Bucket (tlog bits, + off) and pre-shifted 7-bit tag of hash
+    products u, as the reference's h_tagb / h_tagb_sub."""
+    h = (u >> np.uint32(32 - tlog)).astype(np.int64) + off
+    tagb = ((u << np.uint32(tlog - 1)) & np.uint32(0x7F000000)) \
+        .astype(np.int64)
+    return h.tolist(), tagb.tolist()
+
+
+def _row_hashes(win: np.ndarray, strict: bool, dual: bool):
+    """(bucket, tagb) lists of every window position for the row's table,
+    with the reference's clamped loads (words past the window end repeat
+    the last word): the one 2^16 table, or with `dual` the short half and
+    then the long quarter."""
     words = win.view("<u4")
     WW = len(words)
     p = np.arange(4 * WW)
@@ -129,18 +164,21 @@ def _row_hashes(win: np.ndarray, strict: bool):
     nz = (np.uint32(32) - sh) & np.uint32(31)
     w = np.where(sh == 0, lo, (lo >> sh) | (hi << nz))
     ext4 = np.where(sh == 0, hi, (hi >> sh) | (w3 << nz))
+    # the reference's sig_u: 8 bytes (strict) or 5 bytes; with dual the
+    # short half passes only ext4's low byte, through the same function
+    ext = (ext4 & np.uint32(0xFF)) if dual or not strict else ext4
     if strict:
-        u = (w ^ (ext4 * _GOLD)) * _PRIME
+        u = (w ^ (ext * _GOLD)) * _PRIME
     else:
-        u = (w ^ ((ext4 & np.uint32(0xFF)) << np.uint32(13))) * _PRIME
-    h = (u >> np.uint32(32 - HASH_LOG)).astype(np.int64)
-    tagb = ((u << np.uint32(HASH_LOG - 1)) & np.uint32(0x7F000000)) \
-        .astype(np.int64)
-    return h.tolist(), tagb.tolist()
+        u = (w ^ (ext << np.uint32(13))) * _PRIME
+    if not dual:
+        return _bucket_tag(u, HASH_LOG, 0), None
+    u_long = (w ^ (ext4 * _GOLD)) * _PRIME
+    return (_bucket_tag(u, HASH_LOG - 1, 0),
+            _bucket_tag(u_long, HASH_LOG - 2, 1 << (HASH_LOG - 1)))
 
 
-def _parse_plain(x2, lengths, h16, B, N, ma, gate_bits, min_match,
-                 accel_log):
+def _parse_plain(x2, lengths, h16, B, N, ma, prm):
     xs = x2.numpy()
     lens = lengths.numpy().tolist()
     h16s = h16.numpy().tolist()
@@ -155,8 +193,7 @@ def _parse_plain(x2, lengths, h16, B, N, ma, gate_bits, min_match,
         table = [-1] * TAB_SIZE
         for r in range(bounds[c], bounds[c + 1]):
             out = _parse_row_plain(xs[r: r + 2].reshape(-1), table, N,
-                                   lens[r], r * N, ma[r], h16s[r],
-                                   gate_bits, min_match, accel_log)
+                                   lens[r], r * N, ma[r], h16s[r], prm)
             cnt, cover, writes, mask = out
             for k, (a, b, o) in writes.items():
                 ll_o[r, k], ml_o[r, k], off_o[r, k] = a, b, o
@@ -167,8 +204,8 @@ def _parse_plain(x2, lengths, h16, B, N, ma, gate_bits, min_match,
             torch.from_numpy(mask_o.view(np.int32).copy()))
 
 
-def _parse_row_plain(win, table, N, blen, base, min_abs, h16, gate_bits,
-                     min_match, accel_log):
+def _parse_row_plain(win, table, N, blen, base, min_abs, h16, prm):
+    gate_bits, min_match, accel_log, lazy, dual, rep_probe = prm
     limit = N + blen - 12
     lim = N + blen
     mask = [0xFFFFFFFF] * (N // 32)
@@ -176,12 +213,15 @@ def _parse_row_plain(win, table, N, blen, base, min_abs, h16, gate_bits,
     if limit <= N:
         return 0, 0, writes, mask
     strict = 6 * h16 <= STRICT_H16_X6
-    H, T = _row_hashes(win, strict)
+    (H, T), long_tab = _row_hashes(win, strict, dual)
+    HL, TL = long_tab if dual else (H, T)
     wb = win.tobytes()
     max_offset = MAX_OFFSET
     cheap_bits = max(gate_bits - 6, 6) * 16
 
     def insert_at(p):
+        if dual:
+            table[HL[p]] = (base + p) | TL[p]
         table[H[p]] = (base + p) | T[p]
 
     def extend(ip, cand):
@@ -212,10 +252,33 @@ def _parse_row_plain(win, table, N, blen, base, min_abs, h16, gate_bits,
         for wk in range(wa + 1, we):
             mask[wk] = 0
 
+    def lazy_steps(ip, cand_abs, l):
+        """Probe ip+1 up to `lazy` times (seeding the table there); a
+        strictly longer confirmed match moves the match there."""
+        for _ in range(lazy):
+            if ip + 1 >= limit:
+                continue
+            p2 = ip + 1
+            h2, tb2 = HL[p2], TL[p2]      # the long quarter with dual
+            e2 = table[h2]
+            pos2 = base + p2
+            wlo2 = max(min_abs, pos2 - max_offset)
+            table[h2] = pos2 | tb2
+            if tb2 + wlo2 <= e2 < tb2 + pos2:
+                c2_abs = e2 & 0xFFFFFF
+                c2 = c2_abs - base
+                if wb[c2: c2 + 4] == wb[p2: p2 + 4]:
+                    l2 = extend(p2, c2)
+                    if l2 > l:
+                        ip, cand_abs, l = p2, c2_abs, l2
+        return ip, cand_abs, l
+
     def match_full(st, ip, cand_abs, conf):
         _, anchor, cnt, miss, rep = st
+        l = extend(ip, cand_abs - base)
+        if conf and lazy:
+            ip, cand_abs, l = lazy_steps(ip, cand_abs, l)
         cand = cand_abs - base
-        l = extend(ip, cand)
         dist = base + ip - cand_abs
         le = l if conf else 2
         nins = min(le >> 5, 8)
@@ -241,7 +304,7 @@ def _parse_row_plain(win, table, N, blen, base, min_abs, h16, gate_bits,
         ipn = ip + l if conf else ip + 1 + (miss >> accel_log)
         return [ipn, anchor, cnt, (miss >> 1) if conf else miss + 1, rep]
 
-    def match_at(st, ip, cand_abs):
+    def match_at(st, ip, cand_abs, short4=False):
         _, anchor, cnt, miss, rep = st
         cand = cand_abs - base
         conf4 = wb[cand: cand + 4] == wb[ip: ip + 4]
@@ -249,6 +312,7 @@ def _parse_row_plain(win, table, N, blen, base, min_abs, h16, gate_bits,
             conf = conf4 and wb[cand + 4: cand + 8] == wb[ip + 4: ip + 8]
             conf = conf or (conf4 and base + ip - cand_abs == rep
                             and cnt > 0)
+            conf = conf or (conf4 and short4)
             return match_full(st, ip, cand_abs, conf)
         a, b = wb[cand + 4: cand + 8], wb[ip + 4: ip + 8]
         l8 = 8
@@ -279,9 +343,34 @@ def _parse_row_plain(win, table, N, blen, base, min_abs, h16, gate_bits,
             return match_at(st, ip, e & 0xFFFFFF)
         return [ip + 1 + (miss >> accel_log), anchor, cnt, miss + 1, rep]
 
+    def body1_dual(st):
+        ip, anchor, cnt, miss, rep = st
+        pos = base + ip
+        wlo = max(min_abs, pos - max_offset)
+        rep_hit = rep_probe and rep > 0 and cnt < CAP and \
+            wb[max(ip - rep, 0): max(ip - rep, 0) + 4] == wb[ip: ip + 4]
+        hs, ts, hl, tl = H[ip], T[ip], HL[ip], TL[ip]
+        e_s, e_l = table[hs], table[hl]
+        good_l = tl + wlo <= e_l < tl + pos
+        good_s = ts + wlo <= e_s < ts + pos
+        table[hs] = pos | ts
+        table[hl] = pos | tl
+        if rep_hit:
+            return match_at(st, ip, pos - rep)
+        if (good_l or good_s) and cnt < CAP:
+            return match_at(st, ip, (e_l if good_l else e_s) & 0xFFFFFF,
+                            short4=not good_l)
+        return [ip + 1 + (miss >> accel_log), anchor, cnt, miss + 1, rep]
+
+    st = [N, N, 0, 0, 0]
+    if dual:
+        # the dual arms single-step (the reference's run_single)
+        while st[0] < limit:
+            st = body1_dual(st)
+        return st[2], st[1] - N, writes, mask
+
     qlim = N + blen - 16
     qshift = accel_log + 2
-    st = [N, N, 0, 0, 0]
     while st[0] < limit:
         while st[0] < limit and st[0] & 3:
             st = body1(st)
@@ -314,4 +403,3 @@ def _parse_row_plain(win, table, N, blen, base, min_abs, h16, gate_bits,
             while st[0] < limit:
                 st = body1(st)
     return st[2], st[1] - N, writes, mask
-

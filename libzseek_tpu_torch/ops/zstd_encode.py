@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from libzseek_tpu_torch import native
-from libzseek_tpu_torch.errors import ParameterError
 from libzseek_tpu_torch.ops import common as C
 from libzseek_tpu_torch.ops.common import u32_to_i32
 from libzseek_tpu_torch.ops.entropy import exp_of
@@ -244,15 +243,20 @@ def zstd_sequences_fast_nolit(x: torch.Tensor, lengths: torch.Tensor):
 
 
 def level_search_params(level: int) -> dict:
-    """zstd compression level -> linked-parse search effort (the level
-    <= 3 rows of the reference's ladder)."""
+    """zstd compression level -> linked-parse search effort, the
+    reference's ladder: from level 4 up the dual table, lazy matching, the
+    repcode probe and the cheaper gate (7 bits a sequence), with the miss
+    accelerator slowed as the level rises."""
     if level <= 1:
         return dict(min_match=6, lazy=0, accel_log=5, dual=False)
     if level <= 3:
         return dict(min_match=5, lazy=0, accel_log=6, dual=False)
-    raise ParameterError(
-        f"level {level}: only levels <= 3 are ported (the lazy, dual and "
-        "repcode-probe parse arms of levels >= 4 are not)")
+    high = dict(min_match=5, dual=True, rep_probe=True, gate_bits=7)
+    if level <= 8:
+        return dict(high, lazy=1, accel_log=8)
+    if level <= 15:
+        return dict(high, lazy=2, accel_log=10)
+    return dict(high, lazy=2, accel_log=14)
 
 
 def zstd_sequences_linked(x2: torch.Tensor, lengths: torch.Tensor,

@@ -1,10 +1,11 @@
 """Where one write of the port's main path, and one read of what it
 wrote, spend their time on the GPU.
 
-    python -m libzseek_tpu_torch.profile_write [zstd|lz4|hash]
+    python -m libzseek_tpu_torch.profile_write [zstd|zstd9|lz4|hash]
 
 Writes 64 MiB of mixed_corpus(seed 11) through the port's Writer with
-the codec named (zstd, the default, at level 3; lz4 at level 0; hash,
+the codec named (zstd, the default, at level 3; zstd9, zstd at level 9
+with its 64 KiB blocks and K1's level >= 4 arms; lz4 at level 0; hash,
 ZstdCodec(parser="hash") at level 3; 1 MiB frames, batch_frames=16,
 1 MiB writes), once to warm up
 and once under torch.profiler with CPU and CUDA activities; then reads
@@ -36,13 +37,19 @@ MIB = 1 << 20
 SIZE_MIB = 64    # the main path's write (bench.py, chip_smoke.py)
 
 
+# codec argument -> (Writer codec, level)
+CODECS = {"zstd": ("zstd", None), "zstd9": ("zstd", 9), "lz4": ("lz4", None),
+          "hash": ("hash", None)}
+
+
 def _write(data: bytes, codec: str = "zstd") -> bytes:
     import torch
     from libzseek_tpu_torch import Writer, ZstdCodec
+    codec, level = CODECS[codec]
     if codec == "hash":
         codec = ZstdCodec(device="cuda", parser="hash")
     sink = io.BytesIO()
-    w = Writer(sink, codec, device="cuda", min_frame_size=MIB,
+    w = Writer(sink, codec, level=level, device="cuda", min_frame_size=MIB,
                batch_frames=16)
     for pos in range(0, len(data), MIB):
         w.write(data[pos: pos + MIB])
@@ -124,9 +131,9 @@ def main(argv: list[str]) -> int:
     import torch
     from libzseek_tpu_torch.testing.corpus import mixed_corpus
     codec = argv[0] if argv else "zstd"
-    if codec not in ("zstd", "lz4", "hash") or len(argv) > 1:
+    if codec not in CODECS or len(argv) > 1:
         print("usage: python -m libzseek_tpu_torch.profile_write "
-              "[zstd|lz4|hash]",
+              f"[{'|'.join(CODECS)}]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():

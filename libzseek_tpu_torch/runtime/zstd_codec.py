@@ -1,10 +1,13 @@
-"""zstd seekable-frame codec on the GPU: the level <= 3 write path and
-the read path.
+"""zstd seekable-frame codec on the GPU: the write path at every level
+and the read path.
 
 Counterpart of libzseek_tpu/runtime/zstd_codec.py ZstdCodec with its
 `parser` ("auto" = "linked", "linked", "hash") and `entropy` ("auto",
-"smem", "xla") keywords (:119-181).  The device chain (parser="linked",
-entropy "auto" or "smem"):
+"smem", "xla") keywords (:119-181).  The level picks K1's search arms
+(ops/zstd_encode.level_search_params) and the block size: 64 KiB from
+level 4 up, 128 KiB below (:140-148), for both parsers.  At 64 KiB K3 is
+off and K2 emits every literal payload.  The device chain
+(parser="linked", entropy "auto" or "smem"):
 
   host:   batch layout (Bp+1, N) with Bp = max(8, pow2) rows, row r+1 =
           block r and row r its context, min_abs frame fences, and the
@@ -88,6 +91,7 @@ from libzseek_tpu_torch.utils.device import resolve_device
 _span = torch.profiler.record_function
 
 BLOCK = zf.BLOCK_MAX          # 128 KiB, the format's largest block
+BLOCK_HIGH = 1 << 16          # the block of levels >= 4
 MIN_BLOCK = 4096
 LDM_MIN_DIST = 1 << 17        # long-distance matches beyond the window
 MAX_BATCH_BLOCKS = 64         # blocks per device batch
@@ -170,7 +174,7 @@ class ZstdCodec:
     supports_device_frames = True
 
     def __init__(self, level: int = 3, device: str = "cuda",
-                 block: int = BLOCK, parser: str = "auto",
+                 block: int | None = None, parser: str = "auto",
                  entropy: str = "auto", decoder: str = "fused"):
         if parser == "sort":
             raise ParameterError(
@@ -185,9 +189,11 @@ class ZstdCodec:
         if decoder not in DECODERS:
             raise ParameterError(f"unknown decoder {decoder!r}: one of "
                                  f"{', '.join(map(repr, DECODERS))}")
-        if level >= 4:
-            raise ParameterError(
-                f"level {level}: the port compresses levels <= 3 only")
+        # levels >= 4 halve the block: twice the sequence slots per byte
+        # for the 8192-slot parse cap; an explicit block (the reference's
+        # ZN_BLOCK) wins at every level
+        if block is None:
+            block = BLOCK_HIGH if level >= 4 else BLOCK
         if block & (block - 1) or not MIN_BLOCK <= block <= BLOCK:
             raise ParameterError(
                 f"block size {block}: must be a power of two in "

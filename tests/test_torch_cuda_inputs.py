@@ -169,3 +169,63 @@ def replay_on_cpu(calls):
         for x, y in zip(out, ref):
             np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
     return len(calls)
+
+
+def words(rng, n):
+    """Vocabulary text: hundreds of short matches per 16 KiB."""
+    vocab = [bytes(rng.integers(97, 123, int(rng.integers(2, 9)), np.uint8))
+             for _ in range(300)]
+    out = b" ".join(vocab[int(i)] for i in rng.zipf(1.3, n // 3) % 300)
+    return np.frombuffer(out[:n], np.uint8)
+
+
+# crafted rows of arms_rows: where the lazy probe's match starts (level
+# 4: one step; levels >= 9: two) and where the rep probe must win
+LAZY_AT = {1: (201, 141, 11), 2: (202, 102, 34)}   # start, dist, min len
+REP_AT = (400, 100, 64)
+
+
+def arms_rows():
+    """Four fenced 16 KiB rows, (x2, lens, min_abs), that each take one
+    of K1's level >= 4 arms:
+    row 0 (noise, non-strict): "ABCDE..." at 200 has a 5-byte short-table
+    match at 20, a longer one from 201 at 60 ("BCDEFGHIJKL") and a longer
+    one still from 202 at 100, so lazy step 1, then step 2, wins;
+    row 1 (vocabulary text, strict): 5-7-byte matches that only the dual
+    short half with 4-byte confirmation (short4) keeps;
+    row 2 (noise): V at 300 and again at 400 with the repcode distance 100
+    (set by W at 280 and 380), while the tables' newest entries for V's
+    first bytes are a 12-byte copy at 366: only the rep probe finds the
+    64-byte match, even with the lazy steps;
+    row 3: period-337 repeats with a changed byte every ~50 bytes."""
+    N, B = 16384, 4
+    rng = np.random.default_rng(4242)
+    x2 = np.zeros((B + 1, N), np.uint8)
+    x2[1] = rng.integers(0, 256, N, np.uint8)
+    alpha = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789", np.uint8)
+    row = x2[1]
+    row[20: 25] = alpha[:5]
+    row[60: 71] = alpha[1:12]
+    row[100: 100 + len(alpha) - 2] = alpha[2:]
+    row[200: 200 + len(alpha)] = alpha
+    # bytes before each source differ from the byte before its copy, so
+    # the backward extension does not move the starts
+    row[59], row[99], row[19] = ord("#"), ord("#"), ord("#")
+    x2[2] = words(rng, N)
+    row = x2[3]
+    row[:] = rng.integers(0, 256, N, np.uint8)
+    W = rng.integers(0, 256, 16, np.uint8)
+    V = rng.integers(0, 256, 64, np.uint8)
+    row[280: 296], row[380: 396] = W, W
+    row[300: 364], row[400: 464] = V, V
+    row[366: 378] = V[:12]
+    row[299], row[399] = 1, 2
+    row[279], row[379] = 3, 4
+    row[365], row[378] = 5, 6
+    per = rng.integers(0, 256, 337, np.uint8)
+    x2[4] = np.tile(per, N // 337 + 1)[:N]
+    for p in range(400, N, 50):
+        x2[4, p + int(rng.integers(0, 50)) - 25] ^= 0x55
+    lens = np.full(B, N, np.int32)
+    min_abs = ((np.arange(B) + 1) * N).astype(np.int32)
+    return x2, lens, min_abs

@@ -22,6 +22,7 @@ from libzseek_tpu_torch.ops import fse_plan as fpl
 from libzseek_tpu_torch.ops import huffman_plan as hp
 from libzseek_tpu_torch.ops.parse_linked import parse_linked
 from libzseek_tpu_torch.ops.zstd_encode import _linked_post
+from test_torch_cuda_inputs import arms_rows, words  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 S = 8192          # sequence slots per block
@@ -61,14 +62,6 @@ def eq(port, ref, msg=""):
     ref = np.asarray(ref)
     got = to_numpy(port, np.uint32 if ref.dtype == np.uint32 else None)
     np.testing.assert_array_equal(got, ref, err_msg=msg)
-
-
-def words(rng, n):
-    """Vocabulary text: hundreds of short matches per 16 KiB."""
-    vocab = [bytes(rng.integers(97, 123, int(rng.integers(2, 9)), np.uint8))
-             for _ in range(300)]
-    out = b" ".join(vocab[int(i)] for i in rng.zipf(1.3, n // 3) % 300)
-    return np.frombuffer(out[:n], np.uint8)
 
 
 def planted(rng, n):
@@ -161,3 +154,137 @@ def fence_batch(rng, N, B=4):
     x2 = np.stack([np.zeros(N, np.uint8), a0, a1, a2, a2.copy()])
     return x2, np.full(B, N, np.int32), \
         np.array([N, N, 2 * N, 4 * N], np.int32), np.full(B, 64, np.int32)
+
+
+# --- K1 parity cases: 4 rows of 16 KiB, so the reference compiles once
+# per parameter set ---
+
+PARSE_N = 16384
+PARSE_B = 4
+PARSE_OUTS = ("ll", "ml", "offv", "n_seq", "cover_end", "lit_mask")
+
+
+def _planted_text(rng, n):
+    """Markov-ish text with planted repeats (distances up to 24 KiB, so
+    some cross into the previous block)."""
+    x = text_corpus(rng, n)
+    for _ in range(n // 256):
+        s = int(rng.integers(0, n - 2048))
+        d = int(rng.integers(8, min(s, 24576) + 9))
+        ln = int(rng.integers(6, 300))
+        if s - d >= 0:
+            x[s: s + ln] = x[s - d: s - d + ln]
+    return x
+
+
+def _h16(x2, lens):
+    return np.array(jze.block_entropy_h16(jnp.asarray(x2[1:]),
+                                          jnp.asarray(lens))[0])
+
+
+def _corpus_batch(rng, kind):
+    # mixed: one regime per row (text-like, period-337 repeats, zeros,
+    # noise), so both hash arms run
+    N, B = PARSE_N, PARSE_B
+    data = _planted_text(rng, B * N) if kind == "text" else \
+        mixed_corpus(rng, B * N)
+    x2 = np.zeros((B + 1, N), np.uint8)
+    x2[1:] = data.reshape(B, N)
+    lens = np.array([N, N, N, 9000], np.int32)
+    x2[B, 9000:] = 0
+    min_abs = np.array([N, N, 2 * N, 4 * N], np.int32)
+    return x2, lens, min_abs, _h16(x2, lens)
+
+
+def parse_cases():
+    """{name: (x2, lens, min_abs, h16)}: the multi-frame fence batch,
+    planted text, the four mixed regimes, h16 on both sides of the strict
+    threshold (6*h16 <= 480), and LDM-covered rows (length 0), which skip
+    the parse and must leave the table untouched."""
+    rng = np.random.default_rng(2024)
+    cases = {"fence": fence_batch(rng, PARSE_N, PARSE_B)}
+    for kind in ("text", "mixed"):
+        cases[kind] = _corpus_batch(rng, kind)
+    x2, lens, ma, _ = cases["text"]
+    cases["h16_sides"] = (x2, lens, ma, np.array([80, 81, 60, 100],
+                                                 np.int32))
+    x2, lens, ma, h16 = cases["mixed"]
+    pl = lens.copy()
+    pl[1] = 0
+    cases["zero_rows"] = (x2, pl, ma, h16)
+    return cases
+
+
+def arms_batch():
+    """test_torch_cuda_inputs.arms_rows() with the reference's h16:
+    (x2, lens, min_abs, h16)."""
+    x2, lens, min_abs = arms_rows()
+    return x2, lens, min_abs, _h16(x2, lens)
+
+
+def parse_both(case, prm):
+    """(reference outputs as numpy, plain outputs as numpy) of one case:
+    zstd_parse_linked_smem in interpret mode and the port's plain K1."""
+    from libzseek_tpu.ops.pallas_match import zstd_parse_linked_smem
+    ref = zstd_parse_linked_smem(*(jnp.asarray(a) for a in case),
+                                 interpret=True, **prm)
+    out = parse_linked(*(torch.from_numpy(a) for a in case), **prm)
+    return [np.asarray(r) for r in ref], [o.numpy() for o in out]
+
+
+def kept_sequences(out, row):
+    """[(block-relative start, length, distance)] of a row's kept
+    sequences from plain K1's outputs."""
+    ll, ml, offv, n_seq = out[:4]
+    pos, seqs = 0, []
+    for j in range(int(n_seq[row])):
+        start = pos + int(ll[row, j])
+        seqs.append((start, int(ml[row, j]), int(offv[row, j]) - 3))
+        pos = start + int(ml[row, j])
+    return seqs
+
+
+# --- Writer archives at levels >= 4 (64 KiB blocks) ---
+
+ZN_KNOBS = ("ZN_BLOCK", "ZN_REP_PROBE", "ZN_GATE_BITS", "ZN_HLOG",
+            "ZN_STRICT_X6", "ZN_STRICT_HB", "ZN_GATED_POLICY")
+
+
+def level_archives(monkeypatch, level: int, parser: str = "linked"):
+    """296 KiB (192 KiB of mixed_corpus, then planted-repeat text) through
+    the JAX package's Writer with its ZstdCodec(level, parser) and through
+    the port's Writer(sink, "zstd", level=...) on the CPU, or with
+    ZstdCodec(level, parser="hash"): 256 KiB frames, so the first frame
+    is a chain of four 64 KiB blocks and the second one short block, two
+    frames a batch, 32 KiB writes, checksums.  Returns (data, reference
+    archive, port archive)."""
+    import io
+
+    from libzseek_tpu.runtime.writer import Writer as JWriter
+    from libzseek_tpu.runtime.zstd_codec import ZstdCodec as JCodec
+    from libzseek_tpu_torch import Writer, ZstdCodec
+    for k in ZN_KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    build_native_runtime()
+    rng = np.random.default_rng(100 + level)
+    data = (mixed_corpus(rng, 192 * 1024).tobytes()
+            + planted(rng, 104 * 1024).tobytes())
+    kw = dict(min_frame_size=256 * 1024, batch_frames=2, checksums=True)
+
+    def write(writer):
+        for pos in range(0, len(data), 32768):
+            writer.write(data[pos: pos + 32768])
+        writer.close()
+
+    ref, got = io.BytesIO(), io.BytesIO()
+    if parser == "hash":
+        from test_torch_hash_inputs import interpret_k7
+        interpret_k7(monkeypatch)
+        write(JWriter(ref, codec=JCodec(level=level, parser="hash"), **kw))
+        write(Writer(got, ZstdCodec(level=level, parser="hash",
+                                    device="cpu"), **kw))
+    else:
+        write(JWriter(ref, codec=JCodec(level=level, parser="linked",
+                                        entropy="smem"), **kw))
+        write(Writer(got, "zstd", level=level, device="cpu", **kw))
+    return data, ref.getvalue(), got.getvalue()

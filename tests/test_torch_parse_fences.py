@@ -1,6 +1,7 @@
 """K1's wrapper (libzseek_tpu_torch/ops/parse_linked.py): the ordered
-chains follow the min_abs fences, and the wrapper refuses the parse arms
-of levels >= 4 and fences that cut no frame."""
+chains follow the min_abs fences, and the wrapper refuses the quad
+loop's repcode arm (rep_probe without dual, which no level reaches) and
+fences that cut no frame."""
 
 import numpy as np
 import pytest
@@ -23,9 +24,11 @@ def test_chain_bounds_follow_fences():
 def test_rejects_unported_arms_and_bad_fences():
     x2, lens, min_abs, h16 = (torch.from_numpy(a) for a in
                               fence_batch(np.random.default_rng(2024), N))
+    # the quad loop's repcode arm (rep_probe without dual) is reached only
+    # through the reference's retired ZN_REP_PROBE knob
+    with pytest.raises(ParameterError, match="ZN_REP_PROBE"):
+        parse_linked(x2, lens, min_abs, h16, rep_probe=True)
     with pytest.raises(ParameterError):
-        parse_linked(x2, lens, min_abs, h16, lazy=1)
-    with pytest.raises(ParameterError):
-        parse_linked(x2, lens, min_abs, h16, dual=True)
+        parse_linked(x2, lens, min_abs, h16, lazy=1, rep_probe=True)
     with pytest.raises(ValueError):
         parse_linked(x2, lens, torch.zeros_like(min_abs), h16)

@@ -5,90 +5,27 @@ linked gated parse against the reference Pallas kernel
 All six outputs (ll, ml, offv, n_seq, cover_end, lit_mask) must be equal
 array for array, including the slots past n_seq.  Tolerance: none (integer
 outputs).  Rows are 16 KiB blocks; every case has the same shape, so the
-reference compiles once per level.  The chain bounds and the wrapper's
-refusals: test_torch_parse_fences.py."""
+reference compiles once per level.  The level >= 4 arms:
+test_torch_parse_levels.py and test_torch_parse_lazy.py; the chain bounds
+and the wrapper's refusals: test_torch_parse_fences.py."""
 
 import numpy as np
 import pytest
-import torch
 
-import jax.numpy as jnp
+from libzseek_tpu.ops.zstd_encode import level_search_params
+from test_torch_inputs import PARSE_OUTS, parse_both, parse_cases
 
-from libzseek_tpu.ops.pallas_match import zstd_parse_linked_smem
-from libzseek_tpu.ops.zstd_encode import (block_entropy_h16,
-                                          level_search_params)
-from libzseek_tpu.testing.corpus import mixed_corpus, text_corpus
-from libzseek_tpu_torch.ops.parse_linked import parse_linked
-from test_torch_inputs import fence_batch
-
-N = 16384
-B = 4
-
-
-def _planted_text(rng, n):
-    """Markov-ish text with planted repeats (distances up to 24 KiB, so
-    some cross into the previous block)."""
-    x = text_corpus(rng, n)
-    for _ in range(n // 256):
-        s = int(rng.integers(0, n - 2048))
-        d = int(rng.integers(8, min(s, 24576) + 9))
-        ln = int(rng.integers(6, 300))
-        if s - d >= 0:
-            x[s: s + ln] = x[s - d: s - d + ln]
-    return x
-
-
-def _corpus_batch(rng, kind):
-    # mixed: one regime per row (text-like, period-337 repeats, zeros,
-    # noise), so both hash arms run
-    data = _planted_text(rng, B * N) if kind == "text" else \
-        mixed_corpus(rng, B * N)
-    x2 = np.zeros((B + 1, N), np.uint8)
-    x2[1:] = data.reshape(B, N)
-    lens = np.array([N, N, N, 9000], np.int32)
-    x2[B, 9000:] = 0
-    min_abs = np.array([N, N, 2 * N, 4 * N], np.int32)
-    h16 = np.array(block_entropy_h16(jnp.asarray(x2[1:]),
-                                     jnp.asarray(lens))[0])
-    return x2, lens, min_abs, h16
-
-
-def _cases():
-    rng = np.random.default_rng(2024)
-    cases = {"fence": fence_batch(rng, N, B)}
-    for kind in ("text", "mixed"):
-        cases[kind] = _corpus_batch(rng, kind)
-    # entropy on both sides of the strict threshold (6*h16 <= 480)
-    x2, lens, ma, _ = cases["text"]
-    cases["h16_sides"] = (x2, lens, ma, np.array([80, 81, 60, 100],
-                                                 np.int32))
-    # LDM-covered rows skip the parse and must leave the table untouched
-    x2, lens, ma, h16 = cases["mixed"]
-    pl = lens.copy()
-    pl[1] = 0
-    cases["zero_rows"] = (x2, pl, ma, h16)
-    return cases
-
-
-CASES = _cases()
+CASES = parse_cases()
 
 
 @pytest.mark.parametrize("level", [1, 3])
 def test_plain_parse_matches_reference(level):
     prm = level_search_params(level)
+    prm = dict(min_match=prm["min_match"], accel_log=prm["accel_log"])
     for case in sorted(CASES):
-        x2, lens, min_abs, h16 = CASES[case]
-        ref = zstd_parse_linked_smem(
-            jnp.asarray(x2), jnp.asarray(lens), jnp.asarray(min_abs),
-            jnp.asarray(h16), min_match=prm["min_match"],
-            accel_log=prm["accel_log"], interpret=True)
-        out = parse_linked(torch.from_numpy(x2), torch.from_numpy(lens),
-                           torch.from_numpy(min_abs), torch.from_numpy(h16),
-                           min_match=prm["min_match"],
-                           accel_log=prm["accel_log"])
-        names = ("ll", "ml", "offv", "n_seq", "cover_end", "lit_mask")
-        for name, r, o in zip(names, ref, out):
-            np.testing.assert_array_equal(o.numpy(), np.asarray(r),
+        ref, out = parse_both(CASES[case], prm)
+        for name, r, o in zip(PARSE_OUTS, ref, out):
+            np.testing.assert_array_equal(o, r,
                                           err_msg=f"{case} L{level} {name}")
         if case != "fence":
             assert int(out[3].sum()) > 0, f"{case}: no matches"
