@@ -82,10 +82,22 @@ Phases, each of which must pass (any failure exits non-zero):
      8 MiB (2 MiB of each quarter) that libzstd decodes, K1 (K7) launching;
      the level-9 archive is read back through Reader(device="cuda")
      (fused, K4 launching) and Reader(decoder="lanes"), with the lane
-     route's counts.
+     route's counts;
+ 10. the transcode decode route (ZstdCodec(decoder="transcode")): every
+     call the route makes to K4's transcode arm is replayed on its plain
+     version, exact (tokens, literals, stat), with the Huffman literals
+     on the host and on the device, on the small frames of phase 2 and
+     on the archive's first 8 frames with their hints, where the route
+     must equal libzstd's output and the arm is timed; then
+     Reader(decoder="transcode") reads the 64 MiB archive as in phase 5
+     (the arm must launch, no batch may leave the route), the
+     long-window frame and the level-9 archive go through it without a
+     fallback, and the fused, lane and transcode reads of the 64 MiB run
+     in turn, three rounds, each read's MiB/s printed.
 
 Prints JSON lines for the write path, the read path, the LZ4 path, the
-hash path, the lane route, the level >= 4 path and the kernels, the
+hash path, the lane route, the level >= 4 path, the transcode route and
+the kernels, the
 card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
@@ -433,18 +445,18 @@ def read_all(r) -> bytes:
 
 def phase_read(archive: bytes, data: bytes, card: str, D=None,
                name: str = "K4", decoder: str = "fused",
-               counted=None) -> dict:
-    """Phase 5 (and the LZ4 and lane routes' reads): the read path through
-    the port's Reader on the card; `D` is the decoder's module, whose
-    launch count the measured sequential pass must raise, and `counted`
-    maps more names to (module, counter attribute) to count in that pass
-    (all set to 0 just before it)."""
+               counted=None, attr: str = "launches") -> dict:
+    """Phase 5 (and the LZ4, lane and transcode routes' reads): the read
+    path through the port's Reader on the card; `D` is the decoder's
+    module, whose launch count `attr` the measured sequential pass must
+    raise, and `counted` maps more names to (module, counter attribute)
+    to count in that pass (all set to 0 just before it)."""
     import numpy as np
     import torch
     from libzseek_tpu_torch import Reader
     if D is None:
         from libzseek_tpu_torch.ops import decode as D
-    counted = dict(counted or {}, **{name: (D, "launches")})
+    counted = dict(counted or {}, **{name: (D, attr)})
     with Reader(archive, device="cuda", decoder=decoder) as r:  # warm-up
         check(read_all(r) == data, "warm-up read differs from the input")
     for mod, attr in counted.values():
@@ -1110,11 +1122,11 @@ def sample_8mib(data: bytes) -> bytes:
                     for q in range(4))
 
 
-def phase_levels(data, card, report) -> dict:
+def phase_levels(data, card, report, keep: dict) -> dict:
     """Phase 9: K1's level >= 4 arms against their plain versions, then
     the level-9 write of the 64 MiB, levels 4 and 16 and the hash parser
     at level 9 on 8 MiB, and the level-9 archive's read through both
-    decode routes."""
+    decode routes (the archive goes to `keep` for phase 10)."""
     import numpy as np
     import torch
     from libzseek_tpu_torch import ZstdCodec
@@ -1163,6 +1175,7 @@ def phase_levels(data, card, report) -> dict:
     check(counts["K3"] == 0, "K3 launched on 64 KiB blocks")
     check(golden.zstd_decompress(archive) == data,
           "stock libzstd does not reproduce the level-9 archive")
+    keep["level9_archive"] = archive
     table = parse_seek_table_bytes(archive)
     check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
     random_reads(archive, table, data)
@@ -1210,6 +1223,182 @@ def phase_levels(data, card, report) -> dict:
             "launches": counts, "others_8mib": others,
             "read_fused": fused, "read_lanes": lane, "lane_routes": routes,
             "k1_ms": {lv: k1[lv]["ms"] for lv in HIGH_LEVELS}}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the transcode decode route
+
+def transcode_calls(frames, sizes, hints, host_literals: bool):
+    """decode_frames_transcode on the card with every call of K4's
+    transcode wrapper recorded: (its result, [(args, outputs)])."""
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    calls = []
+    real = D.transcode_blocks
+
+    def spy(*a):
+        out = real(*a)
+        calls.append((a, out))
+        return out
+    D.transcode_blocks = spy
+    try:
+        res = ZD.decode_frames_transcode(frames, sizes, hints,
+                                         device="cuda",
+                                         host_literals=host_literals)
+    finally:
+        D.transcode_blocks = real
+    return res, calls
+
+
+def transcode_work(calls) -> tuple[int, int]:
+    """(bytes, operations) that recorded transcode calls need, counting
+    only what the arm reads and writes: per row its meta and token
+    prefix; per row with sequences its sequence stream (meta[12] bits)
+    and, of each FSE table, the entries its walk can reach (2^tl, at
+    most n_seq); per row whose literals the kernel emits, its literal
+    prefix and either its Huffman streams (meta[4:8] bits) and at most
+    regen of its 4096 peek-table entries, or its regen DIRECT bytes; the
+    chain and the constant table once a call; out, the literal and token
+    words and the stat.  Nothing of a DMODE_LIT_HOST row's literals.
+    Operations one per Huffman symbol and ten per sequence."""
+    import numpy as np
+    from libzseek_tpu_torch.ops import decode as D
+    nb = ops = 0
+    for a, out in calls:
+        m = a[4].cpu().numpy().astype(np.int64)
+        mode, regen, n_seq = m[:, 0], m[:, 3], m[:, 13]
+        host = (mode & D.DMODE_LIT_HOST) != 0
+        huf = ((mode & (D.DMODE_HUF4 | D.DMODE_HUF1)) != 0) & ~host
+        direct = ((mode & D.DMODE_DIRECT) != 0) & ~huf & ~host
+        seq = ((mode & D.DMODE_SEQ) != 0) & (n_seq > 0)
+        tab = sum(np.minimum(1 << ((m[:, 14] >> sh) & 255), n_seq)
+                  for sh in (0, 8, 16))
+        streams = np.where(mode & D.DMODE_HUF4, m[:, 4:8].sum(1), m[:, 4])
+        nb += m.shape[0] * (4 * D.META_W + 4)
+        nb += int(((m[seq, 12] + 7) // 8).sum() + 4 * tab[seq].sum())
+        nb += int(4 * (huf | direct).sum() + ((streams[huf] + 7) // 8).sum()
+                  + 4 * np.minimum(regen[huf], 1 << D.HUF_PEEK).sum()
+                  + regen[direct].sum())
+        nb += nbytes(a[5], list(out)) + D.CTAB.nbytes
+        ops += int(regen[huf].sum()) + 10 * int(n_seq[seq].sum())
+    return nb, ops
+
+
+def phase_transcode(archive, table, data, kept, card, report) -> dict:
+    """Phase 10: K4's transcode arm against its plain version (host and
+    device literals) on the small frames of phase 2 and on the phase-3
+    archive's first 8 frames, the route against libzstd there, the arm
+    timed, then Reader(decoder="transcode") over the 64 MiB archive, the
+    long-window frame, the level-9 archive, and the fused, lane and
+    transcode reads of the 64 MiB timed in alternation."""
+    import torch
+    from libzseek_tpu_torch import Reader
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    from libzseek_tpu_torch.testing import golden
+    errs, plain, card_ms, recorded = [], {}, {}, {}
+
+    def run(tag, frames, sizes, hints, host_literals):
+        res, calls = transcode_calls(frames, sizes, hints, host_literals)
+        want = [golden.zstd_frame_decompress(f, n)
+                for f, n in zip(frames, sizes)]
+        check(res == want, f"transcode route ({tag}) differs from libzstd")
+        ms, err = 0.0, 0
+        for a, out in calls:
+            t, ref = time_host(lambda: D.transcode_blocks(
+                *[v.cpu() if isinstance(v, torch.Tensor) else v for v in a]))
+            ms += t
+            err = max(err, max_abs_err(list(out), list(ref)))
+        check(err == 0, f"K4 transcode ({tag}) differs from its plain "
+              f"version (max err {err})")
+        errs.append(err)
+        plain[tag] = ms
+        recorded[tag] = calls
+        return res
+
+    small, raws = k4_small_frames()    # the long-window frame comes last
+    r = Reader(archive, device="cuda", decoder="transcode")
+    hints8 = [r._frame_hints(i) for i in range(8)]
+    r.close()
+    frames8 = [frame_bytes(archive, table, i) for i in range(8)]
+    for hl in (True, False):
+        arm = "host literals" if hl else "device literals"
+        run(f"small frames, {arm}", small, [len(x) for x in raws], None, hl)
+        res = run(f"8 frames, {arm}", frames8, [MIB] * 8, hints8, hl)
+        check(b"".join(res) == data[: 8 * MIB],
+              "the 8 frames' transcode differs from the input")
+        cl = recorded[f"8 frames, {arm}"]
+        card_ms[arm] = time_cuda(lambda: [D.transcode_blocks(*a)
+                                          for a, _ in cl])
+    nb, ops = transcode_work(recorded["8 frames, host literals"])
+    nb_d, ops_d = transcode_work(recorded["8 frames, device literals"])
+    rows = sum(len(a[4]) for a, _ in recorded["8 frames, host literals"])
+
+    # the main path: Reader(decoder="transcode") over the 64 MiB archive
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    read = phase_read(archive, data, card, D, "K4 transcode", "transcode",
+                      attr="transcode_launches")
+    main_routes = dict(ZD.routes)
+    check(main_routes["transcode_fallback_batches"] == 0
+          and main_routes["transcode_rule_batches"] == 0,
+          f"the transcode read left its route: {main_routes}")
+    entry(report, "K4 transcode", "libzseek_tpu_torch/csrc/decode.cu",
+          "libzseek_tpu/ops/pallas_decode.py:94 (DMODE_TRANSCODE, "
+          "DMODE_LIT_HOST)", errs, card_ms["host literals"],
+          plain["8 frames, host literals"], nb, ops,
+          f"both arms on the small frames and the archive's first 8 frames "
+          f"({rows} rows) equal to plain, tokens, literals and stat; timed "
+          f"there on the host-literal arm (the codec's); device-literal arm "
+          f"card {card_ms['device literals']:.3f} ms, plain "
+          f"{plain['8 frames, device literals']:.1f} ms")
+    report[-1].update(launches=read["launches"],
+                      ms_device_literals=card_ms["device literals"],
+                      plain_ms_device_literals=plain[
+                          "8 frames, device literals"],
+                      bound_ms_device_literals=bound(nb_d, ops_d)[0])
+
+    # the long-window frame and the level-9 archive (64 KiB blocks)
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    run("long-window frame", small[-1:], [len(raws[-1])], None, True)
+    lw_routes = dict(ZD.routes)
+    check(lw_routes["transcode_batches"] == 1 and
+          lw_routes["transcode_fallback_batches"] == 0,
+          f"the long-window frame took {lw_routes}")
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    with Reader(kept["level9_archive"], device="cuda",
+                decoder="transcode") as r:
+        check(read_all(r) == data, "the level-9 transcode read differs")
+    l9_routes = dict(ZD.routes)
+    check(l9_routes["transcode_fallback_batches"] == 0
+          and l9_routes["transcode_rule_batches"] == 0,
+          f"the level-9 transcode read left its route: {l9_routes}")
+
+    # the three zstd decode routes, read in turn, three rounds
+    paired = {"fused": [], "lanes": [], "transcode": []}
+    for _ in range(3):
+        for dec in paired:
+            r = Reader(archive, device="cuda", decoder=dec)
+            t0 = time.perf_counter()
+            got = read_all(r)
+            torch.cuda.synchronize()
+            paired[dec].append(len(data) / MIB / (time.perf_counter() - t0))
+            r.close()
+            check(got == data, f"the {dec} read differs from the input")
+    print(f"transcode routes: 64 MiB read {main_routes}; long-window frame "
+          f"{lw_routes}; level-9 archive {l9_routes}", flush=True)
+    print("paired 64 MiB reads, MiB/s in turn (fused, lanes, transcode) x 3: "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in vs)
+                      for k, vs in paired.items()), flush=True)
+    return {"card": card, "read_mib_s": read["read_mib_s"],
+            "pread_p50_us": read["pread_p50_us"],
+            "pread_p99_us": read["pread_p99_us"],
+            "launches": read["counts"], "routes_main": main_routes,
+            "routes_long_window": lw_routes, "routes_level9": l9_routes,
+            "paired_read_mib_s": paired, "plain_ms": plain,
+            "card_ms": card_ms}
 
 
 def main() -> None:
@@ -1308,7 +1497,11 @@ def main() -> None:
     lane_path = phase_lanes(archive, table, data, kept, card, report)
 
     # phase 9
-    levels_path = phase_levels(data, card, report)
+    levels_path = phase_levels(data, card, report, kept)
+
+    # phase 10
+    transcode_path = phase_transcode(archive, table, data, kept, card,
+                                     report)
 
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
@@ -1318,6 +1511,7 @@ def main() -> None:
     print(json.dumps({"hash_path": hash_path}), flush=True)
     print(json.dumps({"lane_path": lane_path}), flush=True)
     print(json.dumps({"levels_path": levels_path}), flush=True)
+    print(json.dumps({"transcode_path": transcode_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -57,7 +57,7 @@ def open_reader(path_or_file, *, device: str = "cuda", cache_frames: int = 8,
                 device_cache: bool = False, decoder: str = "fused") -> Reader:
     """Reader on a path, a binary file object, or a pread/fsize source.
     A path's file stays open for the reader's lifetime.  `decoder` picks
-    the zstd decode route ("fused" or "lanes", Reader)."""
+    the zstd decode route ("fused", "lanes" or "transcode", Reader)."""
     kw = dict(device=device, cache_frames=cache_frames, readahead=readahead,
               verify_checksums=verify_checksums, device_cache=device_cache,
               decoder=decoder)

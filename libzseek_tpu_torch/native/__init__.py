@@ -3,7 +3,9 @@ ctypes.
 
 Counterpart of libzseek_tpu/native/__init__.py, cut to the entry points
 the port calls, plus `gate_entropy` (the hash parser's gate scale, which
-the reference computes on its device).  The library is built at first use
+the reference computes on its device).  `zir_execute` and
+`huf_decode_batch` raise FormatError on corrupt input where the
+reference's return -1 and None (its caller then falls back).  The library is built at first use
 with `c++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off` (no fused
 multiply-adds but the ones zn.cc writes) into `build/torch_native/` at the
 repository root (a gitignored directory), named by a hash of the source
@@ -29,6 +31,8 @@ import subprocess
 import threading
 
 import numpy as np
+
+from libzseek_tpu_torch.errors import FormatError
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "zn.cc")
@@ -83,6 +87,14 @@ def library() -> ctypes.CDLL:
                                       ctypes.c_void_p, ctypes.c_int64,
                                       ctypes.c_int64, ctypes.c_int64]
         lib.zn_lz4_decode.restype = ctypes.c_int64
+        lib.zn_zir_execute.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_void_p, ctypes.c_int64,
+                                       ctypes.c_int64]
+        lib.zn_zir_execute.restype = ctypes.c_int64
+        lib.zn_huf_decode_batch.argtypes = [u8p, i64p, ctypes.c_int64, i32p,
+                                            ctypes.c_int64, u8p, i64p]
+        lib.zn_huf_decode_batch.restype = ctypes.c_int64
         _lib = lib
         return lib
 
@@ -170,3 +182,62 @@ def lz4_block_decode(src: np.ndarray, out: np.ndarray, base: int,
                          f"base={base}, len(out)={out.shape[0]}")
     return int(lib.zn_lz4_decode(src.ctypes.data, src.shape[0],
                                  out.ctypes.data, out.shape[0], base, lo))
+
+
+def zir_execute(lits: np.ndarray, toks: np.ndarray, out: np.ndarray,
+                base: int) -> int:
+    """Expand one transcoded block (zn.cc zn_zir_execute, a copy of the
+    reference's): its literal bytes `lits` (uint8) and packed sequence
+    tokens `toks` (uint32, two words a sequence, K4's transcode arm) into
+    the uint8 frame buffer `out` at byte `base`.  Returns the block's
+    decompressed size; corrupt tokens raise FormatError."""
+    lib = library()
+    lits = np.ascontiguousarray(lits, np.uint8)
+    toks = np.ascontiguousarray(toks, np.uint32)
+    if out.dtype != np.uint8 or not out.flags.c_contiguous:
+        raise ValueError("out must be a contiguous uint8 array")
+    if toks.shape[0] % 2 or not 0 <= base <= out.shape[0]:
+        raise ValueError(f"need an even token count and 0 <= base <= "
+                         f"len(out), got {toks.shape[0]} tokens, base={base}")
+    n = int(lib.zn_zir_execute(lits.ctypes.data, lits.shape[0],
+                               toks.ctypes.data, toks.shape[0] // 2,
+                               out.ctypes.data, out.shape[0], base))
+    if n < 0:
+        raise FormatError("corrupt sequences: a literal run, match offset "
+                          "or match length leaves its block or frame")
+    return n
+
+
+def huf_decode_batch(streams: bytes, lane_meta: np.ndarray,
+                     weights: np.ndarray, out_size: int,
+                     out_off: np.ndarray) -> np.ndarray:
+    """Huffman literal streams decoded on the host (zn.cc
+    zn_huf_decode_batch, the reference's with its faults repaired).
+    streams: the lanes' backward bitstreams concatenated; lane_meta (L, 4)
+    int64 (stream offset, stream bytes, n_out, table id); weights (T, 256)
+    int32 zstd weights; out_off (L,) int64 output byte offsets.  Returns
+    the (out_size,) uint8 literal bytes; a malformed lane (a stream that
+    runs dry or is not consumed exactly, a bad table) raises
+    FormatError."""
+    lib = library()
+    lane_meta = np.ascontiguousarray(lane_meta, np.int64).reshape(-1, 4)
+    weights = np.ascontiguousarray(weights, np.int32)
+    out_off = np.ascontiguousarray(out_off, np.int64)
+    if out_off.shape[0] != lane_meta.shape[0] or (
+            len(lane_meta) and not (
+                (lane_meta[:, 0] >= 0).all() and (lane_meta[:, 1] >= 0).all()
+                and (lane_meta[:, 2] >= 0).all()
+                and (lane_meta[:, 0] + lane_meta[:, 1] <= len(streams)).all()
+                and (out_off >= 0).all()
+                and (out_off + lane_meta[:, 2] <= out_size).all())):
+        raise ValueError("lane_meta or out_off outside streams or out")
+    out = np.zeros(max(1, out_size), np.uint8)
+    sbuf = np.frombuffer(streams, np.uint8) if streams \
+        else np.zeros(1, np.uint8)
+    r = lib.zn_huf_decode_batch(np.ascontiguousarray(sbuf),
+                                lane_meta.reshape(-1), lane_meta.shape[0],
+                                weights.reshape(-1), weights.shape[0], out,
+                                out_off)
+    if r != lane_meta.shape[0]:
+        raise FormatError(f"corrupt huffman literal stream (lane {-r - 1})")
+    return out[:out_size]

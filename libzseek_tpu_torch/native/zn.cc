@@ -17,7 +17,13 @@
 //     native library: the reference computes it on its device);
 //   * zn_xxh64: XXH64, the seek table's per-frame checksum;
 //   * zn_lz4_decode: one LZ4 block into a frame buffer, the LZ4 codec's
-//     host decode route.
+//     host decode route;
+//   * zn_zir_execute: one transcoded zstd block (literal bytes and the
+//     packed sequence tokens K4's transcode arm emits) into its frame's
+//     buffer, the transcode decode route's host executor;
+//   * zn_huf_decode_batch: Huffman literal streams on the host, the
+//     transcode route's host-literal arm; repaired against the original
+//     (see its comment).
 //
 // A plain C ABI consumed through ctypes.  libzseek_tpu_torch/native/
 // __init__.py compiles this file with `c++ -O2 -std=c++17 -shared -fPIC
@@ -755,6 +761,193 @@ int64_t zn_ldm_scan(const uint8_t* x, int64_t nblocks, int64_t bsize,
     }
   }
   return hits;
+}
+
+// ---------------------------------------------------------------------------
+// Transcoded block execution (copy of libzseek_tpu/native/zn.cc
+// zn_zir_execute :574): expand the literal bytes and packed sequence
+// tokens of K4's transcode arm (ops/decode.py transcode_blocks) into the
+// block's decompressed bytes.  The card does the entropy half (FSE, and
+// Huffman unless the literals decode here); this is the memory-speed LZ
+// copy half.
+//
+// Token packing (2 uint32 words per sequence):
+//   w0 = ll | (ml_lo14 << 18)      w1 = off | (ml_hi4 << 28)
+//
+// out is the whole frame buffer (match offsets may reach back into earlier
+// blocks); base = this block's offset within the frame.  Returns the
+// block's decompressed size, or -1 on any bounds violation.
+int64_t zn_zir_execute(const uint8_t* lits, int64_t lit_n,
+                       const uint32_t* toks, int64_t n_seq,
+                       uint8_t* out, int64_t out_cap, int64_t base) {
+  int64_t op = base, lp = 0;
+  for (int64_t i = 0; i < n_seq; ++i) {
+    uint32_t w0 = toks[2 * i], w1 = toks[2 * i + 1];
+    int64_t ll = w0 & 0x3FFFF;
+    int64_t ml = ((w0 >> 18) & 0x3FFF) | ((int64_t)(w1 >> 28) << 14);
+    int64_t off = w1 & 0x0FFFFFFF;
+    if (lp + ll > lit_n || op + ll + ml > out_cap) return -1;
+    std::memcpy(out + op, lits + lp, (size_t)ll);
+    op += ll;
+    lp += ll;
+    if (off < 1 || off > op) return -1;
+    uint8_t* d = out + op;
+    // overlap-safe periodic copy: seed one period (non-overlapping since
+    // src + off == d), then double the valid region
+    int64_t seed = off < ml ? off : ml;
+    std::memcpy(d, d - off, (size_t)seed);
+    int64_t copied = seed;
+    while (copied < ml) {
+      int64_t c = copied < ml - copied ? copied : ml - copied;
+      std::memcpy(d + copied, d, (size_t)c);
+      copied += c;
+    }
+    op += ml;
+  }
+  int64_t trail = lit_n - lp;
+  if (trail < 0 || op + trail > out_cap) return -1;
+  std::memcpy(out + op, lits + lp, (size_t)trail);
+  op += trail;
+  return op - base;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Host Huffman literal decode (copy of libzseek_tpu/native/zn.cc
+// zn_huf_decode_batch :897 and its helpers :824-895): the transcode
+// route ships no literal stream to the card; the host expands them.
+
+namespace {
+
+struct HufBitRead {
+  const uint8_t* start;
+  const uint8_t* ptr;
+  uint64_t container;
+  unsigned consumed;
+  unsigned end;   // consumed at the stream's first bit once ptr == start
+};
+
+int huf_br_init(HufBitRead* br, const uint8_t* src, int64_t n) {
+  if (n < 1 || src[n - 1] == 0) return -1;
+  br->start = src;
+  if (n >= 8) {
+    br->ptr = src + n - 8;
+    uint64_t c = 0;
+    std::memcpy(&c, br->ptr, 8);
+    br->container = c;
+    br->end = 64;
+  } else {
+    br->ptr = src;
+    uint64_t c = 0;
+    std::memcpy(&c, src, (size_t)n);
+    br->container = c << (8 * (8 - n));   // last byte lands on top
+    br->end = (unsigned)(8 * n);
+  }
+  br->consumed = 8 - highbit(src[n - 1]);  // padding + sentinel
+  return 0;
+}
+
+// bits not yet consumed (negative once a symbol read past the start)
+inline int64_t huf_br_left(const HufBitRead* br) {
+  return (int64_t)br->end - br->consumed + 8 * (br->ptr - br->start);
+}
+
+inline uint32_t huf_br_peek(const HufBitRead* br, unsigned nbits) {
+  return (uint32_t)((br->container << br->consumed) >> (64 - nbits));
+}
+
+inline void huf_br_reload(HufBitRead* br) {
+  while (br->consumed >= 8 && br->ptr > br->start) {
+    br->ptr--;
+    br->container = (br->container << 8) | br->ptr[0];
+    br->consumed -= 8;
+  }
+}
+
+int huf_dtable_from_weights(const int32_t* w, int32_t* dt, int* tl_out) {
+  uint32_t total = 0;
+  int32_t lengths[256];
+  int32_t codes[256];
+  for (int s2 = 0; s2 < 256; ++s2)
+    if (w[s2] > 0) total += 1u << (w[s2] - 1);
+  if (!total || (total & (total - 1))) return -1;
+  int tl = highbit(total);
+  if (tl < 1 || tl > 12) return -1;
+  for (int s2 = 0; s2 < 256; ++s2)
+    lengths[s2] = w[s2] > 0 ? tl + 1 - w[s2] : 0;
+  int max_used = 0;
+  canonical_codes(lengths, codes, &max_used);
+  std::fill(dt, dt + (1 << tl), 0);
+  for (int s2 = 0; s2 < 256; ++s2) {
+    int l = lengths[s2];
+    if (l > 0) {
+      int64_t start2 = (int64_t)codes[s2] << (tl - l);
+      int64_t span = (int64_t)1 << (tl - l);
+      int32_t e = (l << 8) | s2;
+      for (int64_t k = 0; k < span; ++k) dt[start2 + k] = e;
+    }
+  }
+  *tl_out = tl;
+  return tl;
+}
+
+}  // namespace
+
+extern "C" {
+
+// lane_meta: 4 int64 per lane = (stream offset, stream bytes, n_out,
+// table id); weights: (ntabs, 256) int32 zstd weights (implied-last
+// resolved); out_off: per-lane output byte offsets.  Returns decoded
+// lanes, or a negative lane index - 1 on the first malformed lane.
+//
+// Repaired against the original (ADVICE.md r5): it peeked with
+// `consumed` at 64 (a shift by the type's width, undefined) before its
+// "ran dry" check, and it decoded a table entry of code length 0 (the
+// table of a single-symbol weight set) without consuming a bit.  Here
+// the bits left are checked before every peek (so `consumed` < 64 when
+// it shifts), an entry of length 0 rejects the lane, and a lane must end
+// on its stream's first bit, as libzstd's end-of-stream check demands
+// (the fused route's K4 holds every stream to exact consumption too).
+int64_t zn_huf_decode_batch(const uint8_t* streams,
+                            const int64_t* lane_meta, int64_t nlanes,
+                            const int32_t* weights, int64_t ntabs,
+                            uint8_t* out, const int64_t* out_off) {
+  std::vector<int32_t> dts((size_t)ntabs << 12);
+  std::vector<int> tls((size_t)ntabs, -2);
+  for (int64_t ln = 0; ln < nlanes; ++ln) {
+    const int64_t off = lane_meta[4 * ln];
+    const int64_t nbytes = lane_meta[4 * ln + 1];
+    const int64_t n_out = lane_meta[4 * ln + 2];
+    const int64_t tid = lane_meta[4 * ln + 3];
+    if (tid < 0 || tid >= ntabs) return -ln - 1;
+    if (tls[tid] == -2) {
+      int tl = 0;
+      if (huf_dtable_from_weights(weights + 256 * tid,
+                                  dts.data() + ((size_t)tid << 12),
+                                  &tl) < 0) {
+        tls[tid] = -1;
+      } else {
+        tls[tid] = tl;
+      }
+    }
+    const int tl = tls[tid];
+    if (tl < 0) return -ln - 1;
+    const int32_t* dt = dts.data() + ((size_t)tid << 12);
+    HufBitRead br;
+    if (huf_br_init(&br, streams + off, nbytes) < 0) return -ln - 1;
+    uint8_t* o = out + out_off[ln];
+    for (int64_t i = 0; i < n_out; ++i) {
+      huf_br_reload(&br);
+      if (huf_br_left(&br) <= 0) return -ln - 1;  // ran dry
+      const int32_t e = dt[huf_br_peek(&br, (unsigned)tl)];
+      if ((e >> 8) == 0) return -ln - 1;          // code length 0
+      o[i] = (uint8_t)(e & 0xFF);
+      br.consumed += (unsigned)(e >> 8);
+    }
+    if (huf_br_left(&br) != 0) return -ln - 1;    // not consumed exactly
+  }
+  return nlanes;
 }
 
 }  // extern "C"

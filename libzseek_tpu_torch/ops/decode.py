@@ -2,7 +2,8 @@
 
 Counterpart of libzseek_tpu/ops/pallas_decode.py decode_blocks_smem
 (:514), which runs the Pallas kernel _decode_kernel (:94, the pallas_call
-at :543), in its execute mode; its DMODE_* bits, META_W and the constant
+at :543), in its execute mode (decode_blocks) and in its transcode mode
+(transcode_blocks, below); its DMODE_* bits, META_W and the constant
 table _CTAB (:79-91, LL/ML extra bits and baselines, rebuilt here from
 the port's format/zstd_frame.py) keep their values.  The CUDA kernel is
 csrc/decode.cu; the plain version below runs only for tensors on the CPU.
@@ -30,6 +31,12 @@ Returns (out (frame_off[-1],) uint8, stat (B, 4) int32 [advance, ok, 0,
 0]).  ok = 0 marks a block whose streams are not consumed exactly, whose
 offset, literal count or size leaves its frame or section, or whose
 size differs from meta[1]; the rest of its chain is skipped (stat all 0).
+
+Transcode mode (transcode_blocks; DMODE_TRANSCODE, DMODE_LIT_HOST) reads
+meta[2], each row's byte offset in its frame, and executes nothing: it
+emits the literal bytes of rows whose literals are on the device and one
+packed 2-word token a sequence for the host executor (native
+zir_execute), into two dense int32 arrays (see transcode_blocks).
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ DMODE_HUF1 = 2       # literal section: 1-stream Huffman
 DMODE_DIRECT = 4     # literal payload is the literal bytes themselves
 DMODE_SEQ = 8        # block has a sequence section (n_seq > 0)
 DMODE_FRAME_START = 16  # first block of a frame: reset repcode state
+DMODE_TRANSCODE = 32    # emit literals and sequence tokens, execute nothing
+DMODE_LIT_HOST = 64     # (transcode) the literals stay on the host
+MAX_TOKEN_OFFSET = (1 << 28) - 1   # a token's offset field
 HUF_PEEK = 12
 META_W = 16
 LIT_MAX = zf.BLOCK_MAX   # literals of one block (the kernel's scratch row)
@@ -57,8 +67,30 @@ CTAB = np.concatenate([zf.LL_BITS, zf.LL_BASELINE, zf.ML_BITS,
 _N_LL = len(zf.LL_BITS)
 _N_ML = len(zf.ML_BITS)
 
-launches = 0
+launches = 0             # execute mode (decode_blocks)
+transcode_launches = 0   # transcode mode (transcode_blocks)
 _count = threading.Lock()     # the codec decodes from two reader threads
+
+
+def _check_rows(lp_words, sq_words, dtabs, ftabs, meta, *more) -> None:
+    """Raise unless the packed rows and `more` (name, tensor, dtype,
+    shape) are contiguous tensors of their dtype and shape on meta's
+    device.  lp_words and dtabs may be None (transcode_blocks)."""
+    B = meta.shape[0]
+    dev = meta.device
+    for name, t, dt, shape in (
+            ("lp_words", lp_words, torch.int32,
+             (B, lp_words.shape[-1] if lp_words is not None else 0)),
+            ("sq_words", sq_words, torch.int32, (B, sq_words.shape[-1])),
+            ("dtabs", dtabs, torch.int32, (B, 1 << HUF_PEEK)),
+            ("ftabs", ftabs, torch.int32, (B, 1536)),
+            ("meta", meta, torch.int32, (B, META_W)), *more):
+        if t is None and name in ("lp_words", "dtabs"):
+            continue
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ParameterError(f"K4: {name} must be a contiguous {dt} "
+                                 f"{shape} tensor on {dev}")
 
 
 def decode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
@@ -70,19 +102,9 @@ def decode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     SQW = sq_words.shape[1]
     F = chain.shape[0] - 1
     dev = lp_words.device
-    for name, t, dt, shape in (
-            ("sq_words", sq_words, torch.int32, (B, SQW)),
-            ("dtabs", dtabs, torch.int32, (B, 1 << HUF_PEEK)),
-            ("ftabs", ftabs, torch.int32, (B, 1536)),
-            ("meta", meta, torch.int32, (B, META_W)),
-            ("chain", chain, torch.int32, (F + 1,)),
-            ("frame_off", frame_off, torch.int64, (F + 1,))):
-        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev \
-                or not t.is_contiguous():
-            raise ParameterError(f"K4: {name} must be a contiguous {dt} "
-                                 f"{shape} tensor on {dev}")
-    if lp_words.dtype != torch.int32 or not lp_words.is_contiguous():
-        raise ParameterError("K4: lp_words must be contiguous int32")
+    _check_rows(lp_words, sq_words, dtabs, ftabs, meta,
+                ("chain", chain, torch.int32, (F + 1,)),
+                ("frame_off", frame_off, torch.int64, (F + 1,)))
     if dev.type == "cpu":
         return _decode_plain(lp_words, sq_words, dtabs, ftabs, meta, chain,
                              frame_off, out_size)
@@ -107,8 +129,77 @@ def decode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     return out, stat
 
 
+def transcode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain,
+                     lit_prefix, tok_prefix, lit_words: int,
+                     tok_words: int):
+    """K4 in transcode mode: the entropy half of B blocks, nothing
+    executed (the reference's DMODE_TRANSCODE / DMODE_LIT_HOST arms).
+
+    lp_words, sq_words, dtabs, ftabs and meta are the packed rows of
+    decode_blocks; every row's mode carries DMODE_TRANSCODE and meta[2] is
+    its byte offset in its frame.  lp_words and dtabs may both be None
+    when no row's literals are on the device (every row DMODE_LIT_HOST or
+    without literals): the literal pass then does not run, and a row
+    that asks for device literals fails.  chain (C + 1,) int32: chain c is rows
+    [chain[c], chain[c + 1]), each starting at a DMODE_FRAME_START row
+    (repcodes carry along a chain).  lit_prefix, tok_prefix (B + 1,)
+    int32: row r's literal words start at lit_prefix[r] (a row whose
+    literals are on the device: HUF4 or HUF1, or DIRECT without
+    DMODE_LIT_HOST; (regen + 3) >> 2 words) and its 2 * n_seq token words
+    at tok_prefix[r]; lit_words and tok_words are their last entries.
+
+    Returns (lits (lit_words,) int32: each row's literal words, a
+    Huffman row's last one zero past regen; toks (tok_words,) int32: w0 =
+    ll | (ml & 0x3FFF) << 18, w1 = off | (ml >> 14) << 28 per sequence;
+    stat (B, 4) int32
+    [advance including the trailing literals, ok, 0, 0]).  ok = 0 for a
+    Huffman stream or sequence stream not consumed exactly, or an offset
+    outside [1, min(op + ll, 2^28 - 1)], op the sequence's position in its
+    frame; a failing row still emits its tokens (check stat first)."""
+    B, SQW = sq_words.shape
+    C = chain.shape[0] - 1
+    dev = meta.device
+    if (lp_words is None) != (dtabs is None):
+        raise ParameterError("K4: lp_words and dtabs are None together")
+    _check_rows(lp_words, sq_words, dtabs, ftabs, meta,
+                ("chain", chain, torch.int32, (C + 1,)),
+                ("lit_prefix", lit_prefix, torch.int32, (B + 1,)),
+                ("tok_prefix", tok_prefix, torch.int32, (B + 1,)))
+    if dev.type == "cpu":
+        return _transcode_plain(lp_words, sq_words, dtabs, ftabs, meta,
+                                chain, lit_prefix, tok_prefix, lit_words,
+                                tok_words)
+    if dev.type != "cuda":
+        raise ParameterError(f"K4 runs on cuda or cpu tensors, not {dev}")
+    global transcode_launches
+    lits = torch.zeros(max(lit_words, 1), dtype=torch.int32, device=dev)
+    toks = torch.empty(max(tok_words, 1), dtype=torch.int32, device=dev)
+    # rows outside every chain keep the literal pass's stat, or zeros
+    stat = (torch.empty if lp_words is not None else torch.zeros)(
+        (B, 4), dtype=torch.int32, device=dev)
+    if B:
+        from libzseek_tpu_torch import kernels
+        lib = kernels.library()
+        ctab = torch.from_numpy(CTAB).to(dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        err = lib.zk_transcode(ptr(lp_words), sq_words.data_ptr(),
+                               ptr(dtabs), ftabs.data_ptr(),
+                               meta.data_ptr(), chain.data_ptr(),
+                               ctab.data_ptr(), lit_prefix.data_ptr(),
+                               tok_prefix.data_ptr(), B, C,
+                               lp_words.shape[1] if lp_words is not None
+                               else 0, SQW,
+                               lits.data_ptr(), toks.data_ptr(),
+                               stat.data_ptr(), stream)
+        kernels.check(err, "zk_transcode")
+        with _count:
+            transcode_launches += 1
+    return lits[:lit_words], toks[:tok_words], stat
+
+
 # ---------------------------------------------------------------------------
-# plain version (CPU tensors): the kernel's walk, row by row in Python
+# plain versions (CPU tensors): the kernels' walks, row by row in Python
 # ---------------------------------------------------------------------------
 
 class _Row:
@@ -213,65 +304,78 @@ def _decode_plain(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     return torch.from_numpy(out), torch.from_numpy(stat)
 
 
+class _SeqWalk:
+    """The FSE sequence stream of one row, walked backward from bit
+    meta[12] (csrc/decode.cu seq_open / seq_step): iterating yields each
+    sequence's (ll, ml, off), the offset resolved against `rep` (updated
+    in place).  The walk stops early at an offset code > 31; after it,
+    `exact` says whether it ran to its end on bit 0 exactly."""
+
+    def __init__(self, row: _Row, ft: list, m, rep: list):
+        self.row, self.ft, self.m, self.rep = row, ft, m, rep
+        self.exact = False
+
+    def __iter__(self):
+        row, ft, rep, c = self.row, self.ft, self.rep, CTAB
+        n_seq = int(self.m[13])
+        tlp = int(self.m[14])
+        pos = int(self.m[12])
+        states = []
+        for tl in (tlp & 255, (tlp >> 8) & 255, (tlp >> 16) & 255):
+            states.append(row.read(pos - tl, tl))
+            pos -= tl
+        s_ll, s_of, s_ml = states
+        for t in range(n_seq):
+            e_ll, e_of, e_ml = ft[s_ll], ft[512 + s_of], ft[1024 + s_ml]
+            llc = min(e_ll & 255, _N_LL - 1)
+            ofc = e_of & 255
+            mlc = min(e_ml & 255, _N_ML - 1)
+            if ofc > 31:
+                return
+            ofv = (1 << min(ofc, 30)) + row.read(pos - ofc, ofc)
+            pos -= ofc
+            mlb = int(c[2 * _N_LL + mlc])
+            ml = int(c[2 * _N_LL + _N_ML + mlc]) + row.read(pos - mlb, mlb)
+            pos -= mlb
+            llb = int(c[llc])
+            ll = int(c[_N_LL + llc]) + row.read(pos - llb, llb)
+            pos -= llb
+            r1, r2, r3 = rep      # repcodes (RFC 8878 §3.1.1.5)
+            idx = ofv + (1 if ll == 0 else 0)
+            if ofv > 3:
+                rep[:] = ofv - 3, r1, r2
+            elif idx == 2:
+                rep[:] = r2, r1, r3
+            elif idx == 3:
+                rep[:] = r3, r1, r2
+            elif idx == 4:
+                rep[:] = r1 - 1, r1, r2
+            if t < n_seq - 1:     # state updates: LL, ML, OF
+                nb = (e_ll >> 8) & 255
+                s_ll = (e_ll >> 16) + row.read(pos - nb, nb)
+                pos -= nb
+                nb = (e_ml >> 8) & 255
+                s_ml = (e_ml >> 16) + row.read(pos - nb, nb)
+                pos -= nb
+                nb = (e_of >> 8) & 255
+                s_of = (e_of >> 16) + row.read(pos - nb, nb)
+                pos -= nb
+            yield ll, ml, rep[0]
+        self.exact = pos == 0
+
+
 def _sequences(row: _Row, ft: list, m, rep: list, lit, regen: int, fout,
                op: int):
     """Walk one block's sequence stream and execute it into fout (the
     frame's bytes) from op.  Updates rep in place; returns (op, literals
     consumed, ok)."""
-    n_seq = int(m[13])
-    tlp = int(m[14])
-    tl_ll, tl_of, tl_ml = tlp & 255, (tlp >> 8) & 255, (tlp >> 16) & 255
     fsize = len(fout)
-    pos = int(m[12])
-    s_ll = row.read(pos - tl_ll, tl_ll)
-    pos -= tl_ll
-    s_of = row.read(pos - tl_of, tl_of)
-    pos -= tl_of
-    s_ml = row.read(pos - tl_ml, tl_ml)
-    pos -= tl_ml
     lpos = 0
-    c = CTAB
-    for t in range(n_seq):
-        e_ll, e_of, e_ml = ft[s_ll], ft[512 + s_of], ft[1024 + s_ml]
-        llc = min(e_ll & 255, _N_LL - 1)
-        ofc = e_of & 255
-        mlc = min(e_ml & 255, _N_ML - 1)
-        if ofc > 31:
-            return op, lpos, False
-        ofv = (1 << min(ofc, 30)) + row.read(pos - ofc, ofc)
-        pos -= ofc
-        mlb = int(c[2 * _N_LL + mlc])
-        ml = int(c[2 * _N_LL + _N_ML + mlc]) + row.read(pos - mlb, mlb)
-        pos -= mlb
-        llb = int(c[llc])
-        ll = int(c[_N_LL + llc]) + row.read(pos - llb, llb)
-        pos -= llb
-        r1, r2, r3 = rep
-        idx = ofv + (1 if ll == 0 else 0)
-        if ofv > 3:
-            rep[:] = ofv - 3, r1, r2
-        elif idx == 1:
-            pass
-        elif idx == 2:
-            rep[:] = r2, r1, r3
-        elif idx == 3:
-            rep[:] = r3, r1, r2
-        else:
-            rep[:] = r1 - 1, r1, r2
-        off = rep[0]
+    walk = _SeqWalk(row, ft, m, rep)
+    for ll, ml, off in walk:
         if off < 1 or off > op + ll or lpos + ll > regen or \
                 op + ll + ml > fsize:
             return op, lpos, False
-        if t < n_seq - 1:
-            nb = (e_ll >> 8) & 255
-            s_ll = (e_ll >> 16) + row.read(pos - nb, nb)
-            pos -= nb
-            nb = (e_ml >> 8) & 255
-            s_ml = (e_ml >> 16) + row.read(pos - nb, nb)
-            pos -= nb
-            nb = (e_of >> 8) & 255
-            s_of = (e_of >> 16) + row.read(pos - nb, nb)
-            pos -= nb
         fout[op: op + ll] = lit[lpos: lpos + ll]
         d = op + ll
         if off >= ml:
@@ -280,4 +384,82 @@ def _sequences(row: _Row, ft: list, m, rep: list, lit, regen: int, fout,
             fout[d: d + ml] = np.resize(fout[d - off: d], ml)
         op = d + ml
         lpos += ll
-    return op, lpos, pos == 0
+    return op, lpos, walk.exact
+
+
+def _i32(v: int) -> int:
+    """v wrapped to a signed 32-bit value (the kernel's int stores)."""
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _transcode_plain(lp_words, sq_words, dtabs, ftabs, meta, chain,
+                     lit_prefix, tok_prefix, lit_words, tok_words):
+    lp = lp_words.numpy() if lp_words is not None else None
+    sq = sq_words.numpy()
+    mt = meta.numpy()
+    ch = chain.numpy()
+    lpre = lit_prefix.numpy()
+    tpre = tok_prefix.numpy()
+    B = mt.shape[0]
+    lits = np.zeros(4 * lit_words, np.uint8)
+    toks = np.zeros(tok_words, np.int64)
+    stat = np.zeros((B, 4), np.int32)
+    lit_ok = np.ones(B, bool)
+    for r in range(B):          # phase 1: literal sections, row by row
+        m = mt[r]
+        mode, regen = int(m[0]), int(m[3])
+        dst = 4 * int(lpre[r])
+        if mode & DMODE_LIT_HOST:
+            pass
+        elif lp is None:        # no literal pass: nothing on the device
+            lit_ok[r] = not mode & (DMODE_HUF4 | DMODE_HUF1 | DMODE_DIRECT)
+        elif mode & (DMODE_HUF4 | DMODE_HUF1):
+            row_lits, lit_ok[r] = _huf_literals(_Row(lp[r]),
+                                                dtabs[r].tolist(), m)
+            if regen <= LIT_MAX:
+                lits[dst: dst + regen] = np.frombuffer(row_lits, np.uint8,
+                                                       regen)
+        elif mode & DMODE_DIRECT:
+            lit_ok[r] = regen <= 4 * lp.shape[1]
+            if lit_ok[r]:
+                nb = 4 * ((regen + 3) >> 2)
+                lits[dst: dst + nb] = lp[r].astype("<i4").view(
+                    np.uint8)[:nb]
+    if lp is not None:          # the literal pass's verdict
+        stat[:, 1] = lit_ok
+    for c in range(len(ch) - 1):  # phase 2: each chain's rows in order
+        rep = [1, 4, 8]
+        for r in range(int(ch[c]), int(ch[c + 1])):
+            m = mt[r]
+            mode, regen, n_seq = int(m[0]), int(m[3]), int(m[13])
+            if mode & DMODE_FRAME_START:
+                rep = [1, 4, 8]
+            ok = bool(lit_ok[r])
+            base = int(m[2])
+            op, lpos = base, 0
+            if mode & DMODE_SEQ and n_seq > 0:
+                op, lpos, seq_ok = _tokens(_Row(sq[r]), ftabs[r].tolist(), m,
+                                           rep, toks, int(tpre[r]), op)
+                ok &= seq_ok
+            op += max(regen - lpos, 0)
+            stat[r] = (_i32(op - base), int(ok), 0, 0)
+    return (torch.from_numpy(lits.view("<i4").copy()),
+            torch.from_numpy(toks.astype(np.uint32).view(np.int32)),
+            torch.from_numpy(stat))
+
+
+def _tokens(row: _Row, ft: list, m, rep: list, toks, t0: int, op: int):
+    """Walk one block's sequence stream and write its packed tokens to
+    toks[t0:] (uint32 values).  Updates rep in place; returns (op, literals
+    consumed, ok)."""
+    lpos = 0
+    ok = True
+    walk = _SeqWalk(row, ft, m, rep)
+    for t, (ll, ml, off) in enumerate(walk):
+        if off < 1 or off > min(op + ll, MAX_TOKEN_OFFSET):
+            ok = False
+        toks[t0 + 2 * t] = (ll | (ml & 0x3FFF) << 18) & 0xFFFFFFFF
+        toks[t0 + 2 * t + 1] = (off | (ml >> 14) << 28) & 0xFFFFFFFF
+        op += ll + ml
+        lpos += ll
+    return op, lpos, ok and walk.exact

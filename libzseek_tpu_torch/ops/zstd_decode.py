@@ -1,5 +1,6 @@
-"""zstd frame decode: host container parse, the fused route around K4 and
-the lane route around the lane decoders and K6.
+"""zstd frame decode: host container parse, the fused route around K4, the
+lane route around the lane decoders and K6, and the transcode route
+around K4's transcode arm and the host executor.
 
 Counterpart of libzseek_tpu/ops/zstd_decode.py:
 
@@ -18,12 +19,19 @@ Counterpart of libzseek_tpu/ops/zstd_decode.py:
            per-block records, then K6 (ops/exec_blocks.py,
            csrc/exec_blocks.cu) on batches inside its limits and the
            pointer-doubling executor execute_sequences (:709, torch ops)
-           on the rest.
+           on the rest;
+  transcode — (decode_frames_transcode, the reference's
+           _try_decode_transcode :948-1205, its first route for host
+           delivery on the TPU) literal-only blocks copied on the host,
+           Huffman literals decoded on the host (native huf_decode_batch),
+           K4's transcode arm (ops/decode.transcode_blocks) turning the
+           sequence streams into packed tokens on the device, and the
+           native executor (zir_execute) expanding them into each frame.
 
 Every RFC 8878 block, literal and table mode is parsed (raw, RLE,
 compressed and treeless literals; predefined, RLE, compressed and repeat
-FSE tables), so frames written by stock libzstd decode too.  Not ported:
-the transcode route (:948); see ROADMAP.md.  Unlike _try_decode_smem, the
+FSE tables), so frames written by stock libzstd decode too.  Unlike
+_try_decode_smem, the
 fused packer predicts no block sizes: K4 places each block where the
 previous one ended, checks a block's size only where its header gives it
 (raw and RLE blocks, meta[1]; -1 otherwise) and decode_frames checks each
@@ -43,6 +51,7 @@ import threading
 import numpy as np
 import torch
 
+from libzseek_tpu_torch import native
 from libzseek_tpu_torch.errors import FormatError
 from libzseek_tpu_torch.format import zstd_frame as zf
 from libzseek_tpu_torch.ops import common as C
@@ -364,6 +373,44 @@ def _round_words(nbytes: int) -> int:
     return max(256, -(-max(nbytes, 1) // 1024) * 256)
 
 
+def _pack_sections(i: int, bp: _BlockPlan, huf: bool, meta, wtid, ftabs,
+                   fse_packed) -> tuple[int, bytes, bytes]:
+    """Row i's Huffman streams (when `huf`) and sequence section: fills
+    meta's stream fields, wtid and ftabs; returns (mode bits, literal
+    payload, sequence stream)."""
+    mode, payload, seq = 0, b"", b""
+    if huf:
+        lanes = bp.huf_lanes
+        mode |= D.DMODE_HUF1 if len(lanes) == 1 else D.DMODE_HUF4
+        off = 0
+        for s, lane in enumerate(lanes):
+            meta[i, 4 + s] = _sentinel_bits(lane.stream)
+            meta[i, 8 + s] = off
+            off += len(lane.stream)
+        payload = b"".join(lane.stream for lane in lanes)
+        wtid[i] = lanes[0].tid
+    if bp.n_seq > 0:
+        mode |= D.DMODE_SEQ
+        meta[i, 12] = _sentinel_bits(bp.seq_stream)
+        meta[i, 13] = bp.n_seq
+        meta[i, 14] = bp.ll_tl | (bp.of_tl << 8) | (bp.ml_tl << 16)
+        ftabs[i, 0:512] = fse_packed[bp.ll_tid]
+        ftabs[i, 512:1024] = fse_packed[bp.of_tid]
+        ftabs[i, 1024:1536] = fse_packed[bp.ml_tid]
+        seq = bp.seq_stream
+    return mode, payload, seq
+
+
+def _words(parts: list[bytes]) -> np.ndarray:
+    """Byte strings as zero-padded rows of int32 words (_round_words of
+    the longest)."""
+    W = _round_words(max(map(len, parts), default=0))
+    out = np.zeros((len(parts), 4 * W), np.uint8)
+    for r, b in enumerate(parts):
+        out[r, : len(b)] = np.frombuffer(b, np.uint8)
+    return out.view("<i4")
+
+
 def pack_rows(plans, hufreg: _HufReg, fsereg: _FseReg) -> dict:
     """K4's packed rows for the frames `plans`, frame-major (numpy):
     lp (B, LPW) / sq (B, SQW) int32 payload words, wtid (B,) Huffman
@@ -374,7 +421,7 @@ def pack_rows(plans, hufreg: _HufReg, fsereg: _FseReg) -> dict:
     meta = np.zeros((B, D.META_W), np.int32)
     wtid = np.zeros(B, np.int64)
     ftabs = np.zeros((B, 1536), np.int32)
-    fse_packed = np.stack(fsereg.tables) if fsereg.tables else None
+    fse_packed = fsereg.packed()
     chain = np.zeros(len(plans) + 1, np.int32)
     frame_off = np.zeros(len(plans) + 1, np.int64)
     lp_list: list[bytes] = []
@@ -384,52 +431,25 @@ def pack_rows(plans, hufreg: _HufReg, fsereg: _FseReg) -> dict:
         chain[f] = i
         frame_off[f + 1] = frame_off[f] + p.content_size
         for bi, bp in enumerate(p.blocks):
-            mode = D.DMODE_FRAME_START if bi == 0 else 0
-            regen = 0
-            payload = b""
-            if bp.huf_lanes:
-                lanes = bp.huf_lanes
-                regen = sum(l.n_out for l in lanes)
-                mode |= D.DMODE_HUF1 if len(lanes) == 1 else D.DMODE_HUF4
-                off = 0
-                for s, l in enumerate(lanes):
-                    meta[i, 4 + s] = _sentinel_bits(l.stream)
-                    meta[i, 8 + s] = off
-                    off += len(l.stream)
-                payload = b"".join(l.stream for l in lanes)
-                wtid[i] = lanes[0].tid
-            elif bp.lit_direct is not None:
+            mode, payload, seq = _pack_sections(i, bp, bool(bp.huf_lanes),
+                                                meta, wtid, ftabs, fse_packed)
+            if bi == 0:
+                mode |= D.DMODE_FRAME_START
+            if not bp.huf_lanes and bp.lit_direct is not None:
                 mode |= D.DMODE_DIRECT
                 payload = bp.lit_direct
-                regen = len(payload)
+            regen = _lit_len(bp)
             if regen > zf.BLOCK_MAX:
                 raise FormatError(f"block regenerates {regen} literal bytes")
-            if bp.n_seq > 0:
-                mode |= D.DMODE_SEQ
-                meta[i, 12] = _sentinel_bits(bp.seq_stream)
-                meta[i, 13] = bp.n_seq
-                meta[i, 14] = bp.ll_tl | (bp.of_tl << 8) | (bp.ml_tl << 16)
-                ftabs[i, 0:512] = fse_packed[bp.ll_tid]
-                ftabs[i, 512:1024] = fse_packed[bp.of_tid]
-                ftabs[i, 1024:1536] = fse_packed[bp.ml_tid]
-                sq_list.append(bp.seq_stream)
-            else:
-                sq_list.append(b"")
             lp_list.append(payload)
+            sq_list.append(seq)
             meta[i, 0] = mode
             meta[i, 1] = bp.content
             meta[i, 3] = regen
             i += 1
     chain[-1] = B
-    LPW = _round_words(max(map(len, lp_list), default=0))
-    SQW = _round_words(max(map(len, sq_list), default=0))
-    lp = np.zeros((B, 4 * LPW), np.uint8)
-    sq = np.zeros((B, 4 * SQW), np.uint8)
-    for r in range(B):
-        lp[r, : len(lp_list[r])] = np.frombuffer(lp_list[r], np.uint8)
-        sq[r, : len(sq_list[r])] = np.frombuffer(sq_list[r], np.uint8)
-    return dict(lp=lp.view("<i4"), sq=sq.view("<i4"), wtid=wtid, ftabs=ftabs,
-                meta=meta, chain=chain, frame_off=frame_off,
+    return dict(lp=_words(lp_list), sq=_words(sq_list), wtid=wtid,
+                ftabs=ftabs, meta=meta, chain=chain, frame_off=frame_off,
                 payload_bytes=sum(map(len, lp_list)) + sum(map(len, sq_list)))
 
 
@@ -494,10 +514,15 @@ def decode_frames(datas, d_sizes=None, to_device: bool = False,
 K6_SEQ_SLOTS = 8191         # K6's sequence slots a block (pseudo-sequence in)
 K6_MAX_OFFSET = 1 << 17     # the reference K6's ring bound on an offset
 
-# the lane route's frames and executor batches by the way they went (read
-# by chip_smoke.py); the Reader decodes from two threads, hence the lock
+# the lane route's frames and executor batches, and the transcode route's
+# batches, by the way they went (read by chip_smoke.py): a transcode batch
+# runs K4's transcode arm, or goes to the fused route by rule before it
+# (its predicted block sizes do not add up) or after it (a row's stat
+# fails: an offset the token cannot hold, a size off the prediction, a
+# corrupt stream); the Reader decodes from two threads, hence the lock
 routes = {"anchored_frames": 0, "plain_frames": 0, "k6_batches": 0,
-          "pointer_doubling_batches": 0}
+          "pointer_doubling_batches": 0, "transcode_batches": 0,
+          "transcode_rule_batches": 0, "transcode_fallback_batches": 0}
 _routes_lock = threading.Lock()
 
 
@@ -970,3 +995,220 @@ def _execute_pointer_doubling(plans, recs, lit_lens, plane, PW, up):
                                     *[up(a) for a in arrs], F)
     return out.reshape(-1), ok, [(f * F, f * F + fe[2])
                                  for f, fe in enumerate(frames_exec)]
+
+
+
+# ---------------------------------------------------------------------------
+# the transcode route
+# ---------------------------------------------------------------------------
+
+TRANSCODE_CHUNK = 16   # rows a chain runs before a mid-frame chunk start
+
+
+def _block_guess(p: _FramePlan, fh) -> int:
+    """The size assumed for a compressed block of frame `p` (its header
+    does not give it).  The reference assumes 128 KiB (:979), right for
+    libzstd's frames and the level <= 3 blocks, so its route falls back
+    on every 64 KiB-block frame (levels >= 4).  A frame with an entry in
+    the Writer's hints sidecar (`fh`, one record a block; usable or not)
+    was written by this package's Writer or the JAX package's: equal
+    blocks but the last, so its block is the power of two its block
+    count implies."""
+    if fh is None or len(fh) != len(p.blocks) or not p.blocks:
+        return zf.BLOCK_MAX
+    per = -(-p.content_size // len(p.blocks))
+    return min(zf.BLOCK_MAX, _ceil_pow2(max(per, 1)))
+
+
+def transcode_rows(plans, hints, fsereg: _FseReg,
+                   host_literals: bool = True):
+    """The transcode route's host half before the kernel (the reference's
+    :966-1097): per frame its entries, ("host", d_off, bytes) for a
+    literal-only block or ("row", row index, d_off, content) for a row
+    of K4; and the rows (numpy): lp, sq, wtid, ftabs, meta (mode with
+    DMODE_TRANSCODE, meta[1] the block's size, predicted where its header
+    does not give it, meta[2] its offset in its frame), chain (rows from
+    one DMODE_FRAME_START to the next), lit_prefix, tok_prefix, and
+    blocks (each row's _BlockPlan, and whether its literals go to the
+    device).  Returns None when a frame's sizes do not add up under the
+    prediction (the batch goes to the fused route)."""
+    frames = []
+    rows = []     # (bp, content, d_off, mode, dev_lit, regen, splittable)
+    for p, fh in zip(plans, hints):
+        d_off = 0
+        fstart = True
+        usable = _frame_hints_usable(p, fh)
+        guess = _block_guess(p, fh)
+        fr = []
+        for bp in p.blocks:
+            if bp.lit_direct is not None and bp.n_seq == 0:
+                fr.append(("host", d_off, bp.lit_direct))
+                d_off += len(bp.lit_direct)
+                continue
+            content = bp.content if bp.content >= 0 else \
+                min(guess, p.content_size - d_off)
+            if content < 0:
+                return None
+            dev_lit = bool(bp.huf_lanes) and not host_literals
+            regen = _lit_len(bp)
+            if regen > zf.BLOCK_MAX:
+                raise FormatError(f"block regenerates {regen} literal bytes")
+            mode = D.DMODE_TRANSCODE | (D.DMODE_FRAME_START if fstart else 0)
+            fr.append(("row", len(rows), d_off, content))
+            rows.append((bp, content, d_off, mode, dev_lit, regen,
+                         fstart or usable))
+            fstart = False
+            d_off += content
+        if d_off != p.content_size:
+            return None
+        frames.append(fr)
+    B = len(rows)
+    meta = np.zeros((B, D.META_W), np.int32)
+    wtid = np.zeros(B, np.int64)
+    ftabs = np.zeros((B, 1536), np.int32)
+    fse_packed = fsereg.packed()
+    lit_w = np.zeros(B, np.int64)
+    tok_w = np.zeros(B, np.int64)
+    lp_list, sq_list, chain = [], [], []
+    chunk = 0
+    for i, (bp, content, d_off, mode, dev_lit, regen, split) in \
+            enumerate(rows):
+        # the reference's chunks (:1039-1043): one starts every
+        # TRANSCODE_CHUNK rows where the row may start one (a frame's
+        # first row, or any row of a frame with usable hints, whose
+        # blocks keep their repcodes to themselves); a chunk start resets
+        # the repcodes as a frame start does
+        if i - chunk >= TRANSCODE_CHUNK and split:
+            chunk = i
+        if i == chunk:
+            mode |= D.DMODE_FRAME_START
+        if mode & D.DMODE_FRAME_START:    # chains split at every reset
+            chain.append(i)
+        bits, payload, seq = _pack_sections(i, bp, dev_lit, meta, wtid,
+                                            ftabs, fse_packed)
+        mode |= bits if dev_lit else bits | D.DMODE_DIRECT | D.DMODE_LIT_HOST
+        lit_w[i] = (regen + 3) >> 2 if dev_lit else 0
+        tok_w[i] = 2 * bp.n_seq
+        lp_list.append(payload)
+        sq_list.append(seq)
+        meta[i, 0:4] = (mode, content, d_off, regen)
+    chain.append(B)
+    prefix = lambda w: np.concatenate([[0], np.cumsum(w)]).astype(np.int32)
+    return dict(frames=frames, blocks=[(r[0], r[4]) for r in rows],
+                lp=_words(lp_list), sq=_words(sq_list), wtid=wtid,
+                ftabs=ftabs, meta=meta, chain=np.array(chain, np.int32),
+                lit_prefix=prefix(lit_w), tok_prefix=prefix(tok_w))
+
+
+def _host_literals(rows, hufreg: _HufReg) -> dict:
+    """Huffman literals of the rows whose literals stay on the host,
+    decoded by native huf_decode_batch in one call: {row: uint8 array}."""
+    parts, lmeta, lane_out, spans = [], [], [], {}
+    spos = opos = 0
+    for r, (bp, dev_lit) in enumerate(rows["blocks"]):
+        if dev_lit or not bp.huf_lanes:
+            continue
+        spans[r] = opos
+        for lane in bp.huf_lanes:
+            parts.append(lane.stream)
+            lmeta.append((spos, len(lane.stream), lane.n_out, lane.tid))
+            lane_out.append(opos)
+            spos += len(lane.stream)
+            opos += lane.n_out
+    if not lmeta:
+        return {}
+    W, _ = hufreg.weights_arr()
+    lits = native.huf_decode_batch(b"".join(parts),
+                                   np.array(lmeta, np.int64), W, opos,
+                                   np.array(lane_out, np.int64))
+    return {r: lits[o: o + int(rows["meta"][r, 3])]
+            for r, o in spans.items()}
+
+
+def decode_frames_transcode(datas, d_sizes=None, hints=None, device="cpu",
+                            host_literals: bool = True):
+    """Decode a batch of zstd frames through the transcode route: K4's
+    transcode arm on `device` emits each block's sequences as packed
+    tokens, the host expands them (native zir_execute) into each frame's
+    bytes.  Returns host `bytes` per frame.
+
+    hints: per-frame decode anchors or None; a frame that has them is
+    the Writer's (its block size is known), one whose anchors cover
+    every block (usable) may start chunks mid-frame.  host_literals=False sends the Huffman literal
+    streams to the device with the rows (the reference's ZN_HOSTLIT=off)
+    instead of decoding them on the host.  A batch whose predicted block
+    sizes do not add up, or whose kernel stat fails (an offset past the
+    token's 2^28 - 1, a size off the prediction, a corrupt stream), goes
+    to the fused route (decode_frames), counted in `routes`; a corrupt
+    frame raises FormatError."""
+    if not datas:
+        return []
+    if d_sizes is None:
+        d_sizes = [None] * len(datas)
+    if hints is None:
+        hints = [None] * len(datas)
+    dev = torch.device(device)
+    with _span("zseek.parse"):
+        hufreg, fsereg = _HufReg(), _FseReg()
+        plans = [_parse_frame_impl(d, hufreg, fsereg, sz)
+                 for d, sz in zip(datas, d_sizes)]
+        rows = transcode_rows(plans, hints, fsereg, host_literals)
+    if rows is None:
+        _count_route("transcode_rule_batches")
+        return decode_frames(datas, d_sizes, device=device)
+    _count_route("transcode_batches")
+    meta = rows["meta"]
+    B = len(meta)
+    res = None
+    if B:
+        with _span("zseek.upload"):
+            up = lambda a: _tensor(a, dev)
+            lp = dtabs = None     # no literal on the device: no payload
+            if any(dev_lit for _, dev_lit in rows["blocks"]):
+                W, TLS = hufreg.weights_arr()
+                dtabs = build_dtabs(up(W), up(TLS)).index_select(
+                    0, up(rows["wtid"])).contiguous()
+                lp = up(rows["lp"])
+            args = (lp, up(rows["sq"]), dtabs, up(rows["ftabs"]),
+                    up(meta), up(rows["chain"]), up(rows["lit_prefix"]),
+                    up(rows["tok_prefix"]))
+        n_lit = int(rows["lit_prefix"][-1])
+        n_tok = int(rows["tok_prefix"][-1])
+        with _span("zseek.k4"):
+            lits_d, toks_d, stat_d = D.transcode_blocks(*args, n_lit, n_tok)
+            res = torch.cat([stat_d.reshape(-1), toks_d, lits_d])
+    with _span("zseek.hostlit"):     # on the host while the kernel runs
+        host_lits = _host_literals(rows, hufreg)
+    if res is not None:
+        with _span("zseek.fetch"):
+            res = res.cpu().numpy()
+        stat = res[: 4 * B].reshape(B, 4)
+        if not ((stat[:, 1] == 1).all() and (stat[:, 0] == meta[:, 1]).all()):
+            _count_route("transcode_fallback_batches")
+            return decode_frames(datas, d_sizes, device=device)
+        toks = res[4 * B: 4 * B + n_tok].view(np.uint32)
+        dev_lits = res[4 * B + n_tok:].view(np.uint8)
+    with _span("zseek.execute"):
+        tp, lpre = rows["tok_prefix"], rows["lit_prefix"]
+        out = []
+        for p, fr in zip(plans, rows["frames"]):
+            buf = np.empty(p.content_size, np.uint8)
+            for e in fr:
+                if e[0] == "host":
+                    buf[e[1]: e[1] + len(e[2])] = np.frombuffer(e[2],
+                                                               np.uint8)
+                    continue
+                _, r, d_off, content = e
+                bp, dev_lit = rows["blocks"][r]
+                if dev_lit:
+                    lits = dev_lits[4 * lpre[r]: 4 * lpre[r] + meta[r, 3]]
+                elif bp.huf_lanes:
+                    lits = host_lits[r]
+                else:
+                    lits = np.frombuffer(bp.lit_direct or b"", np.uint8)
+                if native.zir_execute(lits, toks[tp[r]: tp[r + 1]], buf,
+                                      d_off) != content:
+                    raise FormatError(f"block at {d_off} of a frame decodes "
+                                      f"to a size other than {content}")
+            out.append(buf.tobytes())
+    return out

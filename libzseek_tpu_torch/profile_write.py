@@ -1,16 +1,17 @@
 """Where one write of the port's main path, and one read of what it
 wrote, spend their time on the GPU.
 
-    python -m libzseek_tpu_torch.profile_write [zstd|zstd9|lz4|hash]
+    python -m libzseek_tpu_torch.profile_write [zstd|zstd9|lz4|hash|transcode]
 
 Writes 64 MiB of mixed_corpus(seed 11) through the port's Writer with
 the codec named (zstd, the default, at level 3; zstd9, zstd at level 9
 with its 64 KiB blocks and K1's level >= 4 arms; lz4 at level 0; hash,
-ZstdCodec(parser="hash") at level 3; 1 MiB frames, batch_frames=16,
-1 MiB writes), once to warm up
+ZstdCodec(parser="hash") at level 3; transcode, zstd at level 3; 1 MiB
+frames, batch_frames=16, 1 MiB writes), once to warm up
 and once under torch.profiler with CPU and CUDA activities; then reads
 the archive back through the port's Reader(device="cuda") in 1 MiB
-reads, likewise once to warm up and once profiled.  For each, prints
+reads (transcode: Reader(decoder="transcode")), likewise once to warm
+up and once profiled.  For each, prints
 the wall time, the device's busy share of it (union of CUDA kernel and
 copy intervals), the CUDA time per kernel name, and the host time
 inside each stage range (`zseek.*`, see runtime/zstd_codec.py,
@@ -39,7 +40,7 @@ SIZE_MIB = 64    # the main path's write (bench.py, chip_smoke.py)
 
 # codec argument -> (Writer codec, level)
 CODECS = {"zstd": ("zstd", None), "zstd9": ("zstd", 9), "lz4": ("lz4", None),
-          "hash": ("hash", None)}
+          "hash": ("hash", None), "transcode": ("zstd", None)}
 
 
 def _write(data: bytes, codec: str = "zstd") -> bytes:
@@ -58,11 +59,11 @@ def _write(data: bytes, codec: str = "zstd") -> bytes:
     return sink.getvalue()
 
 
-def _read(archive: bytes) -> bytes:
+def _read(archive: bytes, decoder: str = "fused") -> bytes:
     import torch
     from libzseek_tpu_torch import Reader
     parts = []
-    with Reader(archive, device="cuda") as r:
+    with Reader(archive, device="cuda", decoder=decoder) as r:
         while chunk := r.read(MIB):
             parts.append(chunk)
     torch.cuda.synchronize()
@@ -150,7 +151,9 @@ def main(argv: list[str]) -> int:
           f"{SIZE_MIB / wall:.2f} MiB/s,"
           f" ratio {len(archive) / len(data):.5f}")
     report(prof, wall)
-    got, prof, wall = _profiled(_read, archive)
+    decoder = "transcode" if codec == "transcode" else "fused"
+    got, prof, wall = _profiled(functools.partial(_read, decoder=decoder),
+                                archive)
     if got != data:
         print("the read differs from the input", file=sys.stderr)
         return 1

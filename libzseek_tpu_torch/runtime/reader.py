@@ -25,9 +25,11 @@ the codec is called from two threads at once.
 
 `decoder` picks the zstd decode route: "fused" (K4, the default) walks
 whole streams and skips the Writer's decode-anchor sidecar, as stock zstd
-readers do; "lanes" (the lane decoders and K6) loads the sidecar, as the
-JAX reader does (_load_hints), and passes each frame's anchors to the
-codec.  LZ4 archives have one decoder, "fused".
+readers do; "lanes" (the lane decoders and K6) and "transcode" (K4's
+transcode arm and the host executor; device-resident frames take the
+fused route) load the sidecar, as the JAX reader does (_load_hints), and
+pass each frame's anchors to the codec.  LZ4 archives have one decoder,
+"fused".
 """
 
 from __future__ import annotations
@@ -88,8 +90,10 @@ class Reader:
         else:
             raise FormatError(f"unknown archive magic 0x{magic:08X}")
         self._table: SeekTable = parse_seek_table(source.pread, self._fsize)
-        # the Writer's decode anchors, read by the lane route only
-        self._hints = self._load_hints() if decoder == "lanes" else None
+        # the Writer's decode anchors: the lane route anchors its walks at
+        # them, the transcode route starts chunks mid-frame where they are
+        self._hints = self._load_hints() \
+            if decoder in ("lanes", "transcode") else None
         self._cache = FrameCache(cache_frames) if cache_frames > 0 else None
         self._lock = threading.Lock()          # the cursor
         self._cache_lock = threading.Lock()    # the cache

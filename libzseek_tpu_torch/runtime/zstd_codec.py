@@ -45,14 +45,18 @@ fixed), nor its `workers` round-robin, its sort parser (ROADMAP A9) and
 its adaptive vector-literal hint: every row K3 accepts goes through K3,
 with identical bits either way.
 
-Decoding (decompress_frames, the Reader's codec call) takes one of two
+Decoding (decompress_frames, the Reader's codec call) takes one of three
 routes of the reference's decode_frames (ops/zstd_decode.py), chosen by
 `decoder`: "fused" (the default) is host frame parse and row packing,
 then K4 on the device (ops/decode.py); "lanes" is the route the
 reference runs with ZN_DECODE_SMEM=off: Huffman and FSE lane decoders,
 anchored at the Writer's decode hints where a frame has them
 (ops/lanes.py), then K6 (ops/exec_blocks.py) or the pointer-doubling
-executor.
+executor; "transcode" is the route the reference tries first on its TPU
+for host delivery: Huffman literals on the host, K4's transcode arm on
+the device, sequence execution on the host (decode_frames_transcode).
+Device delivery (to_device=True) takes the fused route under
+"transcode", as in the reference.
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ SMEM_SEQ_MAX = 4096   # beyond this many sequences in a block: the XLA arm
 SMEM_SEQ_MIN = 512    # lower bound on K2's sequence bucket
 PARSERS = ("linked", "hash")
 ENTROPIES = ("auto", "smem", "xla")
-DECODERS = ("fused", "lanes")
+DECODERS = ("fused", "lanes", "transcode")
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -208,7 +212,8 @@ class ZstdCodec:
         # its blocks hold <= SMEM_SEQ_MAX sequences); "xla": the XLA arm
         self.entropy = entropy
         # "fused": K4 walks whole streams; "lanes": the lane route, which
-        # reads the Writer's decode hints
+        # reads the Writer's decode hints; "transcode": K4's transcode arm
+        # and the host executor (hints allow mid-frame chunks)
         self.decoder = decoder
         # adaptive payload-fetch cap, sized from recent batches
         self._cap_hint: int | None = None
@@ -899,12 +904,16 @@ class ZstdCodec:
         route: host bytes per frame, or with to_device=True one uint8
         tensor per frame on the device.  frame_hints (per frame, the
         Writer's decode anchors, or None) anchor the lane route's walks;
+        the transcode route splits a frame that has them into chunks;
         the fused route walks whole streams and does not read them.  A
         corrupt frame raises FormatError."""
         if self.decoder == "lanes":
             return zstd_decode.decode_frames_lanes(
                 datas, d_sizes, frame_hints, to_device=to_device,
                 device=self.device)
+        if self.decoder == "transcode" and not to_device:
+            return zstd_decode.decode_frames_transcode(
+                datas, d_sizes, frame_hints, device=self.device)
         return zstd_decode.decode_frames(datas, d_sizes, to_device=to_device,
                                          device=self.device)
 

@@ -5,7 +5,8 @@ The test session itself imports jax and the JAX package
 (tests/conftest.py), so the import check runs in a fresh interpreter: it
 writes a zstd archive (with each parser) and an LZ4 archive with the
 port's Writer and reads them back with the port's Reader (the zstd one
-through both decoders) and the port's own format and testing copies."""
+through the fused, lane and transcode decoders) and the port's own
+format and testing copies."""
 
 import os
 import subprocess
@@ -49,6 +50,9 @@ assert r.pread_full(len(data), 0) == data
 r = port.Reader(archive, device="cpu", decoder="lanes")
 assert r.pread_full(len(data), 0) == data
 assert zstd_decode.routes["anchored_frames"] > 0
+r = port.Reader(archive, device="cpu", decoder="transcode")
+assert r.pread_full(len(data), 0) == data
+assert zstd_decode.routes["transcode_batches"] > 0
 sink = io.BytesIO()
 w = port.Writer(sink, port.ZstdCodec(device="cpu", parser="hash"),
                 min_frame_size=16 * 1024)

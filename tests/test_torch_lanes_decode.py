@@ -12,8 +12,8 @@ from libzseek_tpu.ops import zstd_decode as JZ
 from libzseek_tpu.runtime.reader import Reader as JaxReader
 from libzseek_tpu_torch.ops import zstd_decode as ZD
 from libzseek_tpu_torch.testing.corpus import mixed_corpus
-from test_torch_lanes_inputs import (archive_parts, mixed_archive,
-                                     words_archive)
+from test_torch_lanes_inputs import (NO_TRANSCODE, archive_parts,
+                                     mixed_archive, words_archive)
 
 
 def _both(monkeypatch, frames, sizes, hints):
@@ -38,7 +38,8 @@ def test_decode_frames_lanes_port_frames(monkeypatch):
     got, routes = _both(monkeypatch, frames, sizes, hints)
     assert b"".join(got) == d1 + d2
     assert routes == {"anchored_frames": 5, "plain_frames": 1,
-                      "k6_batches": 1, "pointer_doubling_batches": 0}
+                      "k6_batches": 1, "pointer_doubling_batches": 0,
+                      **NO_TRANSCODE}
     got, routes = _both(monkeypatch, frames[1:], sizes[1:], None)
     assert b"".join(got) == (d1 + d2)[sizes[0]:]
     assert routes["plain_frames"] == 5 and routes["k6_batches"] == 1

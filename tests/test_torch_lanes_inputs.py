@@ -28,6 +28,10 @@ from test_torch_decode_inputs import section_modes  # noqa: F401
 from test_torch_inputs import words
 
 KIB = 1024
+# zstd_decode.routes' transcode counts, which the lane route leaves as
+# they are
+NO_TRANSCODE = {"transcode_batches": 0, "transcode_rule_batches": 0,
+                "transcode_fallback_batches": 0}
 
 
 def own_frames():

@@ -18,7 +18,7 @@ from test_torch_cuda_inputs import leftover_bits_frame, rle_frame
 
 def test_unknown_decoder_and_lz4_lanes_raise():
     with pytest.raises(ParameterError):
-        port.ZstdCodec(device="cpu", decoder="transcode")
+        port.ZstdCodec(device="cpu", decoder="xla")
     sink = io.BytesIO()
     w = port.Writer(sink, "lz4", device="cpu", min_frame_size=4096)
     w.write(b"lanes " * 1000)

@@ -6,7 +6,8 @@ executor (tolerance: none, bytes)."""
 
 from libzseek_tpu.ops import zstd_decode as JZ
 from libzseek_tpu_torch.ops import zstd_decode as ZD
-from test_torch_lanes_inputs import stock_frames, zstd_level_frames
+from test_torch_lanes_inputs import (NO_TRANSCODE, stock_frames,
+                                     zstd_level_frames)
 
 
 def _both(monkeypatch, frames, raws):
@@ -24,11 +25,13 @@ def test_decode_frames_lanes_stock_frames(monkeypatch):
     lf, lr = zstd_level_frames()
     routes = _both(monkeypatch, frames[:-1] + lf, raws[:-1] + lr)
     assert routes == {"anchored_frames": 0, "plain_frames": len(lf) + 18,
-                      "k6_batches": 1, "pointer_doubling_batches": 0}
+                      "k6_batches": 1, "pointer_doubling_batches": 0,
+                      **NO_TRANSCODE}
 
 
 def test_decode_frames_lanes_long_window_frame(monkeypatch):
     frames, raws = stock_frames()
     routes = _both(monkeypatch, frames[-1:], raws[-1:])
     assert routes == {"anchored_frames": 0, "plain_frames": 1,
-                      "k6_batches": 0, "pointer_doubling_batches": 1}
+                      "k6_batches": 0, "pointer_doubling_batches": 1,
+                      **NO_TRANSCODE}
