@@ -36,7 +36,8 @@ Phases, each of which must pass (any failure exits non-zero):
      frames are CUDA tensors; every byte equals the input;
   6. the LZ4 path: K5 (LZ4 block encode) and the LZ4 decoder against
      their plain versions, exact, on small inputs (linked 4 KiB rows, a
-     seeded batch, the four level arms, damaged frames) and at the path's
+     seeded batch, the four level arms, hand-written frames with every
+     kind of copy and bad block, damaged frames) and at the path's
      shapes (K5 on 128 rows = 8 frames x 16 blocks of 64 KiB, the decoder
      on a 4-frame reader window); then the port's Writer(codec="lz4",
      level=0) writes the same 64 MiB with 1 MiB frames (warm-up, then the
@@ -71,8 +72,10 @@ Phases, each of which must pass (any failure exits non-zero):
   9. levels >= 4 (64 KiB blocks, K1's dual table, lazy matching and
      repcode probe): K1 against its plain version, exact, at levels 4, 9
      and 16 on four 16 KiB rows (one per quarter: the text quarter takes
-     the strict arm and short4, the period-337 quarter the repcode probe)
-     and at the path's 64-row batch (4 frames of 16 blocks, one per
+     the strict arm and short4, the period-337 quarter the repcode probe),
+     on rows that drive the walk's decisions (a lazy step's later match,
+     short4, a repcode hit, CAP sequences, a fence inside a chain, short
+     last rows) and at the path's 64-row batch (4 frames of 16 blocks, one per
      quarter), timed there; then the port's Writer(sink, level=9) writes
      the 64 MiB with 1 MiB frames and batch_frames=16 (warm-up, then the
      measured run, during which K1 and K2 must launch and K3 must not);
@@ -662,17 +665,69 @@ def lz4_rows(frames, damaged: int = 0, seed: int = 5):
         not parsed[0][0].block_independent
 
 
-def decoder_against_plain(name, args, F, linked, n_valid):
+def lz4_seq_block(seqs, tail=b""):
+    """A raw LZ4 block from (literals, offset, match length) sequences and
+    the last literals."""
+    def ext(n):
+        n -= 15
+        return bytes([255] * (n // 255) + [n % 255])
+    out = bytearray()
+    for lit, off, ml in seqs:
+        out.append(min(len(lit), 15) << 4 | min(ml - 4, 15))
+        out += (ext(len(lit)) if len(lit) >= 15 else b"") + lit
+        out += off.to_bytes(2, "little")
+        out += ext(ml - 4) if ml - 4 >= 15 else b""
+    out.append(min(len(tail), 15) << 4)
+    return bytes(out + (ext(len(tail)) if len(tail) >= 15 else b"") + tail)
+
+
+def lz4_crafted_rows():
+    """Decoder inputs (comp, clens, unc tensors) of hand-written frames:
+    a frame of a block whose copies overlap themselves (offsets 1, 2, 7,
+    31, 40), reach 500 back, take literal and match lengths with
+    extension bytes, and a block copying 100 bytes back into it, then an
+    uncompressed block; a frame of the same first block and a block
+    that stays inside itself; then the bad cases: a match before the
+    frame, one past its block's start, offset 0, a truncated block, 10
+    sequences (bad under a budget of 7).  F = 12 KiB."""
+    import numpy as np
+    import torch
+    b0 = lz4_seq_block([(b"ab", 2, 61), (b"XYZ", 1, 300),
+                        (bytes(range(40)), 40, 200), (b"", 500, 20),
+                        (b"q" * 300, 7, 100), (b"k", 31, 64)], b"END0")
+    frames = [
+        [(b0, False), (lz4_seq_block([(b"hello world", 6, 40)], b"t"),
+                       False)],
+        [(b0, False), (lz4_seq_block([(b"", 100, 150)], b"E1"), False),
+         (b"RAW" * 50, True)],
+        [(lz4_seq_block([(b"ab", 10, 8)], b"t"), False)],
+        [(b0, False), (lz4_seq_block([(b"", 50, 9)]), False)],
+        [(lz4_seq_block([(b"a", 0, 5)], b"t"), False)],
+        [(b0[:-3], False), (b0, False)],
+        [(lz4_seq_block([(b"ab", 2, 6)] * 10, b"!"), False), (b0, False)],
+    ]
+    comp = np.zeros((len(frames), 3, 4096), np.uint8)
+    clens = np.zeros((len(frames), 3), np.int32)
+    unc = np.zeros((len(frames), 3), bool)
+    for r, f in enumerate(frames):
+        for k, (blk, u) in enumerate(f):
+            comp[r, k, : len(blk)] = np.frombuffer(blk, np.uint8)
+            clens[r, k], unc[r, k] = len(blk), u
+    return [torch.from_numpy(a) for a in (comp, clens, unc)]
+
+
+def decoder_against_plain(name, args, F, linked, n_valid, max_seqs=None):
     """The LZ4 decoder on the card and its plain version on the CPU, same
     rows: equal ok and out_lens everywhere, equal out where ok; the first
     n_valid frames must be ok.  Returns (max_abs_err, plain ms)."""
     import torch
     from libzseek_tpu_torch.ops.lz4_decode import lz4_decode_frames
     cuda = torch.device("cuda")
-    got = lz4_decode_frames(*[a.to(cuda) for a in args], F, linked=linked)
+    got = lz4_decode_frames(*[a.to(cuda) for a in args], F,
+                            max_seqs=max_seqs, linked=linked)
     torch.cuda.synchronize()
-    plain_ms, ref = time_host(
-        lambda: lz4_decode_frames(*args, F, linked=linked))
+    plain_ms, ref = time_host(lambda: lz4_decode_frames(
+        *args, F, max_seqs=max_seqs, linked=linked))
     ok = ref[2]
     err = max_abs_err([got[1], got[2], got[0][ok.to(cuda)]],
                       [ref[1], ref[2], ref[0][ok]])
@@ -717,8 +772,16 @@ def phase_lz4(data, card, report) -> dict:
           "linked 4 KiB rows, a seeded batch, levels -1/0/3/9 on 4 rows; "
           "128 rows in 8 chains of 16 (level 0)")
 
-    # the decoder: small frames and damaged copies
+    # the decoder: hand-written frames, small frames and damaged copies
     derrs = []
+    crafted = lz4_crafted_rows()
+    for linked in (True, False):
+        for max_seqs in (None, 7):
+            e, _, _ = decoder_against_plain(
+                f"LZ4 decoder (hand-written, linked {linked}, budget "
+                f"{max_seqs})", crafted, 3 * 4096, linked,
+                2 if linked else 1, max_seqs)
+            derrs.append(e)
     for frames, raws, independent in lz4_small_frames():
         args, F, linked = lz4_rows(frames, damaged=12)
         e, _, got = decoder_against_plain(
@@ -774,8 +837,10 @@ def phase_lz4(data, card, report) -> dict:
           "libzseek_tpu/ops/lz4_decode.py:110 (XLA lz4_decode_frames)",
           derrs + [e_big], time_cuda(dec), plain_ms,
           comp_bytes + 4 * MIB, 4 * MIB,
-          "linked and independent frames of the codec and of liblz4 with "
-          "12 damaged copies each; 4 archive frames (the reader's window)")
+          "hand-written frames (self-overlapping, cross-block and bad "
+          "copies); linked and independent frames of the codec and of "
+          "liblz4 with 12 damaged copies each; 4 archive frames (the "
+          "reader's window)")
 
     # the read path
     read = phase_read(archive, data, card, lz4_decode, "LZ4 decoder")
@@ -1116,6 +1181,52 @@ def k1_level_args(data, offsets, frame_blocks, n):
     return t(x2), t(lens), t(ma), h16
 
 
+def k1_edge_rows():
+    """K1's decision rows as (x2, lens, min_abs): four fenced 16 KiB rows
+    crafted as tests/test_torch_cuda_inputs.arms_rows crafts them (a lazy
+    step's later match, a strict row of small-vocabulary text for short4,
+    a repcode pattern the tables miss, period-337 repeats); then seven
+    64 KiB rows: 5-byte
+    words from 64 random ones (past CAP sequences), text, text fenced
+    30,000 bytes into its previous block, a frame's 20,000-byte last
+    row, a new frame and its 100-byte last row, a frame of one 10-byte
+    row."""
+    import numpy as np
+    from libzseek_tpu_torch.testing.corpus import mixed_corpus
+    n, rng = 16384, np.random.default_rng(4242)
+    a = np.zeros((5, n), np.uint8)
+    a[1] = rng.integers(0, 256, n, np.uint8)
+    alpha = np.frombuffer(b"ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789", np.uint8)
+    a[1, 20:25], a[1, 60:71] = alpha[:5], alpha[1:12]
+    a[1, 100: 100 + len(alpha) - 2], a[1, 200: 200 + len(alpha)] = \
+        alpha[2:], alpha
+    a[1, [19, 59, 99]] = ord("#")
+    a[2] = rng.choice(np.frombuffer(b"abcdefgh ", np.uint8), n)
+    a[3] = rng.integers(0, 256, n, np.uint8)
+    W, V = rng.integers(0, 256, 16, np.uint8), rng.integers(0, 256, 64,
+                                                             np.uint8)
+    a[3, 280:296], a[3, 380:396] = W, W
+    a[3, 300:364], a[3, 400:464], a[3, 366:378] = V, V, V[:12]
+    a[3, [299, 399, 279, 379, 365, 378]] = [1, 2, 3, 4, 5, 6]
+    a[4] = np.tile(rng.integers(0, 256, 337, np.uint8), n // 337 + 1)[:n]
+    arms = (a, np.full(4, n, np.int32),
+            (np.arange(4, dtype=np.int32) + 1) * n)
+    N = BLOCK_HIGH
+    x2 = np.zeros((8, N), np.uint8)
+    words = rng.integers(0, 256, (64, 5), np.uint8)
+    x2[1] = words[rng.integers(0, 64, N // 5 + 1)].reshape(-1)[:N]
+    x2[2:6] = mixed_corpus(np.random.default_rng(89), 4 * N) \
+        .reshape(4, N)[[0, 0, 0, 1]]
+    x2[3, : N // 2] = x2[2, N // 4: 3 * N // 4]
+    x2[6:8] = mixed_corpus(np.random.default_rng(97), 2 * N).reshape(2, N)
+    i = np.arange(7)
+    min_abs = (i * N).astype(np.int32)
+    min_abs[[0, 4, 6]] = (i[[0, 4, 6]] + 1) * N
+    min_abs[2] = 2 * N + 30000
+    return [arms, (x2, np.array([N, N, N, 20000, N, 100, 10], np.int32),
+                   min_abs)]
+
+
 def sample_8mib(data: bytes) -> bytes:
     """2 MiB from the start of each quarter of the corpus."""
     return b"".join(data[q * 16 * MIB: q * 16 * MIB + 2 * MIB]
@@ -1135,27 +1246,38 @@ def phase_levels(data, card, report, keep: dict) -> dict:
                                         lanes, parse_linked, vector_entropy)
     from libzseek_tpu_torch.ops import zstd_decode as ZD
     from libzseek_tpu_torch.ops.zstd_encode import (GATE_FIXED_BITS,
+                                                    block_entropy_h16,
                                                     level_search_params)
     from libzseek_tpu_torch.testing import golden
 
     small = k1_level_args(data, K1H_ROWS, 1, 16384)
     big = k1_level_args(data, K1H_BATCH, 16, BLOCK_HIGH)
+    edges = []
+    for x2, lens, ma in k1_edge_rows():
+        t = lambda a: torch.from_numpy(a).to("cuda")
+        edges.append([t(x2), t(lens), t(ma),
+                      block_entropy_h16(t(x2[1:]), t(lens))[0]])
     k1 = {}
     for level in HIGH_LEVELS:
         prm = {"gate_bits": GATE_FIXED_BITS, **level_search_params(level)}
         fn = lambda *a, _p=prm: parse_linked.parse_linked(*a, **_p)
         e_small, _ = against_plain(f"K1 level {level} (4 rows)", fn, small)
+        e_edges = [against_plain(f"K1 level {level} (decision rows)", fn,
+                                 e)[0] for e in edges]
         e_big, plain_ms = against_plain(f"K1 level {level} (64 rows)", fn,
                                         big)
         out = fn(*big)
         entry(report, f"K1 parse_linked (level {level})",
               "libzseek_tpu_torch/csrc/parse_linked.cu",
-              "libzseek_tpu/ops/pallas_match.py:194", [e_small, e_big],
+              "libzseek_tpu/ops/pallas_match.py:194",
+              [e_small, e_big] + e_edges,
               time_cuda(lambda: fn(*big)), plain_ms, nbytes(big, out),
               big[0][1:].numel(),
               f"lazy {prm['lazy']}, accel_log {prm['accel_log']}, dual, "
-              f"rep_probe; 4 rows of 16 KiB, one per quarter; 64 rows of "
-              f"64 KiB in 4 chains of 16, {int(out[3].sum())} sequences")
+              f"rep_probe; 4 rows of 16 KiB, one per quarter; the decision "
+              f"rows (lazy win, short4, rep hit, CAP, a fence, short last "
+              f"rows); 64 rows of 64 KiB in 4 chains of 16, "
+              f"{int(out[3].sum())} sequences")
         k1[level] = report[-1]
 
     # the main path at level 9

@@ -3,19 +3,35 @@
 // Replaces the XLA decoder libzseek_tpu/ops/lz4_decode.py
 // lz4_decode_frames (:110), not a Pallas kernel: there the token stream
 // is a while_loop over sequences vectorised over blocks, and execution is
-// a literal scatter plus pointer-doubling copy resolution.  In torch ops
-// on the card that loop would be thousands of tiny launches with a host
-// sync per step.
+// a literal scatter plus pointer-doubling copy resolution (:16).
 //
-// Here one warp walks one frame: its blocks in order, each block's
-// tokens in order, all 32 lanes reading the same header bytes (uniform
-// control flow) and copying together, straight into the frame's output
-// row.  Literals go in rounds of 32 bytes; a match with offset < 32
-// repeats the last `off` bytes (dst[j] = dst[j % off - off]), one with
-// offset >= 32 goes in rounds of 32, each reading bytes an earlier round
-// or sequence wrote.  Linked frames may reach back to the frame's first
-// byte, independent frames only to their block's start.  Uncompressed
-// blocks are copied.
+// What bounded the first version (one warp walked a whole frame, tokens
+// and copies in order; 92 ms per 4-frame window on an H100): the walk of
+// the longest frame.  Clock counters on the card gave the text frame's
+// warp 214 M cycles against 3-7 M for the other three: 214,442
+// sequences at ~290 cycles of header parsing (five dependent byte loads
+// from global memory), ~160 of literal copies and ~430 of match copies
+// (a __syncwarp after every 32 bytes) each, on 4 warps for the window.
+//
+// This version splits the decode into the reference's three phases:
+//  1. parse_kernel: one CUDA block (one warp) per LZ4 block.  The row is
+//     staged in shared memory with 16-byte loads; the warp walks its
+//     tokens in lock step from shared memory (0xFF runs by ballot) and
+//     lane 0 writes one record a sequence, {literal source, ll, output
+//     position, offset}, all block-local, plus the block's output length
+//     and a bad flag.  A window of 4 frames of 16 blocks parses on 64 SMs
+//     at once instead of 4 warps.
+//  2. expand_kernel: every block's base is the sum of the lengths of the
+//     blocks before it in its frame (out_lens comes from the same sums).
+//     Warps take a block's records in parallel: literal bytes go straight
+//     to the output; each match byte gets the frame index of its source,
+//     inside the match folded back before the match start
+//     (dst - off + j % off), so self-overlapping copies cost no rounds.
+//  3. round_kernel, ceil(log2 F) launches: in-place pointer doubling over
+//     the source indices, src[i] <- src[src[i]], until every index names
+//     a byte that is no match byte; a launch whose predecessor changed
+//     nothing returns at once.  finish_kernel then copies each match byte
+//     from its root and writes ok.
 //
 // Flags follow the reference exactly: a block is bad on a truncated or
 // overrunning sequence, offset 0, an offset past the block start
@@ -23,160 +39,294 @@
 // there (its output ends before the bad sequence) and the frame's later
 // blocks still decode, so out_lens is the reference's.  A match that
 // starts inside the row and before the frame start makes the frame bad
-// and is not copied.  Loads of header bytes past the padded block row
-// are clamped to its last byte, as the reference's gathers are.  Nothing
-// is written past F; the wrapper zero-fills the output.
+// and copies nothing.  Header loads past the padded block row are
+// clamped to its last byte, as the reference's gathers are.  Nothing is
+// written past F; the wrapper zero-fills the output.  Uncompressed
+// blocks are one literal record.
 //
-// What bounds it: the token walk is a serial chain of dependent byte
-// loads, one warp per frame, so a launch lasts as long as its longest
-// frame; the copies are coalesced 32-byte rounds.  The bound is the bytes
-// moved (compressed bytes in, decompressed bytes out).
+// What bounds it now (4.1 ms a window): parse_kernel, 3.1 ms, the
+// longest block's token walk (one chain of shared-memory loads over its
+// ~13,000 sequences); then expand_kernel, 0.6 ms, and the doubling
+// rounds, 0.3 ms, each a pass over 4 bytes an output byte.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-struct Blk {
-  const uint8_t* row;  // the block's padded row of M bytes
-  int M;
+constexpr int STAGE_MAX = 96 * 1024;   // bytes of a row staged in smem
+constexpr int EXPAND_SPLIT = 8;        // CUDA blocks per LZ4 block
+constexpr int EXPAND_THREADS = 256;
+constexpr int ROUND_THREADS = 256;
+constexpr int ROUND_ITEMS = 4;
+
+// meta layout (int32): nrec[L], blen[L], bad[L], frame_bad[B], lim[B],
+// changed[rounds]
+struct Meta {
+  int* nrec;
+  int* blen;
+  int* bad;
+  int* frame_bad;
+  int* lim;
+  int* changed;
 };
 
-__device__ __forceinline__ int g(const Blk& b, int i) {
-  i = i < 0 ? 0 : (i > b.M - 1 ? b.M - 1 : i);
-  return b.row[i];
+__device__ __forceinline__ Meta meta_of(int* m, int L, int B) {
+  return Meta{m, m + L, m + 2 * L, m + 3 * L, m + 3 * L + B,
+              m + 3 * L + 2 * B};
 }
 
-// number of consecutive 0xFF bytes from position i (clamped) to the row end
-__device__ __forceinline__ int ff_run(const Blk& b, int i) {
-  i = i < 0 ? 0 : (i > b.M - 1 ? b.M - 1 : i);
+struct Row {
+  const uint8_t* g;  // the block's padded row of M bytes in global memory
+  const uint8_t* s;  // its first `staged` bytes in shared memory
+  int staged, M;
+};
+
+__device__ __forceinline__ int at(const Row& r, int i) {
+  i = i < 0 ? 0 : (i > r.M - 1 ? r.M - 1 : i);
+  return i < r.staged ? r.s[i] : r.g[i];
+}
+
+// consecutive 0xFF bytes from position i (clamped) to the row end; the
+// whole warp calls it with the same i
+__device__ int ff_run(const Row& r, int i, int lane) {
+  i = i < 0 ? 0 : (i > r.M - 1 ? r.M - 1 : i);
   int n = 0;
-  while (i + n < b.M && b.row[i + n] == 0xFF) ++n;
-  return n;
-}
-
-// copy n bytes of the frame's compressed rows from flat index `src` to
-// out[dst..]: bytes past the frame's rows stay 0, bytes past F are dropped
-__device__ __forceinline__ void warp_lits(uint8_t* out, long long dst,
-                                          const uint8_t* comp_f,
-                                          long long src, long long n,
-                                          long long KM, long long F,
-                                          int lane) {
-  for (long long j = lane; j < n; j += 32) {
-    long long d = dst + j, s = src + j;
-    if (d < F && s < KM) out[d] = comp_f[s];
+  for (;;) {
+    const int j = i + n + lane;
+    const bool stop = j >= r.M || at(r, j) != 0xFF;
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, stop);
+    if (m) return n + __ffs((int)m) - 1;
+    n += 32;
   }
-  __threadfence_block();
-  __syncwarp();
 }
 
-// out[dst + j] = out[dst + j - off] for j < ml, positions < F only
-__device__ __forceinline__ void warp_match(uint8_t* out, long long dst,
-                                           int off, long long ml,
-                                           long long F, int lane) {
-  long long n = F - dst < ml ? F - dst : ml;
-  if (n <= 0) return;
-  uint8_t* d = out + dst;
-  if (off >= n) {
-    for (long long j = lane; j < n; j += 32) d[j] = d[j - off];
-  } else if (off >= 32) {
-    for (long long j0 = 0; j0 < n; j0 += 32) {
-      const long long j = j0 + lane;
-      if (j < n) d[j] = d[j - off];
-      __threadfence_block();
-      __syncwarp();
-    }
-  } else {
-    for (long long j = lane; j < n; j += 32) d[j] = d[j % off - off];
-  }
-  __threadfence_block();
-  __syncwarp();
-}
-
-__global__ void lz4_decode_kernel(const uint8_t* __restrict__ comp,
-                                  const int* __restrict__ clens,
-                                  const uint8_t* __restrict__ unc, int K,
-                                  int M, long long F, int max_seqs,
-                                  int linked, uint8_t* out, int* out_lens,
-                                  uint8_t* ok) {
-  const int b = blockIdx.x;
+__global__ void parse_kernel(const uint8_t* __restrict__ comp,
+                             const int* __restrict__ clens,
+                             const uint8_t* __restrict__ unc, int L, int B,
+                             int M, int max_seqs, int linked,
+                             int4* __restrict__ rec, int* meta_p) {
+  extern __shared__ uint4 stage[];
+  const int blk = blockIdx.x;
   const int lane = threadIdx.x;
-  const long long KM = (long long)K * M;
-  const uint8_t* comp_f = comp + (size_t)b * KM;
-  uint8_t* fo = out + (size_t)b * F;
-  long long base = 0;  // the frame's bytes so far
+  const Meta meta = meta_of(meta_p, L, B);
+  const int clen = clens[blk];
+  int4* R = rec + (size_t)blk * max_seqs;
+  if (unc[blk] || clen <= 0) {
+    if (lane == 0) {
+      const bool u = unc[blk] != 0;
+      if (u) R[0] = make_int4(0, clen, 0, 0);
+      meta.nrec[blk] = u ? 1 : 0;
+      meta.blen[blk] = u ? clen : 0;
+      meta.bad[blk] = 0;
+    }
+    return;
+  }
+  const uint8_t* row = comp + (size_t)blk * M;
+  int staged = clen < M ? clen : M;
+  staged = staged < STAGE_MAX ? staged : STAGE_MAX;
+  uint8_t* sb = reinterpret_cast<uint8_t*>(stage);
+  if ((M & 15) == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(row);
+    for (int q = lane; q < (staged + 15) / 16; q += 32) stage[q] = src[q];
+  } else {
+    for (int q = lane; q < staged; q += 32) sb[q] = row[q];
+  }
+  __syncwarp();
+  const Row r{row, sb, staged, M};
+  int ip = 0, s = 0;
+  long long op = 0;
   bool bad = false;
-  for (int k = 0; k < K; ++k) {
-    const int clen = clens[b * K + k];
-    const long long kb = (long long)k * M;
-    if (unc[b * K + k]) {
-      warp_lits(fo, base, comp_f, kb, clen, KM, F, lane);
-      base += clen;
-      continue;
+  for (;; ++s) {
+    if (s == max_seqs) {
+      bad = true;  // ran out of sequence budget mid-block
+      break;
     }
-    Blk B{comp_f + kb, M};
-    int ip = 0;
-    long long op = 0;   // block-local output position
-    for (int s = 0; clen > 0; ++s) {
-      if (s == max_seqs) {
-        bad = true;     // ran out of sequence budget mid-block
-        break;
-      }
-      const int token = g(B, ip);
-      int ll = token >> 4, ll_extbytes = 0;
-      if (ll == 15) {
-        const int ffr = ff_run(B, ip + 1);
-        ll_extbytes = ffr + 1;
-        ll = 15 + 255 * ffr + g(B, ip + 1 + ffr);
-      }
-      const int src = ip + 1 + ll_extbytes;
-      const int lit_end = src + ll;
-      const bool is_last = lit_end >= clen;
-      const int off = g(B, lit_end) | (g(B, lit_end + 1) << 8);
-      int ml = (token & 15) + 4, ml_extbytes = 0;
-      if ((token & 15) == 15) {
-        const int ffr2 = ff_run(B, lit_end + 2);
-        ml_extbytes = ffr2 + 1;
-        ml = 19 + 255 * ffr2 + g(B, lit_end + 2 + ffr2);
-      }
-      const long long match_dst = op + ll;
-      bool overrun = lit_end > clen ||
-                     (!is_last && (lit_end + 2 + ml_extbytes > clen ||
-                                   off == 0));
-      if (!linked) overrun = overrun || (!is_last && off > match_dst);
-      if (overrun) {
-        bad = true;
-        break;
-      }
-      warp_lits(fo, base + op, comp_f, kb + src, ll, KM, F, lane);
-      if (is_last) {
-        op += ll;
-        break;
-      }
-      const long long mdst = base + match_dst;
-      if (mdst < F && mdst - off < 0) bad = true;   // before the frame
-      else warp_match(fo, mdst, off, ml, F, lane);
-      op = match_dst + ml;
-      ip = lit_end + 2 + ml_extbytes;
+    const int token = at(r, ip);
+    int ll = token >> 4, ll_extbytes = 0;
+    if (ll == 15) {
+      const int ffr = ff_run(r, ip + 1, lane);
+      ll_extbytes = ffr + 1;
+      ll = 15 + 255 * ffr + at(r, ip + 1 + ffr);
     }
-    base += op;
+    const int src = ip + 1 + ll_extbytes;
+    const int lit_end = src + ll;
+    const bool is_last = lit_end >= clen;
+    const int off = at(r, lit_end) | (at(r, lit_end + 1) << 8);
+    int ml = (token & 15) + 4, ml_extbytes = 0;
+    if ((token & 15) == 15) {
+      const int ffr2 = ff_run(r, lit_end + 2, lane);
+      ml_extbytes = ffr2 + 1;
+      ml = 19 + 255 * ffr2 + at(r, lit_end + 2 + ffr2);
+    }
+    const long long match_dst = op + ll;
+    bool overrun = lit_end > clen ||
+                   (!is_last && (lit_end + 2 + ml_extbytes > clen ||
+                                 off == 0));
+    if (!linked) overrun = overrun || (!is_last && off > match_dst);
+    if (overrun) {
+      bad = true;
+      break;
+    }
+    if (lane == 0) R[s] = make_int4(src, ll, (int)op, is_last ? 0 : off);
+    if (is_last) {
+      op += ll;
+      ++s;
+      break;
+    }
+    op = match_dst + ml;
+    ip = lit_end + 2 + ml_extbytes;
   }
   if (lane == 0) {
-    out_lens[b] = (int)base;
+    meta.nrec[blk] = s;
+    meta.blen[blk] = (int)op;
+    meta.bad[blk] = bad ? 1 : 0;
+  }
+}
+
+// grid (L, EXPAND_SPLIT): the warps of a block's EXPAND_SPLIT CUDA blocks
+// share its records
+__global__ void expand_kernel(const uint8_t* __restrict__ comp,
+                              const int4* __restrict__ rec, int L, int B,
+                              int K, int M, int F, int max_seqs,
+                              uint8_t* __restrict__ out,
+                              int* __restrict__ srcs, int* meta_p) {
+  const int blk = blockIdx.x;
+  const int b = blk / K, k = blk % K;
+  const Meta meta = meta_of(meta_p, L, B);
+  long long base = 0;
+  for (int j = 0; j < k; ++j) base += meta.blen[b * K + j];
+  const int n = meta.nrec[blk];
+  const int blen = meta.blen[blk];
+  if (k == K - 1 && blockIdx.y == 0 && threadIdx.x == 0) {
+    const long long total = base + blen;
+    meta.lim[b] = (int)(total < F ? total : (long long)F);
+  }
+  const long long KM = (long long)K * M;
+  const uint8_t* comp_f = comp + (size_t)b * KM;
+  const long long kb = (long long)k * M;
+  uint8_t* fo = out + (size_t)b * F;
+  int* fs = srcs + (size_t)b * F;
+  const int4* R = rec + (size_t)blk * max_seqs;
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.y * (EXPAND_THREADS / 32);
+  const int w = blockIdx.y * (EXPAND_THREADS / 32) + threadIdx.x / 32;
+  bool before = false;
+  for (int i = w; i < n; i += warps) {
+    const int4 q = R[i];
+    const int next = i + 1 < n ? R[i + 1].z : blen;
+    const long long ld = base + q.z;
+    const long long mdst = ld + q.y;
+    const long long ml = (long long)next - q.z - q.y;
+    for (long long j = lane; j < q.y; j += 32) {
+      const long long d = ld + j;
+      if (d >= F) break;
+      const long long s = kb + q.x + j;
+      fo[d] = s < KM ? comp_f[s] : 0;
+      fs[d] = -1;
+    }
+    if (ml <= 0 || mdst >= F) continue;
+    const long long cnt = F - mdst < ml ? F - mdst : ml;
+    const int off = q.w;
+    const bool pre = mdst - off < 0;   // the match reaches before the frame
+    before = before || pre;
+    for (long long j = lane; j < cnt; j += 32)
+      fs[mdst + j] = pre ? -1
+                         : (int)(mdst - off + (off < cnt ? j % off : j));
+  }
+  if (__any_sync(0xFFFFFFFFu, before) && lane == 0) meta.frame_bad[b] = 1;
+}
+
+// grid (ceil(F / (threads * items)), B)
+__global__ void round_kernel(int* __restrict__ srcs, int F, int L, int B,
+                             int r, int* meta_p) {
+  const Meta meta = meta_of(meta_p, L, B);
+  if (r > 0 && meta.changed[r - 1] == 0) return;
+  const int b = blockIdx.y;
+  const int lim = meta.lim[b];
+  int* fs = srcs + (size_t)b * F;
+  bool ch = false;
+  const int i0 = blockIdx.x * ROUND_THREADS * ROUND_ITEMS + threadIdx.x;
+  for (int t = 0; t < ROUND_ITEMS; ++t) {
+    const int i = i0 + t * ROUND_THREADS;
+    if (i >= lim) break;
+    const int s = fs[i];
+    if (s < 0) continue;
+    const int u = fs[s];
+    if (u >= 0) {
+      fs[i] = u;
+      ch = true;
+    }
+  }
+  if (__any_sync(0xFFFFFFFFu, ch) && (threadIdx.x & 31) == 0)
+    meta.changed[r] = 1;
+}
+
+__global__ void finish_kernel(const int* __restrict__ srcs, int F, int L,
+                              int B, int K, uint8_t* __restrict__ out,
+                              int* __restrict__ out_lens,
+                              uint8_t* __restrict__ ok, int* meta_p) {
+  const Meta meta = meta_of(meta_p, L, B);
+  const int b = blockIdx.y;
+  const int lim = meta.lim[b];
+  const int* fs = srcs + (size_t)b * F;
+  uint8_t* fo = out + (size_t)b * F;
+  const int i0 = blockIdx.x * ROUND_THREADS * ROUND_ITEMS + threadIdx.x;
+  for (int t = 0; t < ROUND_ITEMS; ++t) {
+    const int i = i0 + t * ROUND_THREADS;
+    if (i >= lim) break;
+    const int s = fs[i];
+    if (s >= 0) fo[i] = fo[s];
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    long long total = 0;
+    bool bad = meta.frame_bad[b] != 0;
+    for (int k = 0; k < K; ++k) {
+      total += meta.blen[b * K + k];
+      bad = bad || meta.bad[b * K + k] != 0;
+    }
+    out_lens[b] = (int)total;
     ok[b] = bad ? 0 : 1;
   }
 }
 
 }  // namespace
 
+// rec: int32 (B*K, max_seqs, 4) scratch; srcs: int32 (B, F) scratch;
+// meta: int32 (3*B*K + 2*B + rounds), zero-filled by the caller
 extern "C" int zk_lz4_decode(const void* comp, const void* clens,
                              const void* unc, int B, int K, int M, int F,
                              int max_seqs, int linked, void* out,
-                             void* out_lens, void* ok, void* stream) {
-  if (B > 0)
-    lz4_decode_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)comp, (const int*)clens, (const uint8_t*)unc, K, M,
-        (long long)F, max_seqs, linked, (uint8_t*)out, (int*)out_lens,
-        (uint8_t*)ok);
+                             void* out_lens, void* ok, void* rec, void* srcs,
+                             void* meta, int rounds, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int L = B * K;
+  int stage = M < STAGE_MAX ? M : STAGE_MAX;
+  stage = (stage + 15) / 16 * 16;
+  cudaError_t e = cudaFuncSetAttribute(
+      parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, stage);
+  if (e != cudaSuccess) return (int)e;
+  parse_kernel<<<L, 32, stage, st>>>(
+      (const uint8_t*)comp, (const int*)clens, (const uint8_t*)unc, L, B, M,
+      max_seqs, linked, (int4*)rec, (int*)meta);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  expand_kernel<<<dim3(L, EXPAND_SPLIT), EXPAND_THREADS, 0, st>>>(
+      (const uint8_t*)comp, (const int4*)rec, L, B, K, M, F, max_seqs,
+      (uint8_t*)out, (int*)srcs, (int*)meta);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((F + ROUND_THREADS * ROUND_ITEMS - 1) /
+                      (ROUND_THREADS * ROUND_ITEMS), B);
+  for (int r = 0; r < rounds; ++r) {
+    round_kernel<<<grid, ROUND_THREADS, 0, st>>>((int*)srcs, F, L, B, r,
+                                                 (int*)meta);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  finish_kernel<<<grid, ROUND_THREADS, 0, st>>>(
+      (const int*)srcs, F, L, B, K, (uint8_t*)out, (int*)out_lens,
+      (uint8_t*)ok, (int*)meta);
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,7 @@ SIGNATURES = {
     "zk_decode": [_P] * 8 + [_I] * 4 + [_P] * 4,
     "zk_transcode": [_P] * 9 + [_I] * 4 + [_P] * 4,
     "zk_lz4_emit": [_P] * 3 + [_I] * 6 + [_P] * 4,
-    "zk_lz4_decode": [_P] * 3 + [_I] * 6 + [_P] * 4,
+    "zk_lz4_decode": [_P] * 3 + [_I] * 6 + [_P] * 6 + [_I, _P],
     "zk_hash_parse": [_P] * 2 + [_I] * 4 + [_P] * 5,
     "zk_huf_lanes": [_P] * 6 + [_I] * 6 + [_P] * 3,
     "zk_fse_lanes": [_P] * 10 + [_I] * 6 + [_P] * 6,

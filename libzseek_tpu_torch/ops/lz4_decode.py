@@ -8,9 +8,13 @@ pointer-doubling copy resolution.  It runs only for tensors on the CPU.
 
 The reference's decoder is XLA, not a Pallas kernel.  In torch ops on the
 card its sequence loop would be thousands of tiny launches with a host
-sync per step, so on CUDA tensors the decode is csrc/lz4_decode.cu: one
-warp per frame walks the tokens in order and writes literals and matches
-straight into the frame's output, with the same failure flags.
+sync per step, so on CUDA tensors the decode is csrc/lz4_decode.cu, in
+the reference's phases: one warp per LZ4 block parses its tokens from
+shared memory into one record a sequence; the blocks' lengths give their
+bases; literals are scattered and match bytes resolved by pointer
+doubling over one source index an output byte.  The failure flags are
+the plain version's.  parse_records and resolve_records below mirror
+those phases in numpy; only the tests call them.
 """
 
 from __future__ import annotations
@@ -69,14 +73,21 @@ def lz4_decode_frames(comp: torch.Tensor, comp_lens: torch.Tensor,
     comp = comp.contiguous()
     clens = comp_lens.contiguous()
     unc = uncompressed.contiguous()
+    L = B * K
+    rounds = _rounds(F)
     out = torch.zeros((B, F), dtype=torch.uint8, device=dev)
     out_lens = torch.empty((B,), dtype=torch.int32, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    rec = torch.empty((L, max_seqs, 4), dtype=torch.int32, device=dev)
+    srcs = torch.empty((B, F), dtype=torch.int32, device=dev)
+    meta = torch.zeros((3 * L + 2 * B + rounds,), dtype=torch.int32,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zk_lz4_decode(comp.data_ptr(), clens.data_ptr(),
                             unc.data_ptr(), B, K, M, F, max_seqs,
                             int(linked), out.data_ptr(), out_lens.data_ptr(),
-                            ok.data_ptr(), stream)
+                            ok.data_ptr(), rec.data_ptr(), srcs.data_ptr(),
+                            meta.data_ptr(), rounds, stream)
     kernels.check(err, "zk_lz4_decode")
     with _count:
         launches += 1
@@ -213,7 +224,138 @@ def _decode_plain(comp, comp_lens, uncompressed, F, max_seqs, linked):
     ref = ipos - C.take1(m_off_tab, m_region)
     bad_f = bad_f | (in_match & (ref < 0)).any(1)
     src0 = torch.where(in_match, ref.clamp(0, F - 1), ipos)
-    rounds = max(1, int(math.ceil(np.log2(max(2, F)))))
-    src_final = C.resolve_copy_chains(src0, rounds)
+    src_final = C.resolve_copy_chains(src0, _rounds(F))
     out = C.take1(val_layer, src_final).to(torch.uint8)
     return out, out_lens, ~bad_f
+
+
+def _rounds(F: int) -> int:
+    """Pointer-doubling rounds that resolve any copy chain in F bytes."""
+    return max(1, int(math.ceil(np.log2(max(2, F)))))
+
+
+# --------------------------------------------------------------------
+# the kernel's phases in numpy, for the tests
+
+
+def parse_records(comp: np.ndarray, comp_lens: np.ndarray,
+                  uncompressed: np.ndarray, max_seqs: int, linked: bool):
+    """Phase 1 (parse_kernel) on a flat batch of blocks: comp (L, M)
+    uint8, comp_lens (L,), uncompressed (L,) bool.  Returns rec (L,
+    max_seqs, 4) int32, one {literal source, ll, output position, offset}
+    per sequence, block-local (zero past each block's count; offset 0 on
+    a last, literal-only sequence), and nrec, blen (output bytes), bad,
+    each (L,) int32."""
+    L, M = comp.shape
+    rec = np.zeros((L, max_seqs, 4), np.int64)
+    nrec = np.zeros(L, np.int64)
+    blen = np.zeros(L, np.int64)
+    bad = np.zeros(L, np.int64)
+    for blk in range(L):
+        clen = int(comp_lens[blk])
+        if uncompressed[blk]:
+            rec[blk, 0] = (0, clen, 0, 0)
+            nrec[blk], blen[blk] = 1, clen
+            continue
+        if clen <= 0:
+            continue
+        row = comp[blk].tolist()
+
+        def at(i):
+            return row[min(max(i, 0), M - 1)]
+
+        def ff_run(i):
+            i = min(max(i, 0), M - 1)
+            n = 0
+            while i + n < M and row[i + n] == 0xFF:
+                n += 1
+            return n
+
+        ip = op = s = 0
+        while True:
+            if s == max_seqs:
+                bad[blk] = 1
+                break
+            token = at(ip)
+            ll, llx = token >> 4, 0
+            if ll == 15:
+                f = ff_run(ip + 1)
+                llx, ll = f + 1, 15 + 255 * f + at(ip + 1 + f)
+            src = ip + 1 + llx
+            lit_end = src + ll
+            last = lit_end >= clen
+            off = at(lit_end) | (at(lit_end + 1) << 8)
+            ml, mlx = (token & 15) + 4, 0
+            if token & 15 == 15:
+                f = ff_run(lit_end + 2)
+                mlx, ml = f + 1, 19 + 255 * f + at(lit_end + 2 + f)
+            over = lit_end > clen or (not last and (
+                lit_end + 2 + mlx > clen or off == 0))
+            if not linked:
+                over = over or (not last and off > op + ll)
+            if over:
+                bad[blk] = 1
+                break
+            rec[blk, s] = (src, ll, op, 0 if last else off)
+            s += 1
+            if last:
+                op += ll
+                break
+            op += ll + ml
+            ip = lit_end + 2 + mlx
+        nrec[blk], blen[blk] = s, op
+    i32 = lambda a: a.astype(np.int32)
+    return i32(rec), i32(nrec), i32(blen), i32(bad)
+
+
+def resolve_records(comp: np.ndarray, rec, nrec, blen, bad, F: int):
+    """Phases 2 and 3 (expand_kernel, round_kernel, finish_kernel):
+    comp (B, K, M) and the records of its B*K blocks -> out (B, F)
+    uint8, out_lens (B,) int32, ok (B,) bool.  Literal bytes land in the
+    output; each match byte takes its source index, folded back before
+    its match's start (a match reaching before the frame copies
+    nothing); pointer doubling then leads every index to a byte that is
+    no match byte, whose value it copies."""
+    B, K, M = comp.shape
+    out = np.zeros((B, F), np.uint8)
+    out_lens = np.zeros(B, np.int32)
+    ok = np.zeros(B, bool)
+    for b in range(B):
+        flat = comp[b].reshape(-1)
+        src = np.full(F, -1, np.int64)
+        base = 0
+        before = False
+        for k in range(K):
+            blk = b * K + k
+            n = int(nrec[blk])
+            for i in range(n):
+                x, ll, z, off = (int(v) for v in rec[blk, i])
+                nxt = int(rec[blk, i + 1, 2]) if i + 1 < n else int(blen[blk])
+                ld, ml = base + z, nxt - z - ll
+                mdst = ld + ll
+                j = np.arange(max(0, min(ll, F - ld)))
+                s = k * M + x + j
+                out[b, ld + j] = np.where(s < K * M,
+                                          flat[np.minimum(s, K * M - 1)], 0)
+                if ml <= 0 or mdst >= F:
+                    continue
+                j = np.arange(min(ml, F - mdst))
+                if mdst - off < 0:
+                    before = True
+                    continue
+                src[mdst + j] = mdst - off + (j % off)
+            base += int(blen[blk])
+        lim = min(base, F)
+        s = src[:lim]
+        for _ in range(_rounds(F)):
+            live = s >= 0
+            nxt = np.where(live, s[np.maximum(s, 0)], -1)
+            hop = live & (nxt >= 0)
+            if not hop.any():
+                break
+            s = np.where(hop, nxt, s)
+        live = s >= 0
+        out[b, :lim][live] = out[b, s[live]]
+        out_lens[b] = np.int64(base).astype(np.int32)
+        ok[b] = not (before or bad[b * K: (b + 1) * K].any())
+    return out, out_lens, ok

@@ -4,7 +4,11 @@ Counterpart of libzseek_tpu/ops/pallas_match.py zstd_parse_linked_smem
 (:853), which runs the Pallas kernel _parse_linked_kernel (:194, the
 pallas_call at :914).  The CUDA kernel is csrc/parse_linked.cu; the plain
 version below is the same walk in Python ints and runs only for tensors
-on the CPU.
+on the CPU.  The kernel walks each chain on one warp: a dual-arm miss
+run probes 32 positions at once, and extensions compare 32 words a step.
+run_positions, lane_hashes, miss_run, lane_extend and lane_back_extend
+at the end of this module mirror those warp phases; only the tests call
+them.
 
 The arms, as level_search_params (ops/zstd_encode.py) picks them:
 - levels <= 3: one 2^16-entry table, the quad miss loop with its
@@ -403,3 +407,140 @@ def _parse_row_plain(win, table, N, blen, base, min_abs, h16, prm):
             while st[0] < limit:
                 st = body1(st)
     return st[2], st[1] - N, writes, mask
+
+
+# --------------------------------------------------------------------
+# the kernel's warp phases in numpy, for the tests
+
+LANES = 32
+
+
+def run_positions(ip: int, miss: int, accel_log: int, limit: int):
+    """The positions the lanes of one dual-arm miss run take (the serial
+    walk's next 32 probes if every one of them missed: a prefix sum of
+    1 + (miss >> accel_log)), the step after each, and which lie below
+    the probe limit."""
+    d = 1 + ((miss + np.arange(LANES)) >> accel_log)
+    p = ip + np.cumsum(d) - d
+    return p, d, p < limit
+
+
+def lane_hashes(win: np.ndarray, p: np.ndarray, strict: bool, dual: bool,
+                clamped: bool = False):
+    """What a lane computes at window position p, from the window's words
+    as the kernel loads them (unclamped at probes, which stay 12 bytes
+    before the block end; clamped for a match's inserts): the 8 bytes w
+    and ext4, then ((bucket, tagb) of the one table or the dual short
+    half, (bucket, tagb) of the long quarter or None)."""
+    words = win.view("<u4")
+    WW = len(words)
+    p = np.asarray(p, np.int64)
+    q = p >> 2
+    sh = ((p & 3) * 8).astype(np.uint32)
+    top = WW - 1 if clamped else WW + 1
+    lo = words[q]
+    hi = words[np.minimum(q + 1, top)]
+    w3 = words[np.minimum(q + 2, top)]
+    nz = (np.uint32(32) - sh) & np.uint32(31)
+    w = np.where(sh == 0, lo, (lo >> sh) | (hi << nz))
+    ext4 = np.where(sh == 0, hi, (hi >> sh) | (w3 << nz))
+    ext = (ext4 & np.uint32(0xFF)) if dual or not strict else ext4
+    u = (w ^ (ext * _GOLD)) * _PRIME if strict else \
+        (w ^ (ext << np.uint32(13))) * _PRIME
+    main = _bucket_tag(u, HASH_LOG - 1 if dual else HASH_LOG, 0)
+    if not dual:
+        return w, ext4, main, None
+    return w, ext4, main, _bucket_tag((w ^ (ext4 * _GOLD)) * _PRIME,
+                                      HASH_LOG - 2, 1 << (HASH_LOG - 1))
+
+
+def miss_run(table: list, win: np.ndarray, st: list, *, base: int,
+             min_abs: int, limit: int, strict: bool, accel_log: int,
+             rep_probe: bool, cap: int = CAP):
+    """One dual-arm miss run (run_dual in csrc/parse_linked.cu) on a
+    table list and the walk state st = [ip, anchor, cnt, miss, rep].
+    Each lane probes its position: the repcode check, then both
+    sub-tables, reading a bucket from the table unless an earlier lane
+    seeds the same bucket, whose value it takes instead.  The first lane
+    that hits ends the run; the lanes up to it seed the table, the
+    highest lane of a bucket winning.  Returns (h, ip, miss, cand_abs,
+    short4): the hit lane (32 if none), the walk's next position and
+    miss count, and with a hit its candidate and whether it came from
+    the short half alone."""
+    ip, _, cnt, miss, rep = st
+    p, d, valid = run_positions(ip, miss, accel_log, limit)
+    wb = win.tobytes()
+    pv = np.where(valid, p, ip)
+    _, _, (hs, ts), (hl, tl) = lane_hashes(win, pv, strict, True)
+    hits, cands = [], []
+    for j in range(LANES):
+        if not valid[j]:
+            hits.append(False)
+            cands.append(None)
+            continue
+        pj = int(p[j])
+        pos = base + pj
+        wlo = max(min_abs, pos - MAX_OFFSET)
+        c = max(pj - rep, 0)
+        rep_hit = rep_probe and rep > 0 and cnt < cap and \
+            wb[c: c + 4] == wb[pj: pj + 4]
+        ent = []
+        for h, tb in ((hs, ts), (hl, tl)):
+            prev = [i for i in range(j) if valid[i] and h[i] == h[j]]
+            ent.append(base + int(p[prev[-1]]) | tb[prev[-1]] if prev
+                       else table[h[j]])
+        good_s = ts[j] + wlo <= ent[0] < ts[j] + pos
+        good_l = tl[j] + wlo <= ent[1] < tl[j] + pos
+        hits.append(rep_hit or ((good_l or good_s) and cnt < cap))
+        cands.append((pos - rep, False) if rep_hit else
+                     ((ent[1] if good_l else ent[0]) & 0xFFFFFF, not good_l))
+    h = hits.index(True) if True in hits else LANES
+    done = [j for j in range(min(h + 1, LANES)) if valid[j]]
+    for j in done:
+        for b, tb in ((hs, ts), (hl, tl)):
+            if not any(b[i] == b[j] for i in done if i > j):
+                table[b[j]] = base + int(p[j]) | tb[j]
+    if h == LANES:
+        n = int(valid.sum())
+        return h, int(p[n - 1] + d[n - 1]), miss + n, None, None
+    return (h, int(p[h]), miss + h) + cands[h]
+
+
+def lane_extend(win: np.ndarray, ip: int, cand: int, lim: int) -> int:
+    """extend's warp form: 4 plus the common prefix of ip+4.. and
+    cand+4.., capped at lim, found 32 words (128 bytes) a step: each lane
+    counts the bytes of its word that match below lim, and the first lane
+    short of 4 ends the extension."""
+    wb = win.tobytes()
+    l = 4
+    while True:
+        ks = []
+        for lane in range(LANES):
+            a, b = ip + l + 4 * lane, cand + l + 4 * lane
+            k = 0
+            if a < lim:
+                while k < 4 and wb[a + k] == wb[b + k]:
+                    k += 1
+                k = min(k, lim - a)
+            ks.append(k)
+        short = [i for i, k in enumerate(ks) if k < 4]
+        if not short:
+            l += 4 * LANES
+            continue
+        return l + 4 * short[0] + ks[short[0]]
+
+
+def lane_back_extend(win: np.ndarray, ip: int, cand: int, anchor: int,
+                     minw: int) -> int:
+    """The backward extension's warp form: lane t tests byte kb + t
+    before ip against the one before cand, 32 a step; the first lane that
+    fails gives the count."""
+    wb = win.tobytes()
+    kb = 0
+    while True:
+        for t in range(LANES):
+            j = kb + t
+            if not (ip - j > anchor and cand - j > minw and
+                    wb[ip - j - 1] == wb[max(cand - j - 1, 0)]):
+                return j
+        kb += LANES

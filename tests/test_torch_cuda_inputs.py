@@ -229,3 +229,42 @@ def arms_rows():
     lens = np.full(B, N, np.int32)
     min_abs = ((np.arange(B) + 1) * N).astype(np.int32)
     return x2, lens, min_abs
+
+
+def _ext(n):
+    """LZ4 length extension bytes for a length field value n >= 15."""
+    n -= 15
+    return bytes([255] * (n // 255) + [n % 255])
+
+
+def seq_block(seqs, tail: bytes = b"") -> bytes:
+    """A raw LZ4 block from (literals, offset, match length) sequences
+    and the last literals, written as liblz4 writes them."""
+    out = bytearray()
+    for lit, off, ml in seqs:
+        ll, m = len(lit), ml - 4
+        out.append(min(ll, 15) << 4 | min(m, 15))
+        if ll >= 15:
+            out += _ext(ll)
+        out += lit + off.to_bytes(2, "little")
+        if m >= 15:
+            out += _ext(m)
+    out.append(min(len(tail), 15) << 4)
+    if len(tail) >= 15:
+        out += _ext(len(tail))
+    return bytes(out + tail)
+
+
+def rows_of_blocks(frames, M=4096):
+    """[[(block bytes, uncompressed)]] per frame -> padded (comp (B, K,
+    M), clens, unc) with K the most blocks in a frame."""
+    K = max(len(f) for f in frames)
+    comp = np.zeros((len(frames), K, M), np.uint8)
+    clens = np.zeros((len(frames), K), np.int32)
+    unc = np.zeros((len(frames), K), bool)
+    for r, f in enumerate(frames):
+        for k, (blk, u) in enumerate(f):
+            comp[r, k, : len(blk)] = np.frombuffer(blk, np.uint8)
+            clens[r, k], unc[r, k] = len(blk), u
+    return comp, clens, unc
+

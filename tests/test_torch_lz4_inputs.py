@@ -143,3 +143,27 @@ def write_all(writer, data, chunk):
     for pos in range(0, len(data), chunk):
         writer.write(data[pos: pos + chunk])
     writer.close()
+
+
+def phases(comp, clens, unc, F, linked, max_seqs=None):
+    """The CUDA decoder's phases as numpy mirrors (ops/lz4_decode
+    parse_records then resolve_records): (out, out_lens, ok)."""
+    from libzseek_tpu_torch.ops.lz4_decode import (parse_records,
+                                                   resolve_records)
+    B, K, M = comp.shape
+    if max_seqs is None:
+        max_seqs = min(M // 3 + 2, F // 4 + 2)
+    rec = parse_records(comp.reshape(B * K, M), clens.reshape(-1),
+                        unc.reshape(-1), max_seqs, linked)
+    return resolve_records(comp, *rec, F)
+
+
+def lz4_raws(seed):
+    """Inputs whose blocks liblz4 compresses into thousands of sequences
+    (small-vocabulary text, three blocks with a short last one), every
+    mixed regime, noise it stores raw, and a tiny frame."""
+    rng = np.random.default_rng(seed)
+    voc = np.frombuffer(b"a modest shared vocabulary ", np.uint8)
+    text = rng.choice(voc, 2 * BLOCK + 5000).astype(np.uint8).tobytes()
+    return [text, mixed_corpus(rng, 4 * BLOCK).tobytes(),
+            rng.integers(0, 256, 70000, np.uint8).tobytes(), b"abcabcabcabc"]
