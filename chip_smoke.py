@@ -16,17 +16,21 @@ Phases, each of which must pass (any failure exits non-zero):
      main path's modes, K3 on the rows the main path gives it); K4 decode
      on small frames (the cases of tests/test_decode_smem.py, seed 91,
      written by the port's codec and by stock libzstd at levels 1, 3 and
-     19, and a long-window frame), and after phase 3 on the archive's
-     first 8 frames (64 blocks, equal to the input and to the plain
-     version); kernel times with CUDA events, plain times on the CPU at
+     19, and a long-window frame) and on damaged copies (rows with a bit
+     of a sequence stream flipped, frames with a bit flipped near a
+     compressed block's end: the same stat and bytes as plain, some rows
+     failing mid-block), and after phase 3 on the archive's first 8
+     frames (64 blocks, equal to the input and to the plain version);
+     kernel times with CUDA events, plain times on the CPU at
      the same 64-block shapes, each kernel's bound (bytes over 3.35 TB/s
      against 32-bit integer operations over 16.7 T/s);
   3. the write path: the port's Writer writes 64 MiB of mixed_corpus
      (seed 11) at level 3 with 1 MiB frames, batch_frames=16 and 1 MiB
      writes (one warm-up run, then the measured run); K1-K3 must have
-     launched during the measured run; stock libzstd decodes the archive,
-     the seek table lists 64 frames, and 16 random 4 KiB reads decode
-     through their covering frames;
+     launched during the measured run; stock libzstd decodes the archive
+     (its sha256 is printed, to compare commits), the seek table lists 64
+     frames, and 16 random 4 KiB reads decode through their covering
+     frames;
   4. the first 1 MiB frame written once more with device="cpu" (the plain
      versions) is byte-identical to the card's;
   5. the read path: the port's Reader(device="cuda") reads the archive
@@ -41,8 +45,9 @@ Phases, each of which must pass (any failure exits non-zero):
      shapes (K5 on 128 rows = 8 frames x 16 blocks of 64 KiB, the decoder
      on a 4-frame reader window); then the port's Writer(codec="lz4",
      level=0) writes the same 64 MiB with 1 MiB frames (warm-up, then the
-     measured run, during which K5 must launch); stock liblz4 decodes it,
-     the seek table lists 64 frames, the first frame equals the plain
+     measured run, during which K5 must launch); stock liblz4 decodes it
+     (its sha256 printed), the seek table lists 64 frames, the first
+     frame equals the plain
      versions', a level-9 write of 8 MiB decodes through liblz4; the
      Reader reads it as in phase 5 (the decoder must launch), and the
      codec's host route (native block decoder) and the card route decode
@@ -108,6 +113,7 @@ visible or the port is not beside it.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -356,7 +362,8 @@ def k4_against_plain(name, frames, raws):
     from libzseek_tpu_torch.ops import zstd_decode as ZD
     args, n, rows = ZD.k4_inputs(frames, [len(r) for r in raws],
                                  torch.device("cuda"))
-    out, stat = D.decode_blocks(*args, n)
+    ns = D.seq_total(rows["meta"])
+    out, stat = D.decode_blocks(*args, n, n_seqs=ns)
     torch.cuda.synchronize()
     cpu = [a.cpu() for a in args]
     plain_ms, (p_out, p_stat) = time_host(lambda: D.decode_blocks(*cpu, n))
@@ -366,6 +373,13 @@ def k4_against_plain(name, frames, raws):
     check(out.cpu().numpy().tobytes() == b"".join(raws),
           f"{name}: bytes differ from the input")
     return err, plain_ms, args, n, rows
+
+
+# the CUDA kernels behind each wrapper whose kernel this slice redesigned
+K4_KERNELS = ["huf_kernel", "rec_kernel", "frame_kernel", "check_kernel",
+              "final_kernel", "expand_kernel", "pd_round_kernel",
+              "pd_finish_kernel"]
+K5_KERNELS = ["lz4_emit_kernel"]
 
 
 def k4_small_frames():
@@ -396,11 +410,52 @@ def k4_small_frames():
     return frames, raws
 
 
+def k4_damaged(frames, raws) -> tuple[int, int]:
+    """K4 on damaged inputs against its plain version, stat and bytes
+    equal: the small frames' rows with one bit of a sequence stream
+    flipped (24 copies) and frames with one bit flipped near a compressed
+    block's end (24, those the host parse accepts).  Fails unless some
+    row fails mid-block.  Returns (max_abs_err, copies compared)."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    from libzseek_tpu_torch.testing.damage import damaged_frames, damaged_rows
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+
+    def both(args, n, ns):
+        got = D.decode_blocks(*[a.to(cuda) for a in args], n, n_seqs=ns)
+        ref = D.decode_blocks(*args, n)
+        return max_abs_err(got, ref), ref[1].numpy()
+
+    args, n, rows = ZD.k4_inputs(frames, [len(r) for r in raws], cpu)
+    ns = D.seq_total(rows["meta"])
+    err, mid, count = 0, 0, 0
+    for a in damaged_rows(args, 11, 24):
+        e, st = both(a, n, ns)
+        bad = np.nonzero(st[:, 1] == 0)[0]
+        mid += bool(len(bad)) and st[bad[0], 0] > 0
+        err, count = max(err, e), count + 1
+    for i, fr in damaged_frames(frames, 13, 24):
+        try:
+            a, m, r2 = ZD.k4_inputs([fr], [len(raws[i])], cpu)
+        except Exception:
+            continue    # the host parse rejects it: no kernel runs
+        e, _ = both(a, m, D.seq_total(r2["meta"]))
+        err, count = max(err, e), count + 1
+    check(err == 0, f"K4 on damaged rows differs from plain (max err {err})")
+    check(mid > 0, "no damaged row failed mid-block")
+    return err, count
+
+
 def k4_small():
-    """K4 on the small frames."""
+    """K4 on the small frames, then on damaged copies of them."""
     frames, raws = k4_small_frames()
     err, _, _, _, rows = k4_against_plain("K4 (small frames)", frames, raws)
-    return err, f"{len(frames)} small frames, {len(rows['meta'])} blocks"
+    e_dmg, n_dmg = k4_damaged(frames, raws)
+    return max(err, e_dmg), (f"{len(frames)} small frames, "
+                             f"{len(rows['meta'])} blocks; {n_dmg} damaged "
+                             f"copies")
 
 
 def k4_ops(rows, out_size: int) -> int:
@@ -423,9 +478,10 @@ def k4_full(report, archive, table, data, err_small, note_small):
     raws = [data[i * MIB: (i + 1) * MIB] for i in range(8)]
     err_big, plain_ms, args, n, rows = k4_against_plain("K4 (64 blocks)",
                                                         frames, raws)
-    args32, n32, _ = k4_inputs(frames[:4], [MIB] * 4, args[0].device)
-    ms32 = time_cuda(lambda: D.decode_blocks(*args32, n32))
-    ms = time_cuda(lambda: D.decode_blocks(*args, n))
+    args32, n32, rows32 = k4_inputs(frames[:4], [MIB] * 4, args[0].device)
+    s32, s64 = D.seq_total(rows32["meta"]), D.seq_total(rows["meta"])
+    ms32 = time_cuda(lambda: D.decode_blocks(*args32, n32, n_seqs=s32))
+    ms = time_cuda(lambda: D.decode_blocks(*args, n, n_seqs=s64))
     tables = sum(nbytes(a) for a in args[2:])   # dtabs, ftabs, meta, chain
     nb = rows["payload_bytes"] + tables + n + 16 * len(rows["meta"])
     print(f"K4 at 32 blocks: {ms32:.3f} ms", flush=True)
@@ -435,6 +491,7 @@ def k4_full(report, archive, table, data, err_small, note_small):
           f"{note_small}; 64 blocks (8 archive frames) equal to the input "
           f"and to plain; card {ms32:.3f} ms at 32 blocks")
     report[-1]["ms_32_blocks"] = ms32
+    report[-1]["cuda_kernels"] = K4_KERNELS
 
 
 def read_all(r) -> bytes:
@@ -771,6 +828,7 @@ def phase_lz4(data, card, report) -> dict:
           time_cuda(lambda: k5(*big)), plain_ms, nb, big[0][1:].numel(),
           "linked 4 KiB rows, a seeded batch, levels -1/0/3/9 on 4 rows; "
           "128 rows in 8 chains of 16 (level 0)")
+    report[-1]["cuda_kernels"] = K5_KERNELS
 
     # the decoder: hand-written frames, small frames and damaged copies
     derrs = []
@@ -806,6 +864,8 @@ def phase_lz4(data, card, report) -> dict:
           f"{k5_launches}", flush=True)
     check(golden.lz4f_decompress(archive) == data,
           "stock liblz4 does not reproduce the input")
+    print(f"LZ4 archive sha256 {hashlib.sha256(archive).hexdigest()}",
+          flush=True)
     table = parse_seek_table_bytes(archive)
     check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
     cpu_archive, cpu_dt = write_archive(data[:MIB], "cpu", "lz4", 0)
@@ -1586,6 +1646,8 @@ def main() -> None:
         r["launches"] = counts[r["name"]]
     check(golden.zstd_decompress(archive) == data,
           "stock libzstd does not reproduce the input")
+    print(f"level-3 archive sha256 {hashlib.sha256(archive).hexdigest()}",
+          flush=True)
     table = parse_seek_table_bytes(archive)
     check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
     random_reads(archive, table, data)

@@ -27,11 +27,12 @@
 //     to the output; each match byte gets the frame index of its source,
 //     inside the match folded back before the match start
 //     (dst - off + j % off), so self-overlapping copies cost no rounds.
-//  3. round_kernel, ceil(log2 F) launches: in-place pointer doubling over
-//     the source indices, src[i] <- src[src[i]], until every index names
-//     a byte that is no match byte; a launch whose predecessor changed
-//     nothing returns at once.  finish_kernel then copies each match byte
-//     from its root and writes ok.
+//  3. ceil(log2 F) rounds of in-place pointer doubling over the source
+//     indices, src[i] <- src[src[i]], until every index names a byte that
+//     is no match byte; a round whose predecessor changed nothing returns
+//     at once; then each match byte is copied from its root
+//     (pd_round_kernel, pd_finish_kernel in pointer_doubling.cuh, shared
+//     with K4), and lens_kernel writes out_lens and ok.
 //
 // Flags follow the reference exactly: a block is bad on a truncated or
 // overrunning sequence, offset 0, an offset past the block start
@@ -52,13 +53,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pointer_doubling.cuh"
+
 namespace {
 
 constexpr int STAGE_MAX = 96 * 1024;   // bytes of a row staged in smem
 constexpr int EXPAND_SPLIT = 8;        // CUDA blocks per LZ4 block
 constexpr int EXPAND_THREADS = 256;
-constexpr int ROUND_THREADS = 256;
-constexpr int ROUND_ITEMS = 4;
 
 // meta layout (int32): nrec[L], blen[L], bad[L], frame_bad[B], lim[B],
 // changed[rounds]
@@ -237,57 +238,20 @@ __global__ void expand_kernel(const uint8_t* __restrict__ comp,
   if (__any_sync(0xFFFFFFFFu, before) && lane == 0) meta.frame_bad[b] = 1;
 }
 
-// grid (ceil(F / (threads * items)), B)
-__global__ void round_kernel(int* __restrict__ srcs, int F, int L, int B,
-                             int r, int* meta_p) {
+// one thread a frame, after the copies: out_lens and ok
+__global__ void lens_kernel(int L, int B, int K, int* __restrict__ out_lens,
+                            uint8_t* __restrict__ ok, int* meta_p) {
   const Meta meta = meta_of(meta_p, L, B);
-  if (r > 0 && meta.changed[r - 1] == 0) return;
-  const int b = blockIdx.y;
-  const int lim = meta.lim[b];
-  int* fs = srcs + (size_t)b * F;
-  bool ch = false;
-  const int i0 = blockIdx.x * ROUND_THREADS * ROUND_ITEMS + threadIdx.x;
-  for (int t = 0; t < ROUND_ITEMS; ++t) {
-    const int i = i0 + t * ROUND_THREADS;
-    if (i >= lim) break;
-    const int s = fs[i];
-    if (s < 0) continue;
-    const int u = fs[s];
-    if (u >= 0) {
-      fs[i] = u;
-      ch = true;
-    }
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  long long total = 0;
+  bool bad = meta.frame_bad[b] != 0;
+  for (int k = 0; k < K; ++k) {
+    total += meta.blen[b * K + k];
+    bad = bad || meta.bad[b * K + k] != 0;
   }
-  if (__any_sync(0xFFFFFFFFu, ch) && (threadIdx.x & 31) == 0)
-    meta.changed[r] = 1;
-}
-
-__global__ void finish_kernel(const int* __restrict__ srcs, int F, int L,
-                              int B, int K, uint8_t* __restrict__ out,
-                              int* __restrict__ out_lens,
-                              uint8_t* __restrict__ ok, int* meta_p) {
-  const Meta meta = meta_of(meta_p, L, B);
-  const int b = blockIdx.y;
-  const int lim = meta.lim[b];
-  const int* fs = srcs + (size_t)b * F;
-  uint8_t* fo = out + (size_t)b * F;
-  const int i0 = blockIdx.x * ROUND_THREADS * ROUND_ITEMS + threadIdx.x;
-  for (int t = 0; t < ROUND_ITEMS; ++t) {
-    const int i = i0 + t * ROUND_THREADS;
-    if (i >= lim) break;
-    const int s = fs[i];
-    if (s >= 0) fo[i] = fo[s];
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    long long total = 0;
-    bool bad = meta.frame_bad[b] != 0;
-    for (int k = 0; k < K; ++k) {
-      total += meta.blen[b * K + k];
-      bad = bad || meta.bad[b * K + k] != 0;
-    }
-    out_lens[b] = (int)total;
-    ok[b] = bad ? 0 : 1;
-  }
+  out_lens[b] = (int)total;
+  ok[b] = bad ? 0 : 1;
 }
 
 }  // namespace
@@ -317,16 +281,11 @@ extern "C" int zk_lz4_decode(const void* comp, const void* clens,
       (uint8_t*)out, (int*)srcs, (int*)meta);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((F + ROUND_THREADS * ROUND_ITEMS - 1) /
-                      (ROUND_THREADS * ROUND_ITEMS), B);
-  for (int r = 0; r < rounds; ++r) {
-    round_kernel<<<grid, ROUND_THREADS, 0, st>>>((int*)srcs, F, L, B, r,
-                                                 (int*)meta);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  finish_kernel<<<grid, ROUND_THREADS, 0, st>>>(
-      (const int*)srcs, F, L, B, K, (uint8_t*)out, (int*)out_lens,
-      (uint8_t*)ok, (int*)meta);
+  int* m = (int*)meta;
+  e = pd::resolve((int*)srcs, F, m + 3 * L + B, 0, F, B, m + 3 * L + 2 * B,
+                  rounds, (uint8_t*)out, st);
+  if (e != cudaSuccess) return (int)e;
+  lens_kernel<<<(B + 127) / 128, 128, 0, st>>>(L, B, K, (int*)out_lens,
+                                               (uint8_t*)ok, m);
   return (int)cudaGetLastError();
 }

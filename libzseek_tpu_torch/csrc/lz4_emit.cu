@@ -28,10 +28,18 @@
 // never reaches them).
 //
 // What bounds it: a dependent scalar walk (hash, table load and store,
-// byte compares) on one thread per chain, latency-bound on the table in
-// L2; the quad loop issues its four table loads together and forwards
-// its own stores when two probes share a bucket.  The other threads only
-// fill the table.
+// byte compares) on one thread per chain, ~1,600 cycles a sequence of
+// the text chain on an H100, whose loads mostly hit L1 (the table and
+// the window share its 256 KB); the quad loop issues its four table
+// loads together and forwards its own stores when two probes share a
+// bucket.  The other threads only fill the table.  Three redesigns that
+// keep the walk's decisions ran slower on the card and were not kept
+// (PERF.md section 6): the table in shared memory with the quad loop
+// probed by a warp, a warp whose lanes hold the next 32 positions'
+// entries and confirmations, and a positions-only table with the window
+// in a shared-memory ring; none shortens the chain of dependent steps,
+// and a 192 KiB table in shared memory leaves the window a quarter of
+// L1.
 
 #include <cstdint>
 #include <cuda_runtime.h>

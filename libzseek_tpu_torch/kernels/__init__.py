@@ -43,7 +43,7 @@ SIGNATURES = {
     "zk_parse_linked": [_P] * 5 + [_I] * 11 + [_P] * 7,
     "zk_entropy_emit": [_P] * 8 + [_I] * 7 + [_P] * 9,
     "zk_place_literals": [_P] * 3 + [_I] * 3 + [_P] * 2,
-    "zk_decode": [_P] * 8 + [_I] * 4 + [_P] * 4,
+    "zk_decode": [_P] * 8 + [_I] * 7 + [_P] * 12,
     "zk_transcode": [_P] * 9 + [_I] * 4 + [_P] * 4,
     "zk_lz4_emit": [_P] * 3 + [_I] * 6 + [_P] * 4,
     "zk_lz4_decode": [_P] * 3 + [_I] * 6 + [_P] * 6 + [_I, _P],

@@ -32,6 +32,14 @@ Returns (out (frame_off[-1],) uint8, stat (B, 4) int32 [advance, ok, 0,
 offset, literal count or size leaves its frame or section, or whose
 size differs from meta[1]; the rest of its chain is skipped (stat all 0).
 
+The CUDA kernel decodes in phases (csrc/decode.cu): per-row records of
+the sequence streams with symbolically resolved repcodes, a per-frame
+composition of the rows' repcode transforms and placement, checks, and
+execution by scatter and pointer doubling.  `row_records`, `compose`,
+`exec_plan` and `decode_mirror` below mirror those phases in numpy and
+Python ints; they are used only by the tests, which hold them to the
+plain walk.
+
 Transcode mode (transcode_blocks; DMODE_TRANSCODE, DMODE_LIT_HOST) reads
 meta[2], each row's byte offset in its frame, and executes nothing: it
 emits the literal bytes of rows whose literals are on the device and one
@@ -66,6 +74,9 @@ CTAB = np.concatenate([zf.LL_BITS, zf.LL_BASELINE, zf.ML_BITS,
                        zf.ML_BASELINE]).astype(np.int32)
 _N_LL = len(zf.LL_BITS)
 _N_ML = len(zf.ML_BITS)
+RI_W = 12                # csrc/decode.cu: a row's summary, int32
+SYM = 1 << 40            # csrc/decode.cu: symbolic repcode slots
+SYM_SH = 20
 
 launches = 0             # execute mode (decode_blocks)
 transcode_launches = 0   # transcode mode (transcode_blocks)
@@ -93,11 +104,19 @@ def _check_rows(lp_words, sq_words, dtabs, ftabs, meta, *more) -> None:
                                  f"{shape} tensor on {dev}")
 
 
+def seq_total(meta) -> int:
+    """The record count K4's scratch needs: the sum of meta[:, 13] over
+    the rows (numpy), which the caller holds on the host."""
+    return int(np.maximum(np.asarray(meta)[:, 13], 0).sum())
+
+
 def decode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
-                  out_size: int):
+                  out_size: int, n_seqs: int | None = None):
     """Decode B zstd blocks in F frame chains; see the module docstring.
-    `out_size` is frame_off[-1] (the caller knows it without a device
-    sync)."""
+    `out_size` is frame_off[-1] and `n_seqs` is seq_total(meta): the
+    caller knows both without a device sync.  The CUDA kernel sizes its
+    record scratch from n_seqs (a row whose records would pass it
+    fails); the plain version ignores it."""
     B, LPW = lp_words.shape
     SQW = sq_words.shape[1]
     F = chain.shape[0] - 1
@@ -110,19 +129,49 @@ def decode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
                              frame_off, out_size)
     if dev.type != "cuda":
         raise ParameterError(f"K4 runs on cuda or cpu tensors, not {dev}")
+    if n_seqs is None:
+        raise ParameterError("K4: n_seqs (seq_total of the host rows) sizes "
+                             "the card's record scratch")
+    return _decode_cuda(lp_words, sq_words, dtabs, ftabs, meta, chain,
+                        frame_off, out_size, n_seqs)
+
+
+def _decode_cuda(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
+                 out_size, n_seqs):
+    """The phased kernels of csrc/decode.cu on the rows' device."""
     global launches
     from libzseek_tpu_torch import kernels
+    B, LPW = lp_words.shape
+    SQW = sq_words.shape[1]
+    F = chain.shape[0] - 1
+    dev = lp_words.device
+    if out_size >= 1 << 31 or n_seqs >= 1 << 31:
+        raise ParameterError("K4: output and records must stay below 2^31")
     lib = kernels.library()
     ctab = torch.from_numpy(CTAB).to(dev)
+    rounds = max(1, int(out_size).bit_length())
+    n = max(n_seqs, 1)
     out = torch.zeros(out_size, dtype=torch.uint8, device=dev)
     stat = torch.empty((B, 4), dtype=torch.int32, device=dev)
     lits = torch.empty((B, LIT_MAX), dtype=torch.uint8, device=dev)
+    rec = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    sym = torch.empty(n, dtype=torch.int64, device=dev)
+    res_off = torch.empty(n, dtype=torch.int32, device=dev)
+    rinfo = torch.empty((B, RI_W), dtype=torch.int32, device=dev)
+    xform = torch.empty((B, 3), dtype=torch.int64, device=dev)
+    instate = torch.empty((B, 3), dtype=torch.int64, device=dev)
+    srcs = torch.empty(max(out_size, 1), dtype=torch.int32, device=dev)
+    changed = torch.empty(rounds, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zk_decode(lp_words.data_ptr(), sq_words.data_ptr(),
                         dtabs.data_ptr(), ftabs.data_ptr(), meta.data_ptr(),
                         chain.data_ptr(), frame_off.data_ptr(),
-                        ctab.data_ptr(), B, F, LPW, SQW, lits.data_ptr(),
-                        out.data_ptr(), stat.data_ptr(), stream)
+                        ctab.data_ptr(), B, F, LPW, SQW, n_seqs, out_size,
+                        rounds, lits.data_ptr(), out.data_ptr(),
+                        stat.data_ptr(), rec.data_ptr(), sym.data_ptr(),
+                        res_off.data_ptr(), rinfo.data_ptr(),
+                        xform.data_ptr(), instate.data_ptr(),
+                        srcs.data_ptr(), changed.data_ptr(), stream)
     kernels.check(err, "zk_decode")
     with _count:
         launches += 1
@@ -463,3 +512,178 @@ def _tokens(row: _Row, ft: list, m, rep: list, toks, t0: int, op: int):
         op += ll + ml
         lpos += ll
     return op, lpos, ok and walk.exact
+
+
+# ---------------------------------------------------------------------------
+# mirrors of the CUDA kernel's phases (tests only)
+# ---------------------------------------------------------------------------
+
+SYM_IN = [SYM, SYM + (1 << SYM_SH), SYM + (2 << SYM_SH)]
+
+
+def resolve_sym(v: int, state) -> int:
+    """A repcode slot or offset against a row's input repcodes: concrete
+    values are themselves, SYM + (j << SYM_SH) - d is state[j] - d."""
+    if v < SYM // 2:
+        return v
+    u = v - SYM
+    j = (u + (1 << SYM_SH) - 1) >> SYM_SH
+    return state[j] - ((j << SYM_SH) - u)
+
+
+def row_records(sq_row, ft, m):
+    """Phase 2 for one row: its sequence stream walked once with the
+    repcodes symbolic (from SYM_IN).  Returns (records [(ll, ml, lpos,
+    op, offset)], the walk {n_walk, exact, fail, op, lpos}, the row's
+    repcode transform); fail is the first sequence past the literals or
+    where an offset code > 31 stops the walk, else None."""
+    regen, n_seq = int(m[3]), int(m[13])
+    rep = list(SYM_IN)
+    walk = _SeqWalk(_Row(sq_row), ft, m, rep)
+    recs, op, lpos, fail = [], 0, 0, None
+    for t, (ll, ml, off) in enumerate(walk):
+        if fail is None and lpos + ll > regen:
+            fail = t
+        recs.append((ll, ml, lpos, op, off))
+        op += ll + ml
+        lpos += ll
+    n = len(recs)
+    if n < n_seq:
+        fail = n if fail is None else min(fail, n)
+    return recs, dict(n_walk=n, exact=walk.exact and n == n_seq, fail=fail,
+                      op=op, lpos=lpos), rep
+
+
+def compose(meta, chain, xforms, walks):
+    """Phase 3a: each frame's rows in order, repcodes reset at
+    DMODE_FRAME_START: (input repcodes per row, the row's place if every
+    row before it succeeds)."""
+    ins, bases = {}, {}
+    for f in range(len(chain) - 1):
+        st, base = [1, 4, 8], 0
+        for r in range(int(chain[f]), int(chain[f + 1])):
+            if int(meta[r][0]) & DMODE_FRAME_START:
+                st = [1, 4, 8]
+            ins[r], bases[r] = st, base
+            st = [resolve_sym(v, ins[r]) for v in xforms[r]]
+            w = walks[r]
+            base += w["op"] + max(int(meta[r][3]) - w["lpos"], 0)
+    return ins, bases
+
+
+def exec_plan(meta, chain, frame_off, lit_ok, recs, walks, ins, bases,
+              lpw):
+    """Phases 3b-3c: every walked sequence's offset resolved and checked,
+    then the serial walk's verdicts along each chain.  Returns (stat
+    (B, 4): rows outside every chain keep [0, lit_ok, 0, 0]; {row:
+    (sequences executed, trailing literals, offsets)} for every row the
+    walk reaches)."""
+    B = len(meta)
+    stat = np.zeros((B, 4), np.int32)
+    stat[:, 1] = lit_ok
+    plan = {}
+    for f in range(len(chain) - 1):
+        fsz = int(frame_off[f + 1]) - int(frame_off[f])
+        dead = False
+        for r in range(int(chain[f]), int(chain[f + 1])):
+            if dead:
+                stat[r] = 0
+                continue
+            m = meta[r]
+            mode, regen, n_seq = int(m[0]), int(m[3]), int(m[13])
+            w, base = walks[r], bases[r]
+            offs = [resolve_sym(q[4], ins[r]) for q in recs[r]]
+            fail = w["fail"]
+            for t, (ll, ml, lpos, op, _) in enumerate(recs[r]):
+                o = offs[t]
+                if o < 1 or o > base + op + ll or base + op + ll + ml > fsz:
+                    fail = t if fail is None else min(fail, t)
+                    break
+            ok = bool(lit_ok[r])
+            if mode & DMODE_DIRECT and regen > 4 * lpw:
+                ok = False
+            has = bool(mode & DMODE_SEQ) and n_seq > 0
+            adv, nx, tr = 0, 0, 0
+            if ok and has:
+                if fail is not None and fail < n_seq:
+                    ok, nx = False, fail
+                    adv = recs[r][fail][3] if fail < w["n_walk"] else w["op"]
+                else:
+                    nx, adv = n_seq, w["op"]
+                    ok = w["exact"]
+            if ok:
+                trail = max(regen - (w["lpos"] if has else 0), 0)
+                if base + adv + trail > fsz:
+                    ok = False
+                else:
+                    tr, adv = trail, adv + trail
+            if ok and int(m[1]) >= 0 and adv != int(m[1]):
+                ok = False
+            stat[r] = (adv, int(ok), 0, 0)
+            plan[r] = (nx, tr, offs)
+            dead = not ok
+    return stat, plan
+
+
+def decode_mirror(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
+                  out_size):
+    """The CUDA kernel's phases on CPU tensors: literals, records,
+    composition, checks and verdicts, then the literal scatter, each match
+    byte's source index (folded back before the match) and pointer
+    doubling.  Returns (out, stat) as decode_blocks does."""
+    lp, sq, mt = lp_words.numpy(), sq_words.numpy(), meta.numpy()
+    ch, fo = chain.numpy(), frame_off.numpy()
+    B = lp.shape[0]
+    lits, lit_ok = {}, np.ones(B, bool)
+    for r in range(B):
+        if mt[r, 0] & (DMODE_HUF4 | DMODE_HUF1):
+            lits[r], lit_ok[r] = _huf_literals(_Row(lp[r]), dtabs[r].tolist(),
+                                               mt[r])
+    recs, walks, xforms = {}, {}, {}
+    for r in range(B):
+        if mt[r, 0] & DMODE_SEQ and mt[r, 13] > 0:
+            recs[r], walks[r], xforms[r] = row_records(
+                sq[r], ftabs[r].tolist(), mt[r])
+        else:
+            recs[r], walks[r], xforms[r] = [], dict(
+                n_walk=0, exact=True, fail=None, op=0, lpos=0), SYM_IN
+    ins, bases = compose(mt, ch, xforms, walks)
+    stat, plan = exec_plan(mt, ch, fo, lit_ok, recs, walks, ins, bases,
+                           lp.shape[1])
+    out = np.zeros(out_size, np.uint8)
+    srcs = np.full(out_size, -1, np.int64)
+    for f in range(len(ch) - 1):
+        for r in range(int(ch[f]), int(ch[f + 1])):
+            if r not in plan:
+                continue
+            nx, tr, offs = plan[r]
+            mode = int(mt[r, 0])
+            lit = (np.frombuffer(lp[r].astype("<i4").tobytes(), np.uint8)
+                   if mode & DMODE_DIRECT else
+                   np.frombuffer(bytes(lits.get(r, bytes(LIT_MAX))),
+                                 np.uint8))
+            d0 = int(fo[f]) + bases[r]
+            for t in range(nx):
+                ll, ml, lpos, op, _ = recs[r][t]
+                d = d0 + op
+                out[d: d + ll] = lit[lpos: lpos + ll]
+                j = np.arange(ml)
+                o = offs[t]
+                srcs[d + ll: d + ll + ml] = d + ll - o + (j % o if o < ml
+                                                          else j)
+            if tr:
+                w = walks[r]
+                out[d0 + w["op"]: d0 + w["op"] + tr] = \
+                    lit[w["lpos"]: w["lpos"] + tr]
+    while True:                 # pointer doubling to a fixpoint
+        s = srcs[srcs >= 0]
+        nxt = srcs.copy()
+        idx = np.nonzero(srcs >= 0)[0]
+        up = srcs[s] >= 0
+        nxt[idx[up]] = srcs[s[up]]
+        if np.array_equal(nxt, srcs):
+            break
+        srcs = nxt
+    cp = srcs >= 0
+    out[cp] = out[srcs[cp]]
+    return torch.from_numpy(out), torch.from_numpy(stat)

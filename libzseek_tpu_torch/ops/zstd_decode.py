@@ -485,7 +485,8 @@ def decode_frames(datas, d_sizes=None, to_device: bool = False,
         d_sizes = [None] * len(datas)
     args, out_size, rows = k4_inputs(datas, d_sizes, torch.device(device))
     with _span("zseek.k4"):
-        out, stat = D.decode_blocks(*args, out_size)
+        out, stat = D.decode_blocks(*args, out_size,
+                                    n_seqs=D.seq_total(rows["meta"]))
     with _span("zseek.fetch"):
         stat = stat.cpu().numpy()
     chain, frame_off = rows["chain"], rows["frame_off"]

@@ -1,0 +1,68 @@
+"""Damaged zstd frames for the decoders' failure paths (the port's tests
+and chip_smoke.py).
+
+The port's own: each copy has one bit flipped near the end of one
+compressed block, where the sequence section's backward bitstream
+starts, so its walk reads other states, lengths and offsets and fails
+at some sequence of the block (an offset past the bytes produced,
+literals past the section, output past the frame, or bits left over),
+or, where the host parse rejects the copy, never reaches a kernel."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from libzseek_tpu_torch.format import zstd_frame as zf
+
+
+def compressed_blocks(frame: bytes) -> list[tuple[int, int]]:
+    """(body offset, body size) of each compressed block of a frame."""
+    pos = zf.parse_frame_header(frame, 0).header_size
+    out = []
+    while True:
+        btype, size, last = zf.parse_block_header(frame, pos)
+        if btype == zf.BLOCK_COMPRESSED:
+            out.append((pos + 3, size))
+        pos += 3 + (1 if btype == zf.BLOCK_RLE else size)
+        if last:
+            return out
+
+
+def damaged_frames(frames, seed: int, n: int) -> list[tuple[int, bytes]]:
+    """n damaged copies (index of the original, bytes) of frames with a
+    compressed block of at least 16 bytes, cycling through them: one bit
+    flipped in the last quarter of a random such block."""
+    rng = np.random.default_rng(seed)
+    usable = [(i, [b for b in compressed_blocks(f) if b[1] >= 16])
+              for i, f in enumerate(frames)]
+    usable = [(i, bl) for i, bl in usable if bl]
+    out = []
+    for j in range(n):
+        i, blocks = usable[j % len(usable)]
+        body, size = blocks[int(rng.integers(len(blocks)))]
+        fr = bytearray(frames[i])
+        p = body + size - 1 - int(rng.integers(max(size // 4, 1)))
+        fr[p] ^= 1 << int(rng.integers(8))
+        out.append((i, bytes(fr)))
+    return out
+
+
+def damaged_rows(args, seed: int, n: int):
+    """n copies of K4's packed rows (ops/zstd_decode.k4_inputs, CPU
+    tensors) with one bit of one row's sequence stream flipped, below the
+    row's stream end (meta[12]): the walk fails at some sequence of the
+    row, or decodes other values."""
+    rng = np.random.default_rng(seed)
+    sq, meta = args[1], args[4]
+    bits = np.maximum(meta[:, 12].numpy().astype(np.int64), 0)
+    out = []
+    for _ in range(n):   # a row by its stream's length, then a bit of it
+        r = int(np.searchsorted(np.cumsum(bits),
+                                int(rng.integers(int(bits.sum()))),
+                                side="right"))
+        bit = int(rng.integers(int(bits[r])))
+        s = sq.clone()
+        s.view(-1)[r * s.shape[1] + bit // 32] ^= np.int32(
+            np.uint32(1 << (bit % 32)).view(np.int32))
+        out.append((args[0], s, *args[2:]))
+    return out

@@ -29,8 +29,8 @@ def cuda():
 def _both(frames, raws, cuda):
     """K4 on the card and its plain version on the CPU, same rows."""
     sizes = [len(r) for r in raws]
-    args, n, _ = ZD.k4_inputs(frames, sizes, cuda)
-    out, stat = D.decode_blocks(*args, n)
+    args, n, rows = ZD.k4_inputs(frames, sizes, cuda)
+    out, stat = D.decode_blocks(*args, n, n_seqs=D.seq_total(rows["meta"]))
     p_out, p_stat = D.decode_blocks(*[a.cpu() for a in args], n)
     return (out.cpu().numpy(), stat.cpu().numpy(), p_out.numpy(),
             p_stat.numpy())

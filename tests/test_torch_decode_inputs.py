@@ -41,18 +41,19 @@ def capture_reference(monkeypatch, frames, raws):
     return res, calls
 
 
-def port_on_reference_rows(args):
-    """The port's plain K4 fed the reference's packed rows unchanged, with
-    the chain layout read off them: frames start at DMODE_FRAME_START rows
-    and own the bytes meta[1] (the reference's block sizes) adds up to.
-    Returns (out, stat, each row's byte offset in out)."""
+def port_on_reference_rows(args, decode=D.decode_blocks):
+    """The port's plain K4 (or `decode`, the same contract: its phases'
+    mirror) fed the reference's packed rows unchanged, with the chain
+    layout read off them: frames start at DMODE_FRAME_START rows and own
+    the bytes meta[1] (the reference's block sizes) adds up to.  Returns
+    (out, stat, each row's byte offset in out)."""
     lp, sq, dtabs, ftabs, meta = args
     starts = np.nonzero(meta[:, 0] & D.DMODE_FRAME_START)[0]
     chain = np.append(starts, len(meta)).astype(np.int32)
     sizes = [int(meta[a:b, 1].sum()) for a, b in zip(chain, chain[1:])]
     frame_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
     t = torch.from_numpy
-    out, stat = D.decode_blocks(
+    out, stat = decode(
         t(lp.astype(np.int32)), t(sq.astype(np.int32)),
         t(dtabs.astype(np.int32)), t(ftabs.astype(np.int32)),
         t(meta.astype(np.int32)), t(chain), t(frame_off), int(frame_off[-1]))

@@ -1,34 +1,56 @@
 #!/usr/bin/env python3
-"""Timings and clock-counter attributions of the port's K1 (linked parse)
-and LZ4 decoder on an H100, for PERF.md section 6.
+"""Timings and clock-counter attributions of the port's K1 (linked parse),
+K4 (fused decode, execute arm), K5 (LZ4 block encode) and LZ4 decoder on
+an H100, for PERF.md section 6.
 
-    python3 tools/torch_kernel_profile.py times DIR LEVELS [--check]
+    python3 tools/torch_kernel_profile.py times DIR [LEVELS] [--check]
+    python3 tools/torch_kernel_profile.py pair PARENT_DIR DIR [LEVELS]
     python3 tools/torch_kernel_profile.py counters DIR
+    python3 tools/torch_kernel_profile.py kernels DIR
+    python3 tools/torch_kernel_profile.py archives DIR
     python3 tools/torch_kernel_profile.py micro
 
 DIR is a directory holding libzseek_tpu_torch/ and chip_smoke.py: the
 repository root, or a `git archive` of another commit unpacked under the
 gitignored build/, so two versions can be timed in one run.
 
-times: K1 at each level of LEVELS (comma-separated; 3 takes chip_smoke's
-64 rows of 128 KiB, the others its 64 rows of 64 KiB in 4 chains) and the
-LZ4 decoder on a 4-frame window of the codec's own frames (one per
-quarter of mixed_corpus), CUDA events, mean of 5; --check compares each
-output with the plain version first.
+times: K1 at each level of LEVELS (comma-separated, optional; 3 takes
+chip_smoke's 64 rows of 128 KiB, the others its 64 rows of 64 KiB in 4
+chains), K5 at chip_smoke's 128-row batch (8 frames of 16 blocks of
+64 KiB, two per quarter of mixed_corpus), K4's execute arm at 64 blocks
+(the codec's first 8 level-3 frames of the corpus) and at the first 8
+level-9 frames (128 blocks of 64 KiB), and the LZ4 decoder on a 4-frame
+window of the codec's own frames (one per quarter), CUDA events, mean
+of 5; --check compares each output with the plain version first.  Each
+output's sha256 is printed.
+
+pair: `times` in fresh processes from PARENT_DIR, DIR, DIR, PARENT_DIR
+(one card, in turns), then checks that both gave the same outputs.
 
 counters: copies DIR's kernels to build/counters/, inserts clock64()
 counters into K1's level >= 4 walk (the one-thread walk of PR 6 or the
-warp walk that replaced it, whichever DIR holds) and into the one-warp
+warp walk that replaced it, whichever DIR holds), into the one-warp
 LZ4 decoder of PR 3 (the phased decoder that replaced it is timed per
-kernel by torch.profiler instead), builds that copy, and prints per chain
-(per frame) the cycles of each part of the walk and its counts.
-For the one-thread K1 it also times the walk with the dual table in
-device memory instead of shared memory.
+kernel by torch.profiler instead), into K5's one-thread chain walk of PR
+3 and into K4's one-warp frame walk (seq_kernel) of PR 2, builds that
+copy, and prints per chain (per frame) the cycles of each part of the
+walk and its counts.  For the one-thread K1 it also times the walk with
+the dual table in device memory instead of shared memory.  Kernels that
+DIR holds in another design are skipped.
+
+kernels: K4's execute arm (level 3, 64 blocks; level 9, 128 blocks) and
+K5 (128 rows) under torch.profiler, five calls each: the mean
+milliseconds and launches a call of each CUDA kernel.
+
+archives: the sha256 of the 64 MiB of mixed_corpus (seed 11) that DIR's
+Writer writes as chip_smoke.py does (zstd at levels 3 and 9, LZ4 at
+level 0), to show two commits' archives equal.
 
 micro: latency in cycles of warp intrinsics and loads on the card.
 """
 
 import ctypes
+import inspect
 import json
 import os
 import shutil
@@ -40,9 +62,7 @@ MIB = 1 << 20
 
 # counters: (name, [(old text, new text), ...]) for each kernel version;
 # the first set whose texts all occur is applied
-PROF_HEAD = ("namespace {\n\nconstexpr uint32_t PRIME",
-             "__device__ unsigned long long g_prof[64][16];\n"
-             "namespace {\n\nconstexpr uint32_t PRIME")
+PROF_HEAD = "__device__ unsigned long long g_prof[64][16];\nnamespace {"
 # the counters' reader, one per patched source (NAME: k1 or lz4)
 PROF_READ = '''
 extern "C" int zk_prof_NAME(void* dst, int reset) {
@@ -202,6 +222,108 @@ LZ4_WARP_PER_FRAME = ("frame", ["walk", "header", "lits", "match", "seqs",
      "    out_lens[b] = (int)base;"),
 ])
 
+# K5, the one-thread chain walk of PR 3 (chain c counted at c = r0 >> 4,
+# the 16-row frames of the 128-row batch)
+K5_THREAD = ("thread", ["walk", "quad_loop", "quads", "single_probe",
+                        "singles", "confirm", "extend", "lazy", "emit",
+                        "insert", "matches", "confirm_fail", "lit_bytes",
+                        "seed", "match_bytes", "rows"], [
+    ("  int* table;\n  uint8_t* out;\n};",
+     "  int* table;\n  uint8_t* out;\n  unsigned long long* P;\n};"),
+    ("  if (e >= tagb + wlo && e < tagb + pos) match_at(R, s, ip, "
+     "e & 0xFFFFFF, w);\n  else miss_step(R, s, ip);",
+     "  if (e >= tagb + wlo && e < tagb + pos) {\n"
+     "    R.P[3] += clock64() - t0; R.P[4] += 1;\n"
+     "    match_at(R, s, ip, e & 0xFFFFFF, w);\n  } else {\n"
+     "    miss_step(R, s, ip);\n"
+     "    R.P[3] += clock64() - t0; R.P[4] += 1;\n  }"),
+    ("__device__ void body1(const Row& R, State& s) {\n  int ip = s.ip;",
+     "__device__ void body1(const Row& R, State& s) {\n"
+     "  long long t0 = clock64();\n  int ip = s.ip;"),
+    ("  int cand = cand_abs - R.base;\n  if (w32(R, cand) != w) {\n"
+     "    miss_step(R, s, ip);\n    return;\n  }\n"
+     "  int lf = extend(R, ip, cand);\n",
+     "  long long t0 = clock64();\n  int cand = cand_abs - R.base;\n"
+     "  if (w32(R, cand) != w) {\n"
+     "    R.P[5] += clock64() - t0; R.P[11] += 1;\n"
+     "    miss_step(R, s, ip);\n    return;\n  }\n"
+     "  long long t1 = clock64(); R.P[5] += t1 - t0;\n"
+     "  int lf = extend(R, ip, cand);\n"
+     "  long long t2 = clock64(); R.P[6] += t2 - t1;\n"),
+    ("  s.op = emit_seq(R, s.op, s.anchor, ipf, lf, ipf - candf);\n"
+     "  insert_at(R, ipf + lf - 2);\n",
+     "  long long t3 = clock64(); R.P[7] += t3 - t2;\n"
+     "  s.op = emit_seq(R, s.op, s.anchor, ipf, lf, ipf - candf);\n"
+     "  long long t4 = clock64(); R.P[8] += t4 - t3; R.P[10] += 1;\n"
+     "  R.P[12] += ipf - s.anchor; R.P[14] += lf;\n"
+     "  insert_at(R, ipf + lf - 2);\n"
+     "  R.P[9] += clock64() - t4;\n"),
+    ("    while (fnd == 0 && 4 * q <= qlim) {",
+     "    long long tq = clock64();\n"
+     "    while (fnd == 0 && 4 * q <= qlim) {\n      R.P[2] += 1;"),
+    ("    s.miss = missq;\n    if (fnd != 0) {",
+     "    R.P[1] += clock64() - tq;\n    s.miss = missq;\n    if (fnd != 0) {"),
+    ("  R.table = table;\n",
+     "  R.table = table;\n  __shared__ unsigned long long P[16];\n"
+     "  for (int i = 0; i < 16; ++i) P[i] = 0;\n  R.P = P;\n"
+     "  long long T0 = clock64();\n"),
+    ("    if (r == 0)   // the reference's step-0 seed: row 0, base 0\n"
+     "      for (int p = 0; p < N - 3; ++p) insert_at(R, p);\n"
+     "    emit_row(R, N, olen + r);\n  }\n}",
+     "    long long ts = clock64();\n"
+     "    if (r == 0)   // the reference's step-0 seed: row 0, base 0\n"
+     "      for (int p = 0; p < N - 3; ++p) insert_at(R, p);\n"
+     "    P[13] += clock64() - ts; P[15] += 1;\n"
+     "    emit_row(R, N, olen + r);\n  }\n  P[0] += clock64() - T0;\n"
+     "  for (int i = 0; i < 16; ++i) g_prof[(r0 >> 4) & 63][i] += P[i];\n}"),
+])
+# K4's execute arm, the one-warp frame walk of PR 2 (lane 0 counts; the
+# repcode resolution inside seq_step is timed from the last extra-bit
+# read's use to the new rep1, so it includes that read's wait; only
+# decode_blocks runs here, so tc_kernel's share of seq_step adds nothing)
+K4_WARP_PER_FRAME = ("frame", ["walk", "fse_step", "unused", "lit_copy",
+                               "match_copy", "seqs", "lit_bytes",
+                               "match_bytes", "trail_copy", "rows",
+                               "off_lt32", "off_ge32_overlap", "repcode"], [
+    ("  const long long idx = ofv + (ll == 0 ? 1 : 0);",
+     "  long long tr0 = clock64();\n"
+     "  const long long idx = ofv + (ll == 0 ? 1 : 0);"),
+    ("  rep1 = off;\n  if (!last) {",
+     "  rep1 = off;\n  if ((threadIdx.x & 31) == 0)\n"
+     "    atomicAdd(&g_prof[blockIdx.x & 63][12],\n"
+     "              (unsigned long long)(clock64() - tr0));\n"
+     "  if (!last) {"),
+    ("  long long op = 0;            // bytes produced in the frame\n",
+     "  long long op = 0;            // bytes produced in the frame\n"
+     "  unsigned long long P[16] = {0};\n  long long T0 = clock64();\n"),
+    ("    bool ok = st[1] != 0;   // the literal section's verdict (kernel 1)\n"
+     "    __syncwarp();",
+     "    bool ok = st[1] != 0;   // the literal section's verdict (kernel 1)\n"
+     "    __syncwarp();\n    P[9] += 1;"),
+    ("        if (!seq_step(z, ctab, t == n_seq - 1, rep1, rep2, rep3, ll, ml,\n"
+     "                      off) ||",
+     "        long long ta = clock64();\n"
+     "        if (!seq_step(z, ctab, t == n_seq - 1, rep1, rep2, rep3, ll, ml,\n"
+     "                      off) ||"),
+    ("        warp_copy(fout + op, lit + lpos, ll, lane);\n"
+     "        warp_match(fout + op + ll, (int)off, ml, lane);\n",
+     "        long long tb = clock64();\n"
+     "        P[1] += tb - ta; P[5] += 1; P[6] += ll; P[7] += ml;\n"
+     "        warp_copy(fout + op, lit + lpos, ll, lane);\n"
+     "        long long tc = clock64(); P[3] += tc - tb;\n"
+     "        warp_match(fout + op + ll, (int)off, ml, lane);\n"
+     "        P[4] += clock64() - tc; P[10] += off < 32;\n"
+     "        P[11] += off >= 32 && off < ml;\n"),
+    ("        warp_copy(fout + op, lit + lpos, trail, lane);\n"
+     "        op += trail;",
+     "        long long td = clock64();\n"
+     "        warp_copy(fout + op, lit + lpos, trail, lane);\n"
+     "        P[8] += clock64() - td;\n        op += trail;"),
+    ("    failed = !ok;\n  }\n}\n",
+     "    failed = !ok;\n  }\n  if (lane == 0) {\n    P[0] += clock64() - T0;\n"
+     "    for (int i = 0; i < 12; ++i) g_prof[f & 63][i] += P[i];\n  }\n}\n"),
+])
+
 MICRO = r'''
 #include <cstdio>
 #include <cuda_runtime.h>
@@ -281,30 +403,139 @@ def _lz4_window(cs, data):
     return cs.lz4_rows(frames)
 
 
+def _k5_args(cs, data):
+    """K5 at chip_smoke's batch: 128 rows, 8 frames of 16 blocks."""
+    import torch
+    from libzseek_tpu_torch.ops import lz4_emit
+    offs = [f + j * cs.LZ4_BLOCK for f in cs.LZ4_FRAMES for j in range(16)]
+    args = [torch.from_numpy(a).cuda() for a in cs.k5_layout(data, offs, 16)]
+    return args, lz4_emit.out_cap()
+
+
+def _k4_args(data, level):
+    """K4's execute-arm inputs for the codec's first 8 frames of the
+    corpus at `level` (64 blocks at level 3, 128 at level 9)."""
+    import torch
+    from libzseek_tpu_torch import ZstdCodec
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.ops.zstd_decode import k4_inputs
+    frames = ZstdCodec(level=level, device="cuda").compress_frames(
+        [data[i * MIB: (i + 1) * MIB] for i in range(8)])
+    args, n, rows = k4_inputs(frames, [MIB] * 8, torch.device("cuda"))
+    # the record scratch's size, for a decode_blocks that takes it
+    takes = "n_seqs" in inspect.signature(D.decode_blocks).parameters
+    return args, n, {"n_seqs": D.seq_total(rows["meta"])} if takes else {}
+
+
+def _digest(ts) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def times(pkg_dir, levels, check):
     import torch
     cs, data = _load(pkg_dir)
-    from libzseek_tpu_torch.ops import lz4_decode, parse_linked
+    from libzseek_tpu_torch.ops import decode, lz4_decode, lz4_emit
+    from libzseek_tpu_torch.ops import parse_linked
     res = {}
+
+    def run(name, fn, plain):
+        got = fn()
+        torch.cuda.synchronize()
+        res[f"{name} sha256"] = _digest(got)
+        if check:
+            res[f"{name} equal"] = all(
+                torch.equal(a.cpu(), b) for a, b in zip(got, plain()))
+        res[f"{name} ms"] = cs.time_cuda(fn)
+
     for level in levels:
         args, prm = _k1_args(cs, data, level)
-        fn = lambda: parse_linked.parse_linked(*args, **prm)
-        if check:
-            got = fn()
-            ref = parse_linked.parse_linked(*[a.cpu() for a in args], **prm)
-            res[f"K1 L{level} equal"] = all(
-                torch.equal(a.cpu(), b) for a, b in zip(got, ref))
-        res[f"K1 L{level} ms"] = cs.time_cuda(fn)
+        run(f"K1 L{level}", lambda: parse_linked.parse_linked(*args, **prm),
+            lambda: parse_linked.parse_linked(*[a.cpu() for a in args],
+                                              **prm))
+    k5, cap = _k5_args(cs, data)
+    run("K5 128 rows", lambda: lz4_emit.lz4_emit(*k5, cap),
+        lambda: lz4_emit.lz4_emit(*[a.cpu() for a in k5], cap))
+    for level in (3, 9):
+        k4, n, ns = _k4_args(data, level)
+        run(f"K4 L{level} {k4[4].shape[0]} blocks",
+            lambda: decode.decode_blocks(*k4, n, **ns),
+            lambda: decode.decode_blocks(*[a.cpu() for a in k4], n))
     (comp, clens, unc), F, linked = _lz4_window(cs, data)
     d = [a.cuda() for a in (comp, clens, unc)]
-    dec = lambda: lz4_decode.lz4_decode_frames(*d, F, linked=linked)
-    if check:
-        got = dec()
-        ref = lz4_decode.lz4_decode_frames(comp, clens, unc, F,
-                                           linked=linked)
-        res["LZ4 decode equal"] = all(
-            torch.equal(a.cpu(), b) for a, b in zip(got, ref))
-    res["LZ4 decode ms"] = cs.time_cuda(dec)
+    run("LZ4 decode", lambda: lz4_decode.lz4_decode_frames(
+        *d, F, linked=linked), lambda: lz4_decode.lz4_decode_frames(
+        comp, clens, unc, F, linked=linked))
+    print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
+    return res
+
+
+def pair(parent, change, levels):
+    """times from parent, change, change, parent, each in its own process
+    (the two trees hold packages of one name)."""
+    runs = []
+    for d in (parent, change, change, parent):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "times", d,
+             ",".join(map(str, levels)), "--check"],
+            capture_output=True, text=True)
+        if proc.returncode:
+            sys.exit(f"pair: times {d} failed:\n{proc.stderr}")
+        out = proc.stdout
+        runs.append(json.loads(out.strip().splitlines()[-1]))
+        print(out.strip().splitlines()[-1], flush=True)
+    res = [next(iter(r.values())) for r in runs]
+    same = {k: res[0][k] == res[1][k] for k in res[0] if k.endswith("sha256")}
+    summary = {k[:-3]: {"parent": (res[0][k] + res[3][k]) / 2,
+                        "change": (res[1][k] + res[2][k]) / 2}
+               for k in res[0] if k.endswith(" ms")}
+    print(json.dumps({"outputs equal": same, "mean ms": summary}),
+          flush=True)
+    if not all(same.values()):
+        sys.exit("pair: the parent's and the change's outputs differ")
+
+
+def kernels(pkg_dir):
+    """K4's execute arm (level 3, 64 blocks; level 9, 128 blocks) and K5
+    (128 rows), five calls each under torch.profiler: the mean time of
+    each CUDA kernel a call launches."""
+    import torch
+    cs, data = _load(pkg_dir)
+    from libzseek_tpu_torch.ops import decode, lz4_emit
+    runs = []
+    for level in (3, 9):
+        k4, n, ns = _k4_args(data, level)
+        runs.append((f"K4 L{level} {k4[4].shape[0]} blocks",
+                     lambda k4=k4, n=n, ns=ns: decode.decode_blocks(
+                         *k4, n, **ns)))
+    k5, cap = _k5_args(cs, data)
+    runs.append(("K5 128 rows", lambda: lz4_emit.lz4_emit(*k5, cap)))
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    for name, fn in runs:
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=act) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        per = {e.key: [round(e.device_time_total / 5 / 1e3, 4),
+                       e.count // 5]
+               for e in prof.key_averages() if e.device_time_total > 0}
+        print(json.dumps({name: per}), flush=True)
+
+
+def archives(pkg_dir):
+    """sha256 of the 64 MiB of mixed_corpus written by DIR's Writer as
+    chip_smoke.py writes it: zstd at levels 3 and 9, LZ4 at level 0."""
+    import hashlib
+    cs, data = _load(pkg_dir)
+    res = {}
+    for codec, level in (("zstd", 3), ("zstd", 9), ("lz4", 0)):
+        archive, _ = cs.write_archive(data, "cuda", codec, level)
+        res[f"{codec} level {level}"] = hashlib.sha256(archive).hexdigest()
     print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
 
 
@@ -316,7 +547,7 @@ def _patch(path, variants, tag):
             for old, new in edits:
                 src = src.replace(old, new)
             if "g_prof[64][16];" not in src:
-                src = src.replace(*PROF_HEAD)
+                src = src.replace("namespace {", PROF_HEAD, 1)
             src = src.replace("g_prof", f"g_prof_{tag}")
             with open(path, "w") as f:
                 f.write(src + PROF_READ.replace("NAME", tag)
@@ -340,9 +571,14 @@ def counters(pkg_dir):
                            [K1_THREAD, K1_WARP], "k1")
     lz, lz_fields = _patch(os.path.join(csrc, "lz4_decode.cu"),
                            [LZ4_WARP_PER_FRAME], "lz4")
+    k5v, k5_fields = _patch(os.path.join(csrc, "lz4_emit.cu"), [K5_THREAD],
+                            "k5")
+    k4v, k4_fields = _patch(os.path.join(csrc, "decode.cu"),
+                            [K4_WARP_PER_FRAME], "k4")
     cs, data = _load(dst)
     from libzseek_tpu_torch import kernels
-    from libzseek_tpu_torch.ops import lz4_decode, parse_linked as PL
+    from libzseek_tpu_torch.ops import decode, lz4_decode, lz4_emit
+    from libzseek_tpu_torch.ops import parse_linked as PL
     lib = kernels.library()
     prof = np.zeros((64, 16), np.uint64)
 
@@ -358,7 +594,21 @@ def counters(pkg_dir):
         return [dict(zip(fields, prof[c][: len(fields)].tolist()))
                 for c in range(n)]
 
-    print(json.dumps({"k1_version": k1, "lz4_version": lz}), flush=True)
+    print(json.dumps({"k1_version": k1, "lz4_version": lz, "k5_version": k5v,
+                      "k4_version": k4v}), flush=True)
+    if k5v:
+        k5, cap = _k5_args(cs, data)
+        fn = lambda: lz4_emit.lz4_emit(*k5, cap)
+        print(json.dumps({"K5 128 rows": {
+            "ms": cs.time_cuda(fn, reps=3),
+            "chains": run(fn, k5_fields, 8, "k5")}}), flush=True)
+    if k4v:
+        for level in (3, 9):
+            k4, n, ns = _k4_args(data, level)
+            fn = lambda: decode.decode_blocks(*k4, n, **ns)
+            print(json.dumps({f"K4 L{level}": {
+                "ms": cs.time_cuda(fn, reps=3),
+                "frames": run(fn, k4_fields, 8, "k4")}}), flush=True)
     if k1:
         for level in (9, 4, 16):
             args, prm = _k1_args(cs, data, level)
@@ -421,9 +671,16 @@ def micro():
 
 def main():
     cmd = sys.argv[1] if len(sys.argv) > 1 else ""
+    levels = lambda i: [int(x) for x in sys.argv[i].split(",") if x] \
+        if len(sys.argv) > i and not sys.argv[i].startswith("-") else []
     if cmd == "times":
-        times(sys.argv[2], [int(x) for x in sys.argv[3].split(",")],
-              "--check" in sys.argv)
+        times(sys.argv[2], levels(3), "--check" in sys.argv)
+    elif cmd == "pair":
+        pair(sys.argv[2], sys.argv[3], levels(4))
+    elif cmd == "archives":
+        archives(sys.argv[2])
+    elif cmd == "kernels":
+        kernels(sys.argv[2])
     elif cmd == "counters":
         counters(sys.argv[2])
     elif cmd == "micro":
