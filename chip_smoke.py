@@ -53,24 +53,30 @@ Phases, each of which must pass (any failure exits non-zero):
      codec's host route (native block decoder) and the card route decode
      the 64 frames in 4-frame windows, timed;
   7. the per-block hash-parser path: K7 (hash parse) against its plain
-     version, exact, on four 16 KiB rows (text, repeats, zeros, noise)
-     and at the path's 64-row batch of 128 KiB blocks (8 frames of 8
-     blocks, two per quarter of the corpus); then the port's
+     version, exact, on four 16 KiB rows (text, repeats, zeros, noise),
+     at the path's 64-row batch of 128 KiB blocks (8 frames of 8
+     blocks, two per quarter of the corpus) and at the hash write's
+     first batch (64 text rows); then the port's
      Writer(sink, ZstdCodec(parser="hash")) writes the same 64 MiB with
      1 MiB frames and batch_frames=16 (warm-up, then the measured run,
      during which K7 and K2 must launch and every batch must take the K2
      arm); stock libzstd decodes it, the seek table lists 64 frames, the
      first frame equals the plain versions', and the port's Reader reads
-     it back sequentially; 8 MiB of log-like lines (seed 13) written the
+     it back sequentially (the archive's sha256 printed, to compare
+     commits); 8 MiB of log-like lines (seed 13) written the
      same way must take the XLA entropy arm in every batch and decode
      through libzstd;
   8. the lane decode route (ZstdCodec(decoder="lanes")): every call the
      route makes to the Huffman lane decoder, the sequence lane decoder
      and K6 (the block executor) is replayed on the CPU's plain versions,
      exact, on the small frames of phase 2 and on the archive's first 8
-     frames (64 blocks) with and without its decode hints; the kernels
-     are timed at those 8 frames; then Reader(decoder="lanes") reads the
-     64 MiB archive as in phase 5 (anchored lanes and K6 must run), the
+     frames (64 blocks) with and without its decode hints; K6 also on
+     the calls the route makes for damaged frames (testing/damage.py)
+     and on damaged copies of the 8 frames' rows, some of which must fail
+     and some overlap the row before (their frames must take K6's serial
+     arm); the kernels are timed at those 8 frames; then
+     Reader(decoder="lanes") reads the 64 MiB archive as in phase 5
+     (anchored lanes and K6 must run; K6's serial frames counted), the
      log-like archive of phase 7 is read back, and the long-window frame
      decodes through the pointer-doubling executor; each route's frame
      and batch counts are printed;
@@ -380,6 +386,9 @@ K4_KERNELS = ["huf_kernel", "rec_kernel", "frame_kernel", "check_kernel",
               "final_kernel", "expand_kernel", "pd_round_kernel",
               "pd_finish_kernel"]
 K5_KERNELS = ["lz4_emit_kernel"]
+K7_KERNELS = ["hash_parse_kernel"]
+K6_KERNELS = ["row_kernel", "frame_kernel", "scatter_kernel",
+              "pd_round_kernel", "pd_finish_kernel", "exec_kernel"]
 
 
 def k4_small_frames():
@@ -991,6 +1000,11 @@ def phase_hash(data, card, report, keep: dict) -> dict:
     big = [t(a) for a in hash_rows(data, BATCH_ROWS)]
     e_big, plain_ms = against_plain("K7 (64 rows)", hash_parse.hash_parse,
                                     big)
+    # the hash write's first batch: 64 rows of the text quarter
+    text = [t(a) for a in hash_rows(data, [j * N for j in range(64)])]
+    e_text, text_plain_ms = against_plain("K7 (64 text rows)",
+                                          hash_parse.hash_parse, text)
+    text_ms = time_cuda(lambda: hash_parse.hash_parse(*text))
     n_seq = hash_parse.hash_parse(*big)[3]
     # bytes: each row's bytes and length read, its n_seq sequences (three
     # int32 each), n_seq and cover_end written; operations: at least one
@@ -998,13 +1012,16 @@ def phase_hash(data, card, report, keep: dict) -> dict:
     nb = int(big[1].sum()) + nbytes(big[1]) + 12 * int(n_seq.sum()) + \
         8 * len(BATCH_ROWS)
     entry(report, "K7 hash_parse", "libzseek_tpu_torch/csrc/hash_parse.cu",
-          "libzseek_tpu/ops/pallas_match.py:37", [e_small, e_big],
+          "libzseek_tpu/ops/pallas_match.py:37", [e_small, e_big, e_text],
           time_cuda(lambda: hash_parse.hash_parse(*big)), plain_ms, nb,
           int(big[1].sum()),
           f"4 rows of 16 KiB, one per quarter; 64 rows of 128 KiB (8 "
           f"frames x 8 blocks, two per quarter), {int(n_seq.sum())} "
-          f"sequences")
+          f"sequences; 64 text rows (the write's first batch) card "
+          f"{text_ms:.3f} ms, plain {text_plain_ms:.1f} ms")
     k7 = report[-1]
+    k7["cuda_kernels"] = K7_KERNELS
+    k7["text_batch_ms"] = text_ms
 
     # the 64 MiB write
     hash_write(data, "cuda")                        # warm-up
@@ -1022,6 +1039,8 @@ def phase_hash(data, card, report, keep: dict) -> dict:
           f"{codec.arms}", flush=True)
     check(golden.zstd_decompress(archive) == data,
           "stock libzstd does not reproduce the hash archive")
+    print(f"hash archive sha256 {hashlib.sha256(archive).hexdigest()}",
+          flush=True)
     table = parse_seek_table_bytes(archive)
     check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
     cpu_archive, cpu_dt, _ = hash_write(data[:MIB], "cpu")
@@ -1073,12 +1092,13 @@ LANE_KERNELS = (("huf_lanes", "Huffman lanes", "huf_launches",
                  "libzseek_tpu/ops/pallas_match.py:954"))
 
 
-def lane_calls(frames, sizes, hints):
+def lane_calls(frames, sizes, hints, calls=None):
     """The lane route on the card with every call of its three kernel
-    wrappers recorded: (its result, {wrapper: [(fn, args, kwargs, out)]})."""
+    wrappers recorded: (its result, {wrapper: [(fn, args, kwargs, out)]});
+    `calls`, where given, collects them also when the route raises."""
     from libzseek_tpu_torch.ops import exec_blocks, lanes
     from libzseek_tpu_torch.ops import zstd_decode as ZD
-    calls = {}
+    calls = {} if calls is None else calls
     saved = []
     for mod, fname in ((lanes, "huf_lanes"), (lanes, "seq_lanes"),
                        (exec_blocks, "execute_blocks")):
@@ -1111,6 +1131,51 @@ def replay_plain(name, calls):
         err = max(err, max_abs_err(list(out), list(ref)))
     check(err == 0, f"{name} differs from its plain version (max err {err})")
     return err, ms
+
+
+def k6_damaged(frames, sizes, k6_call) -> tuple[int, str]:
+    """K6 against its plain version on damaged inputs: every K6 call the
+    lane route makes on damaged copies of `frames` (testing/damage.py;
+    copies the host parse or the lane decoders reject never reach K6),
+    then damaged copies of one recorded call's rows: a length or offset
+    changed (a failing row), n_seq cut (a row that stops short of its
+    content), d_off moved back over the row before (frames that do not
+    tile in order, which must take the serial arm).  Returns (max_abs_err,
+    a note)."""
+    import torch
+    from libzseek_tpu_torch.errors import FormatError
+    from libzseek_tpu_torch.ops import exec_blocks
+    from libzseek_tpu_torch.testing.damage import (damaged_exec_rows,
+                                                   damaged_frames)
+    err, routed = 0, 0
+    for i, fr in damaged_frames(frames, 17, 16):
+        calls = {}
+        try:
+            lane_calls([fr], [sizes[i]], None, calls)
+        except FormatError:
+            pass        # the route's verdict on a damaged frame
+        if calls.get("execute_blocks"):
+            e, _ = replay_plain("K6 (damaged frames)",
+                                calls["execute_blocks"])
+            err, routed = max(err, e), routed + len(calls["execute_blocks"])
+    fn, a, kw, _ = k6_call
+    cpu = [t.cpu() for t in a[:7]]
+    before = exec_blocks.serial_frames()
+    failed = mid = 0
+    copies = damaged_exec_rows(cpu, 19, 40)
+    for d in copies:
+        got = fn(*[t.cuda() for t in d], *a[7:], **kw)
+        ref = fn(*d, *a[7:], **kw)
+        err = max(err, max_abs_err(list(got), list(ref)))
+        bad = ref[1] == 0
+        failed += int(bad.any())
+    serial = exec_blocks.serial_frames() - before
+    check(err == 0, f"K6 on damaged inputs differs from plain (max err {err})")
+    check(failed > 0, "no damaged K6 row failed")
+    check(serial > 0, "no damaged K6 frame took the serial arm")
+    return err, (f"{routed} K6 calls on 16 damaged frames, {len(copies)} "
+                 f"damaged copies of the 8 frames' rows ({failed} with a "
+                 f"failing row, {serial} frames on the serial arm)")
 
 
 def lane_work(fname, call):
@@ -1160,15 +1225,20 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
     raws8 = [data[i * MIB: (i + 1) * MIB] for i in range(8)]
     bare = run("8 frames, no hints", frames, [MIB] * 8, None, raws8)
     full = run("8 frames", frames, [MIB] * 8, hints8, raws8)
+    e_dmg, dmg_note = k6_damaged(frames, [MIB] * 8, full["execute_blocks"][0])
+    errs["execute_blocks"].append(e_dmg)
+    print(f"K6 on damaged inputs: equal to plain ({dmg_note})", flush=True)
 
     # the main path: Reader(decoder="lanes") over the 64 MiB archive
     for k in ZD.routes:
         ZD.routes[k] = 0
     counted = {"Huffman lanes": (lanes, "huf_launches"),
                "sequence lanes": (lanes, "seq_launches")}
+    serial0 = exec_blocks.serial_frames()
     read = phase_read(archive, data, card, exec_blocks, "K6 exec_blocks",
                       "lanes", counted)
     main_routes = dict(ZD.routes)
+    main_routes["k6_serial_frames"] = exec_blocks.serial_frames() - serial0
     check(main_routes["anchored_frames"] > 0,
           "no frame took the anchored lanes on the lane read")
     for k in ("Huffman lanes", "sequence lanes"):
@@ -1193,6 +1263,9 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
               f"{plain_lanes.get(f'{fname} (8 frames, no hints)', 0):.1f} ms")
         report[-1]["launches"] = read["counts"][name]
         report[-1]["ms_without_hints"] = ms_bare
+        if fname == "execute_blocks":
+            report[-1]["cuda_kernels"] = K6_KERNELS
+            report[-1]["note"] += f"; {dmg_note}"
 
     # the log-like archive of phase 7 and a long-window libzstd frame
     for k in ZD.routes:

@@ -50,7 +50,7 @@ SIGNATURES = {
     "zk_hash_parse": [_P] * 2 + [_I] * 4 + [_P] * 5,
     "zk_huf_lanes": [_P] * 6 + [_I] * 6 + [_P] * 3,
     "zk_fse_lanes": [_P] * 10 + [_I] * 6 + [_P] * 6,
-    "zk_exec_blocks": [_P] * 7 + [_I] * 3 + [_P] * 3,
+    "zk_exec_blocks": [_P] * 7 + [_I] * 6 + [_P] * 10,
 }
 
 _lock = threading.Lock()

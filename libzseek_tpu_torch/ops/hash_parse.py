@@ -156,3 +156,148 @@ def _parse_plain(xs, lens, cap):
         nn[:, r] = n, cover
     t = torch.from_numpy
     return t(out[0]), t(out[1]), t(out[2]), t(nn[0]), t(nn[1])
+
+
+# --------------------------------------------------------------------
+# the CUDA kernel's rounds, mirrored in Python ints (used only by tests)
+
+LANES = 32
+DENSE_MISS = 32     # a round starting at miss <= 32 steps by 1 throughout
+EXT_WORDS = 2       # words past the first that a lane compares on its own
+
+
+def miss_skip(n: int) -> int:
+    """sum(i >> 6 for i < n): the extra steps of the first n misses."""
+    q, r = n >> 6, n & 63
+    return 32 * q * (q - 1) + q * r
+
+
+def lane_length(W, pos: int, cand: int):
+    """A lane's own extension of a confirmed 4-byte match: (length, long).
+    It compares the EXT_WORDS words past the first (inside the row for
+    every probed position: pos + 4 + 4 * EXT_WORDS <= blen - 1), the
+    first unequal one ending the match at its first unequal byte (the
+    xor's lowest set byte).  long: both equal, the length is at least
+    4 + 4 * EXT_WORDS and the warp extends it."""
+    q = 4
+    for _ in range(EXT_WORDS):
+        x = W[pos + q] ^ W[cand + q]
+        if x:
+            return q + ((x & -x).bit_length() - 1) // 8, False
+        q += 4
+    return q, True
+
+
+def warp_length(xb: bytes, W, blen: int, pos: int, cand: int,
+                l: int) -> int:
+    """The warp's extension from l (32 words a step, as a ballot finds the
+    first unequal one), then the first unequal word's xor, or bytes at
+    the row's end."""
+    R = blen - pos
+    while l + 4 <= R and W[pos + l] == W[cand + l]:
+        l += 4
+    if l + 4 <= R:
+        x = W[pos + l] ^ W[cand + l]
+        return l + ((x & -x).bit_length() - 1) // 8
+    while l < R and xb[pos + l] == xb[cand + l]:
+        l += 1
+    return l
+
+
+def parse_rounds(row: np.ndarray, blen: int, cap: int):
+    """K7's walk as the CUDA kernel takes it, a round of 32 positions at a
+    time: (ll, ml, offv lists, n_seq, cover_end, stats).
+
+    Lane k of a round takes the walk's k-th next position if every one
+    before it misses (ip + k, or with the miss accelerator's steps when
+    the round starts past DENSE_MISS misses) and tests it against the
+    table as it stood at the round's start, or, where an earlier lane of
+    the round has the same hash, against that lane's position (the table
+    holds the last position probed in each bucket).  The walk over the
+    lanes (the kernel finds it by pointer doubling; here it is followed
+    lane by lane) goes after a miss to the next lane, after a hit of
+    length l to the lane l further on (dense rounds only; a round past
+    DENSE_MISS misses ends at its first hit).  The round is cut before
+    the first lane whose forwarded lane the walk skipped (its candidate
+    is then older), and before a hit past `cap`.  The probed lanes
+    write the table, the last of each bucket winning."""
+    W, H = _words_and_hashes(row)
+    xb = row.tobytes()
+    table = [-1] * (1 << HASH_LOG)
+    ll, ml, off = [], [], []
+    ip = anchor = miss = 0
+    limit = blen - 12
+    stats = dict(rounds=0, dense=0, cut_forward=0, cut_cap=0, long=0)
+    while ip < limit:
+        stats["rounds"] += 1
+        dense = miss <= DENSE_MISS
+        stats["dense"] += dense
+        cnt = len(ll)
+        lanes = []
+        for k in range(LANES):
+            pos = ip + k + miss_skip(miss + k) - miss_skip(miss)
+            if pos >= limit:
+                break
+            h = H[pos]
+            prior = [j for j in range(k) if lanes[j]["h"] == h]
+            jd = prior[-1] if prior else -1
+            cand = lanes[jd]["pos"] if jd >= 0 else table[h]
+            hit = cnt < cap and cand >= 0 and pos - cand <= MAX_OFFSET \
+                and W[cand] == W[pos]
+            ln, lg = lane_length(W, pos, cand) if hit else (0, 0)
+            lanes.append(dict(pos=pos, h=h, jd=jd, cand=cand, hit=hit,
+                              len=ln, long=lg))
+        n = len(lanes)
+        ip0, m0 = ip, miss
+        posf = lambda k: ip0 + k + miss_skip(m0 + k) - miss_skip(m0)
+        # the walk over the lanes
+        path, cur = [], 0
+        while cur < n:
+            path.append(cur)
+            L = lanes[cur]
+            if not L["hit"]:
+                cur += 1
+            elif L["long"] or not dense:
+                break
+            else:
+                cur += L["len"]
+        # cuts: before a lane whose forwarding lane the walk skipped, then
+        # before a hit past cap; the round's next position is the cut lane's
+        stop = None
+        on = set(path)
+        for i, k in enumerate(path):
+            if lanes[k]["jd"] >= 0 and lanes[k]["jd"] not in on:
+                stop, path = k, path[:i]
+                stats["cut_forward"] += 1
+                break
+        hits = [k for k in path if lanes[k]["hit"]]
+        if cnt + len(hits) > cap:
+            stop = hits[cap - cnt]
+            path = path[: path.index(stop)]
+            stats["cut_cap"] += 1
+        for k in path:
+            L = lanes[k]
+            table[L["h"]] = L["pos"]
+            if not L["hit"]:
+                miss += 1
+                continue
+            if L["long"]:
+                stats["long"] += 1
+                L["len"] = warp_length(xb, W, blen, L["pos"], L["cand"],
+                                       L["len"])
+            ll.append(L["pos"] - anchor)
+            ml.append(L["len"])
+            off.append(L["pos"] - L["cand"] + 3)
+            anchor = L["pos"] + L["len"]
+        last = lanes[path[-1]]
+        if stop is not None:
+            nxt = lanes[stop]["pos"]
+        elif last["hit"]:
+            nxt = last["pos"] + last["len"]
+        else:
+            nxt = posf(path[-1] + 1)
+        if any(lanes[k]["hit"] for k in path):
+            last_hit = max(k for k in path if lanes[k]["hit"])
+            miss = sum(1 for k in path if k > last_hit)
+        ip = nxt
+    return ll, ml, off, len(ll), anchor, stats

@@ -940,7 +940,8 @@ def _execute_k6(plans, recs, lit, up):
     with _span("zseek.k6"):
         out, ok = X.execute_blocks(lit, up(lla), up(mla), up(offa), up(meta),
                                    up(chain), up(frame_off),
-                                   int(frame_off[-1]))
+                                   int(frame_off[-1]),
+                                   max_matches=X.match_bound(mla, chain))
     return out, ok, [(int(a), int(b)) for a, b in
                      zip(frame_off, frame_off[1:])]
 

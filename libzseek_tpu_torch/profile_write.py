@@ -1,17 +1,18 @@
 """Where one write of the port's main path, and one read of what it
 wrote, spend their time on the GPU.
 
-    python -m libzseek_tpu_torch.profile_write [zstd|zstd9|lz4|hash|transcode]
+    python -m libzseek_tpu_torch.profile_write [zstd|zstd9|lz4|hash|transcode|lanes]
 
 Writes 64 MiB of mixed_corpus(seed 11) through the port's Writer with
 the codec named (zstd, the default, at level 3; zstd9, zstd at level 9
 with its 64 KiB blocks and K1's level >= 4 arms; lz4 at level 0; hash,
-ZstdCodec(parser="hash") at level 3; transcode, zstd at level 3; 1 MiB
-frames, batch_frames=16, 1 MiB writes), once to warm up
+ZstdCodec(parser="hash") at level 3; transcode and lanes, zstd at level
+3; 1 MiB frames, batch_frames=16, 1 MiB writes), once to warm up
 and once under torch.profiler with CPU and CUDA activities; then reads
 the archive back through the port's Reader(device="cuda") in 1 MiB
-reads (transcode: Reader(decoder="transcode")), likewise once to warm
-up and once profiled.  For each, prints
+reads (transcode: Reader(decoder="transcode"); lanes:
+Reader(decoder="lanes"), K6 on every batch), likewise once to warm up
+and once profiled.  For each, prints
 the wall time, the device's busy share of it (union of CUDA kernel and
 copy intervals), the CUDA time per kernel name, and the host time
 inside each stage range (`zseek.*`, see runtime/zstd_codec.py,
@@ -40,7 +41,8 @@ SIZE_MIB = 64    # the main path's write (bench.py, chip_smoke.py)
 
 # codec argument -> (Writer codec, level)
 CODECS = {"zstd": ("zstd", None), "zstd9": ("zstd", 9), "lz4": ("lz4", None),
-          "hash": ("hash", None), "transcode": ("zstd", None)}
+          "hash": ("hash", None), "transcode": ("zstd", None),
+          "lanes": ("zstd", None)}
 
 
 def _write(data: bytes, codec: str = "zstd") -> bytes:
@@ -151,7 +153,7 @@ def main(argv: list[str]) -> int:
           f"{SIZE_MIB / wall:.2f} MiB/s,"
           f" ratio {len(archive) / len(data):.5f}")
     report(prof, wall)
-    decoder = "transcode" if codec == "transcode" else "fused"
+    decoder = codec if codec in ("transcode", "lanes") else "fused"
     got, prof, wall = _profiled(functools.partial(_read, decoder=decoder),
                                 archive)
     if got != data:

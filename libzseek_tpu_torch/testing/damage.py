@@ -66,3 +66,36 @@ def damaged_rows(args, seed: int, n: int):
             np.uint32(1 << (bit % 32)).view(np.int32))
         out.append((args[0], s, *args[2:]))
     return out
+
+
+def damaged_exec_rows(args, seed: int, n: int):
+    """n copies of K6's inputs (ops/exec_blocks.execute_blocks: lit, ll,
+    ml, off, meta, chain, frame_off, as CPU tensors), each with one field
+    of one row changed, the kinds in turn: a sequence's literal or match
+    length (the walk fails at that sequence, or writes other bytes), its
+    offset (anywhere, also before the frame), the row's n_seq, its
+    content, its d_off moved forward (a gap before it) or back so that
+    it overlaps the row before (its frame no longer tiles in order)."""
+    rng = np.random.default_rng(seed)
+    meta = args[4].numpy()
+    rows = np.nonzero(meta[:, 0] > 0)[0]
+    out = []
+    for i in range(n):
+        r = int(rows[int(rng.integers(len(rows)))])
+        j = int(rng.integers(int(meta[r, 0])))
+        a = [t.clone() for t in args]
+        kind = i % 7
+        if kind < 2:
+            a[1 + kind][r, j] += int(rng.integers(-3, 64))
+        elif kind == 2:
+            a[3][r, j] = int(rng.integers(-2, 3000))
+        elif kind == 3:
+            a[4][r, 0] += int(rng.integers(-2, 3))
+        elif kind == 4:
+            a[4][r, 1] += int(rng.integers(-20, 20))
+        elif kind == 5:
+            a[4][r, 2] += int(rng.integers(1, 300))
+        else:
+            a[4][r, 2] = max(0, int(meta[r, 2]) - int(rng.integers(1, 4096)))
+        out.append(a)
+    return out

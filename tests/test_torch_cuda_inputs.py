@@ -268,3 +268,131 @@ def rows_of_blocks(frames, M=4096):
             clens[r, k], unc[r, k] = len(blk), u
     return comp, clens, unc
 
+
+
+# --- K6: random frames of block rows, damaged copies, rows that overlap
+
+
+def _k6_frame(rng, n_blocks, S, LW, blk):
+    """One frame's valid block rows: ([(ll, ml, off) ...], content,
+    d_off) each, and the frame's size."""
+    rows, d_off = [], 0
+    for _ in range(n_blocks):
+        content = int(rng.integers(0, blk))
+        seqs, lp, op, left = [], 0, d_off, content
+        while left > 0 and len(seqs) < S - 1 and lp < LW:
+            a = min(int(rng.integers(0, min(left, 40) + 1)), LW - lp)
+            m = min(int(rng.integers(0, left - a + 1)), 80) \
+                if rng.random() < 0.7 and op + a > 0 else 0
+            o = 1
+            if m:   # near (overlapping) or anywhere back in the frame
+                o = int(rng.integers(1, min(40, op + a) + 1)) \
+                    if rng.random() < 0.5 else int(rng.integers(1, op + a + 1))
+            seqs.append((a, m, o))
+            lp, op, left = lp + a, op + a + m, left - a - m
+        tail = content - (op - d_off)
+        if tail > 0 and (lp + tail > LW or len(seqs) >= S):
+            content -= tail
+        elif tail > 0:
+            seqs.append((tail, 0, 1))     # the trailing-literals sequence
+        rows.append((seqs, content, d_off))
+        d_off += content
+    return rows, d_off
+
+
+def k6_batch(rng, F, S=32, LW=256, blocks=(1, 5), blk=600):
+    """K6's inputs (lit, ll, ml, off, meta, chain, frame_off) as numpy for
+    F random valid frames (some followed by a few unused bytes), and the
+    output size."""
+    rows, chain, fo = [], [0], [0]
+    for _ in range(F):
+        fr, size = _k6_frame(rng, int(rng.integers(blocks[0], blocks[1] + 1)),
+                             S, LW, blk)
+        rows += fr
+        chain.append(len(rows))
+        fo.append(fo[-1] + size + 7 * int(rng.integers(0, 3)))
+    BL = len(rows)
+    ll = np.zeros((BL, S), np.int32)
+    ml = np.zeros((BL, S), np.int32)
+    off = np.ones((BL, S), np.int32)
+    meta = np.zeros((BL, 3), np.int32)
+    for i, (seqs, content, d_off) in enumerate(rows):
+        for j, s in enumerate(seqs):
+            ll[i, j], ml[i, j], off[i, j] = s
+        meta[i] = (len(seqs), content, d_off)
+    lit = rng.integers(0, 256, (BL, LW), dtype=np.uint8)
+    return [lit, ll, ml, off, meta, np.array(chain, np.int32),
+            np.array(fo, np.int64)], int(fo[-1])
+
+
+def k6_far_offset():
+    """Two 128 KiB blocks of one frame whose second block's match reaches
+    131071 bytes back (the reference K6's largest offset), then its
+    overlapping copies (offsets 1, 7, 32, 33): K6's inputs and size."""
+    rng = np.random.default_rng(29)
+    n = 1 << 17
+    S, LW = 8, n
+    lit = rng.integers(0, 256, (2, LW), dtype=np.uint8)
+    ll = np.zeros((2, S), np.int32)
+    ml = np.zeros((2, S), np.int32)
+    off = np.ones((2, S), np.int32)
+    ll[0, 0] = n
+    seqs = [(1, 500, n - 1), (3, 40, 1), (5, 90, 7), (2, 70, 32),
+            (4, 100, 33), (n - 815, 0, 1)]
+    for j, s in enumerate(seqs):
+        ll[1, j], ml[1, j], off[1, j] = s
+    meta = np.array([[1, n, 0], [len(seqs), n, n]], np.int32)
+    return [lit, ll, ml, off, meta, np.array([0, 2], np.int32),
+            np.array([0, 2 * n], np.int64)], 2 * n
+
+
+def k6_cases(seed=7, n=40):
+    """n random batches of 1-4 frames, each followed by a damaged copy
+    (testing/damage.damaged_exec_rows: every kind in turn), then
+    k6_far_offset(): [(args, out_size)]."""
+    from libzseek_tpu_torch.testing.damage import damaged_exec_rows
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        args, size = k6_batch(rng, int(rng.integers(1, 5)))
+        bad = damaged_exec_rows([torch.from_numpy(a) for a in args],
+                                seed + i, 1 + i % 7)[-1]
+        out += [(args, size), ([t.numpy() for t in bad], size)]
+    return out + [k6_far_offset()]
+
+
+# --- K7: rows that drive each arm of the round walk
+
+
+def k7_edge_rows():
+    """(X, lengths) of 9 rows of 2^17 bytes (seed 31), most of them used
+    to 32 KiB: short repeats of 1-39 bytes over a 4-letter alphabet
+    (lanes that share a bucket inside a round; forwarding lanes the walk
+    skips), 3 letters over the whole row (it reaches cap = N / 8), text,
+    noise (rounds past 32 misses), zeros (one long match), noise whose
+    last 13 bytes repeat its first 13, after 512 bytes that repeat bytes
+    100-611 (the walk lands on byte 131059: an offset of 131059, the
+    largest a row of 2^17 bytes reaches, since probing stops 12 bytes
+    before its end), and short rows (lengths 13, 12 and 20)."""
+    rng = np.random.default_rng(31)
+    n = 32768
+    big = 1 << 17
+    a = bytearray()
+    while len(a) < n:
+        k = int(rng.integers(1, 40))
+        a += rng.integers(0, 4, k).astype(np.uint8).tobytes() * \
+            int(rng.integers(1, 6))
+    X = np.zeros((9, big), np.uint8)
+    X[0, :n] = np.frombuffer(bytes(a[:n]), np.uint8)
+    X[1] = rng.integers(97, 100, big)
+    X[2, :n] = text_corpus(rng, n)
+    X[3, :n] = rng.integers(0, 256, n)
+    X[5] = rng.integers(0, 256, big)
+    X[5, big - 525: big - 13] = X[5, 100: 612]
+    X[5, big - 13:] = X[5, :13]
+    X[5, 612] = X[5, 0] ^ 1
+    X[6, :n] = text_corpus(rng, n)
+    X[7, :n] = text_corpus(rng, n)
+    X[8, :n] = mixed_corpus(rng, n)
+    lens = np.array([n, big, n - 5, n, n, big, 13, 12, 20], np.int32)
+    return X, lens

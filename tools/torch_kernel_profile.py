@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Timings and clock-counter attributions of the port's K1 (linked parse),
-K4 (fused decode, execute arm), K5 (LZ4 block encode) and LZ4 decoder on
-an H100, for PERF.md section 6.
+K4 (fused decode, execute arm), K5 (LZ4 block encode), K6 (the lane
+route's block executor), K7 (per-block hash parse) and LZ4 decoder on an
+H100, for PERF.md section 6.
 
-    python3 tools/torch_kernel_profile.py times DIR [LEVELS] [--check]
-    python3 tools/torch_kernel_profile.py pair PARENT_DIR DIR [LEVELS]
-    python3 tools/torch_kernel_profile.py counters DIR
+    python3 tools/torch_kernel_profile.py times DIR [LEVELS] [--check] [--only=K6,K7]
+    python3 tools/torch_kernel_profile.py pair PARENT_DIR DIR [LEVELS] [--only=K6,K7]
+    python3 tools/torch_kernel_profile.py counters DIR [--only=K6,K7]
     python3 tools/torch_kernel_profile.py kernels DIR
     python3 tools/torch_kernel_profile.py archives DIR
     python3 tools/torch_kernel_profile.py micro
@@ -19,32 +20,42 @@ chip_smoke's 64 rows of 128 KiB, the others its 64 rows of 64 KiB in 4
 chains), K5 at chip_smoke's 128-row batch (8 frames of 16 blocks of
 64 KiB, two per quarter of mixed_corpus), K4's execute arm at 64 blocks
 (the codec's first 8 level-3 frames of the corpus) and at the first 8
-level-9 frames (128 blocks of 64 KiB), and the LZ4 decoder on a 4-frame
-window of the codec's own frames (one per quarter), CUDA events, mean
-of 5; --check compares each output with the plain version first.  Each
-output's sha256 is printed.
+level-9 frames (128 blocks of 64 KiB), the LZ4 decoder on a 4-frame
+window of the codec's own frames (one per quarter), K7 at chip_smoke's
+64-row batch and at the 64 MiB hash write's batches 0, 2, 4 and 6 (8
+contiguous MiB each: text, repeats, zeros, noise), and K6 at the lane
+route's calls for the level-3 archive's frames 0-7 (with hints, as
+chip_smoke's phase 8; without hints too), 16-23 (repeats) and 32-39
+(zeros); CUDA events, mean of 5; --check compares each output with the
+plain version first; --only keeps the entries whose names start with one
+of the given prefixes.  Each output's sha256 is printed.
 
 pair: `times` in fresh processes from PARENT_DIR, DIR, DIR, PARENT_DIR
 (one card, in turns), then checks that both gave the same outputs.
 
 counters: copies DIR's kernels to build/counters/, inserts clock64()
-counters into K1's level >= 4 walk (the one-thread walk of PR 6 or the
-warp walk that replaced it, whichever DIR holds), into the one-warp
-LZ4 decoder of PR 3 (the phased decoder that replaced it is timed per
-kernel by torch.profiler instead), into K5's one-thread chain walk of PR
-3 and into K4's one-warp frame walk (seq_kernel) of PR 2, builds that
-copy, and prints per chain (per frame) the cycles of each part of the
-walk and its counts.  For the one-thread K1 it also times the walk with
-the dual table in device memory instead of shared memory.  Kernels that
-DIR holds in another design are skipped.
+counters into K1's level >= 4 walk (the one-thread walk or the warp walk
+that replaced it, whichever DIR holds), into the LZ4 decoder's first,
+one-warp version (the phased decoder that replaced it is timed per
+kernel by torch.profiler instead), into K5's one-thread chain walk, into
+K4's first, one-warp frame walk (seq_kernel), into K7's walk (the first
+version's lane-0 walk or the round walk that replaced it; per row of
+each K7 batch) and into K6's first, one-warp frame walk (per frame of
+each K6 call), builds that copy, and prints per chain (per frame, per
+row) the cycles of each part of the walk and its counts.  For the
+one-thread K1 it also times the walk with the dual table in device
+memory instead of shared memory.  Kernels that DIR holds in another
+design are skipped, and so are those that --only leaves out.
 
-kernels: K4's execute arm (level 3, 64 blocks; level 9, 128 blocks) and
-K5 (128 rows) under torch.profiler, five calls each: the mean
+kernels: K4's execute arm (level 3, 64 blocks; level 9, 128 blocks), K5
+(128 rows), K7 (chip_smoke's 64 rows; the text batch) and K6 (the 8
+frames with hints; the 8 repeats frames) under torch.profiler, five calls each: the mean
 milliseconds and launches a call of each CUDA kernel.
 
 archives: the sha256 of the 64 MiB of mixed_corpus (seed 11) that DIR's
 Writer writes as chip_smoke.py does (zstd at levels 3 and 9, LZ4 at
-level 0), to show two commits' archives equal.
+level 0, and zstd through ZstdCodec(parser="hash")), to show two
+commits' archives equal.
 
 micro: latency in cycles of warp intrinsics and loads on the card.
 """
@@ -324,6 +335,113 @@ K4_WARP_PER_FRAME = ("frame", ["walk", "fse_step", "unused", "lit_copy",
      "    for (int i = 0; i < 12; ++i) g_prof[f & 63][i] += P[i];\n  }\n}\n"),
 ])
 
+# K7, the first version's lane-0 walk (per row; lane 0 counts): the probe (hash,
+# table read and write, the candidate's broadcast), the candidate's load
+# and compare (timed to the first clock after the branch that uses it),
+# the extension's 32-word rounds, the tail bytes, the emission, the miss
+# step, and the table clear before the walk
+K7_LANE0 = ("lane0", ["walk", "probe", "cand", "extend", "tail", "emit",
+                      "miss_step", "unused", "probes", "misses",
+                      "ext_rounds", "tail_bytes", "seqs", "clear"], [
+    ("  extern __shared__ uint32_t smem[];\n",
+     "  extern __shared__ uint32_t smem[];\n  long long Tk = clock64();\n"),
+    ("  int ip = 0, anchor = 0, cnt = 0, miss = 0;\n  while (ip < limit) {\n"
+     "    const uint32_t w = w32(xw, ip);\n",
+     "  int ip = 0, anchor = 0, cnt = 0, miss = 0;\n"
+     "  unsigned long long P[16] = {0};\n  long long T0 = clock64(), ta, tb, tc;\n"
+     "  P[13] = T0 - Tk;\n  while (ip < limit) {\n    ta = clock64();\n"
+     "    const uint32_t w = w32(xw, ip);\n"),
+    ("    cand = __shfl_sync(FULL, cand, 0);\n",
+     "    cand = __shfl_sync(FULL, cand, 0);\n"
+     "    tb = clock64(); P[1] += tb - ta; P[8] += 1;\n"),
+    ("    if (!good) {\n      ip += 1 + (miss >> 6);\n      miss += 1;\n",
+     "    if (!good) {\n      tc = clock64(); P[2] += tc - tb;\n"
+     "      ip += 1 + (miss >> 6);\n      miss += 1;\n"
+     "      P[6] += clock64() - tc; P[9] += 1;\n"),
+    ("    const int R = blen - ip;\n    int l = 4;\n",
+     "    tc = clock64(); P[2] += tc - tb;\n    const int R = blen - ip;\n"
+     "    int l = 4;\n"),
+    ("      const unsigned bal = __ballot_sync(FULL, ok);\n",
+     "      const unsigned bal = __ballot_sync(FULL, ok);\n      P[10] += 1;\n"),
+    ("    for (int t = 0; t < 3 && l < R && xb[ip + l] == xb[cand + l]; ++t) ++l;\n",
+     "    long long td = clock64(); P[3] += td - tc;\n    const int l0 = l;\n"
+     "    for (int t = 0; t < 3 && l < R && xb[ip + l] == xb[cand + l]; ++t) ++l;\n"
+     "    long long te = clock64(); P[4] += te - td; P[11] += l - l0;\n"),
+    ("    anchor = ip;\n    miss = 0;\n  }\n",
+     "    anchor = ip;\n    miss = 0;\n    P[5] += clock64() - te; P[12] += 1;\n  }\n"),
+    ("  if (lane == 0) {\n    nn[2 * r] = cnt;",
+     "  if (lane == 0) {\n    P[0] += clock64() - T0;\n"
+     "    for (int i = 0; i < 16; ++i) g_prof[r & 63][i] += P[i];\n"
+     "    nn[2 * r] = cnt;"),
+])
+# K7, the round walk (per row; lane 0 counts): the round's
+# words, slots and buckets (to __match_any_sync), the candidates' words
+# and the lanes' lengths (to the ballots), the walk over the lanes, the
+# cuts and the warp's extension of a long match, and the next position,
+# the emission and the table writes
+K7_ROUNDS = ("rounds", ["walk", "load", "cand", "scan", "cut_long", "emit",
+                        "unused", "unused2", "rounds", "probes", "hits",
+                        "long", "cuts", "dense", "clear"], [
+    ("  extern __shared__ uint4 smem4[];\n",
+     "  extern __shared__ uint4 smem4[];\n  long long Tk = clock64();\n"),
+    ("  int ip = 0, anchor = 0, cnt = 0, miss = 0;\n  while (ip < limit) {\n",
+     "  int ip = 0, anchor = 0, cnt = 0, miss = 0;\n"
+     "  unsigned long long P_[16] = {0};\n  long long T0 = clock64(), Ta, Tb;\n"
+     "  P_[14] = T0 - Tk;\n  while (ip < limit) {\n    Ta = clock64();\n"),
+    ("    const unsigned g = __match_any_sync(FULL, h);\n",
+     "    const unsigned g = __match_any_sync(FULL, h);\n"
+     "    Tb = clock64(); P_[1] += Tb - Ta; Ta = Tb;\n"),
+    ("    const unsigned lb = __ballot_sync(FULL, lng);\n",
+     "    const unsigned lb = __ballot_sync(FULL, lng);\n"
+     "    Tb = clock64(); P_[2] += Tb - Ta; Ta = Tb;\n"),
+    ("    int stop = -1;\n",
+     "    Tb = clock64(); P_[3] += Tb - Ta; Ta = Tb;\n    int stop = -1;\n"),
+    ("    // the walk's next position, then the sequences and the table\n",
+     "    // the walk's next position, then the sequences and the table\n"
+     "    Tb = clock64(); P_[4] += Tb - Ta; Ta = Tb;\n"
+     "    P_[8] += 1; P_[9] += __popc(P); P_[10] += __popc(HP);\n"
+     "    P_[11] += last_hit && ((lb >> lastp) & 1); P_[12] += stop >= 0;\n"
+     "    P_[13] += m0 <= DENSE_MISS;\n"),
+    ("    __syncwarp();\n  }\n  if (lane == 0) {\n    nn[2 * r] = cnt;",
+     "    __syncwarp();\n    P_[5] += clock64() - Ta;\n  }\n  if (lane == 0) {\n"
+     "    P_[0] += clock64() - T0;\n"
+     "    for (int i = 0; i < 16; ++i) g_prof[r & 63][i] += P_[i];\n"
+     "    nn[2 * r] = cnt;"),
+])
+# K6, the first version's one-warp frame walk (per frame; lane 0 counts): the
+# checks (the sequence's loads and tests), the literal copy, and the match
+# copy by kind: off >= ml (no overlap), an overlap with off >= 32 (rounds
+# of 32 bytes), off < 32 (the repeated pattern)
+K6_WARP_PER_FRAME = ("frame", ["walk", "checks", "lit_copy", "match_ge_ml",
+                               "match_ge32", "match_lt32", "unused", "seqs",
+                               "lit_bytes", "n_ge_ml", "n_ge32", "n_lt32",
+                               "match_bytes", "rows"], [
+    # only the first version's launch (the phased version's serial arm
+    # shares the walk's text)
+    ("  exec_kernel<<<F, 32, 0, (cudaStream_t)stream>>>(",
+     "  exec_kernel<<<F, 32, 0, (cudaStream_t)stream>>>("),
+    ("  bool failed = false;\n  for (int r = chain[f];",
+     "  bool failed = false;\n  unsigned long long P[16] = {0};\n"
+     "  long long T0 = clock64();\n  for (int r = chain[f];"),
+    ("    const int n_seq = meta[3 * r];",
+     "    P[13] += 1;\n    const int n_seq = meta[3 * r];"),
+    ("      const int a = ll[j], m = ml[j], o = of[j];",
+     "      long long ta = clock64();\n"
+     "      const int a = ll[j], m = ml[j], o = of[j];"),
+    ("      warp_copy(fout + op, row + lp, a, lane);\n"
+     "      warp_match(fout + op + a, o, m, lane);\n",
+     "      long long tb = clock64(); P[1] += tb - ta;\n"
+     "      warp_copy(fout + op, row + lp, a, lane);\n"
+     "      long long tc = clock64(); P[2] += tc - tb;\n"
+     "      warp_match(fout + op + a, o, m, lane);\n"
+     "      const int k = m == 0 ? -1 : o >= m ? 3 : o >= 32 ? 4 : 5;\n"
+     "      if (k > 0) { P[k] += clock64() - tc; P[k + 6] += 1; }\n"
+     "      P[7] += 1; P[8] += a; P[12] += m;\n"),
+    ("    failed = !good;\n  }\n}\n",
+     "    failed = !good;\n  }\n  if (lane == 0) {\n    P[0] += clock64() - T0;\n"
+     "    for (int i = 0; i < 16; ++i) g_prof[f & 63][i] += P[i];\n  }\n}\n"),
+])
+
 MICRO = r'''
 #include <cstdio>
 #include <cuda_runtime.h>
@@ -427,6 +545,51 @@ def _k4_args(data, level):
     return args, n, {"n_seqs": D.seq_total(rows["meta"])} if takes else {}
 
 
+# K7's batches: chip_smoke's 64 rows (16 from each quarter), then the 64 MiB
+# hash write's batches 0, 2, 4 and 6 (8 contiguous MiB: one per quarter)
+K7_BATCHES = (("64 rows", None), ("text", 0), ("repeats", 16),
+              ("zeros", 32), ("noise", 48))
+# K6's windows: the level-3 archive's frames from these indices, 8 each
+K6_WINDOWS = (("8 frames", 0), ("repeats 8 frames", 16),
+              ("zeros 8 frames", 32))
+
+
+def _k7_args(cs, data, start):
+    """K7's (x, lengths) on the card: chip_smoke's BATCH_ROWS (start
+    None) or the 64 blocks of 128 KiB from `start` MiB on."""
+    import torch
+    rows = cs.BATCH_ROWS if start is None else \
+        [start * MIB + j * cs.N for j in range(64)]
+    return [torch.from_numpy(a).cuda() for a in cs.hash_rows(data, rows)]
+
+
+def _k6_calls(cs, data):
+    """K6's recorded calls (fn, args, kwargs) on the lane route for each
+    K6_WINDOWS window of the level-3 archive (with its hints; the first
+    window also without): {name: [calls]}."""
+    from libzseek_tpu_torch import Reader
+    from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
+    archive, _ = cs.write_archive(data, "cuda")
+    table = parse_seek_table_bytes(archive)
+    r = Reader(archive, device="cuda", decoder="lanes")
+    out = {}
+    for name, i0 in K6_WINDOWS:
+        idx = range(i0, i0 + 8)
+        frames = [cs.frame_bytes(archive, table, i) for i in idx]
+        for tag, hints in (("", [r._frame_hints(i) for i in idx]),
+                           (" no hints", None)):
+            if tag and i0:
+                continue
+            _, calls = cs.lane_calls(frames, [MIB] * 8, hints)
+            out[name + tag] = [c[:3] for c in calls["execute_blocks"]]
+    r.close()
+    return out
+
+
+def _keep(name, only):
+    return not only or any(name.startswith(p) for p in only)
+
+
 def _digest(ts) -> str:
     import hashlib
     h = hashlib.sha256()
@@ -435,14 +598,16 @@ def _digest(ts) -> str:
     return h.hexdigest()[:16]
 
 
-def times(pkg_dir, levels, check):
+def times(pkg_dir, levels, check, only=()):
     import torch
     cs, data = _load(pkg_dir)
-    from libzseek_tpu_torch.ops import decode, lz4_decode, lz4_emit
-    from libzseek_tpu_torch.ops import parse_linked
+    from libzseek_tpu_torch.ops import decode, exec_blocks, hash_parse
+    from libzseek_tpu_torch.ops import lz4_decode, lz4_emit, parse_linked
     res = {}
 
     def run(name, fn, plain):
+        if not _keep(name, only):
+            return
         got = fn()
         torch.cuda.synchronize()
         res[f"{name} sha256"] = _digest(got)
@@ -452,35 +617,51 @@ def times(pkg_dir, levels, check):
         res[f"{name} ms"] = cs.time_cuda(fn)
 
     for level in levels:
+        if not _keep(f"K1 L{level}", only):
+            continue
         args, prm = _k1_args(cs, data, level)
         run(f"K1 L{level}", lambda: parse_linked.parse_linked(*args, **prm),
             lambda: parse_linked.parse_linked(*[a.cpu() for a in args],
                                               **prm))
-    k5, cap = _k5_args(cs, data)
-    run("K5 128 rows", lambda: lz4_emit.lz4_emit(*k5, cap),
-        lambda: lz4_emit.lz4_emit(*[a.cpu() for a in k5], cap))
-    for level in (3, 9):
+    if _keep("K5", only):
+        k5, cap = _k5_args(cs, data)
+        run("K5 128 rows", lambda: lz4_emit.lz4_emit(*k5, cap),
+            lambda: lz4_emit.lz4_emit(*[a.cpu() for a in k5], cap))
+    for level in (3, 9) if _keep("K4", only) else ():
         k4, n, ns = _k4_args(data, level)
         run(f"K4 L{level} {k4[4].shape[0]} blocks",
             lambda: decode.decode_blocks(*k4, n, **ns),
             lambda: decode.decode_blocks(*[a.cpu() for a in k4], n))
-    (comp, clens, unc), F, linked = _lz4_window(cs, data)
-    d = [a.cuda() for a in (comp, clens, unc)]
-    run("LZ4 decode", lambda: lz4_decode.lz4_decode_frames(
-        *d, F, linked=linked), lambda: lz4_decode.lz4_decode_frames(
-        comp, clens, unc, F, linked=linked))
+    if _keep("LZ4", only):
+        (comp, clens, unc), F, linked = _lz4_window(cs, data)
+        d = [a.cuda() for a in (comp, clens, unc)]
+        run("LZ4 decode", lambda: lz4_decode.lz4_decode_frames(
+            *d, F, linked=linked), lambda: lz4_decode.lz4_decode_frames(
+            comp, clens, unc, F, linked=linked))
+    for name, start in K7_BATCHES if _keep("K7", only) else ():
+        k7 = _k7_args(cs, data, start)
+        run(f"K7 {name}", lambda: hash_parse.hash_parse(*k7),
+            lambda: hash_parse.hash_parse(*[a.cpu() for a in k7]))
+    if _keep("K6", only):
+        cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+        for name, calls in _k6_calls(cs, data).items():
+            run(f"K6 {name}",
+                lambda: [t for fn, a, kw in calls for t in fn(*a, **kw)],
+                lambda: [t for fn, a, kw in calls for t in fn(
+                    *map(cpu, a), **{k: cpu(v) for k, v in kw.items()})])
     print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
     return res
 
 
-def pair(parent, change, levels):
+def pair(parent, change, levels, only=()):
     """times from parent, change, change, parent, each in its own process
     (the two trees hold packages of one name)."""
     runs = []
     for d in (parent, change, change, parent):
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "times", d,
-             ",".join(map(str, levels)), "--check"],
+             ",".join(map(str, levels)), "--check",
+             "--only=" + ",".join(only)],
             capture_output=True, text=True)
         if proc.returncode:
             sys.exit(f"pair: times {d} failed:\n{proc.stderr}")
@@ -499,12 +680,13 @@ def pair(parent, change, levels):
 
 
 def kernels(pkg_dir):
-    """K4's execute arm (level 3, 64 blocks; level 9, 128 blocks) and K5
-    (128 rows), five calls each under torch.profiler: the mean time of
-    each CUDA kernel a call launches."""
+    """K4's execute arm (level 3, 64 blocks; level 9, 128 blocks), K5
+    (128 rows), K7 (64 rows; the text batch) and K6 (8 frames with
+    hints; 8 repeats frames), five calls each under torch.profiler: the mean time of each
+    CUDA kernel a call launches."""
     import torch
     cs, data = _load(pkg_dir)
-    from libzseek_tpu_torch.ops import decode, lz4_emit
+    from libzseek_tpu_torch.ops import decode, hash_parse, lz4_emit
     runs = []
     for level in (3, 9):
         k4, n, ns = _k4_args(data, level)
@@ -513,6 +695,14 @@ def kernels(pkg_dir):
                          *k4, n, **ns)))
     k5, cap = _k5_args(cs, data)
     runs.append(("K5 128 rows", lambda: lz4_emit.lz4_emit(*k5, cap)))
+    for name, start in K7_BATCHES[:2]:
+        k7 = _k7_args(cs, data, start)
+        runs.append((f"K7 {name}",
+                     lambda k7=k7: hash_parse.hash_parse(*k7)))
+    k6 = _k6_calls(cs, data)
+    for name in ("8 frames", "repeats 8 frames"):
+        runs.append((f"K6 {name}", lambda calls=k6[name]: [
+            fn(*a, **kw) for fn, a, kw in calls]))
     act = [torch.profiler.ProfilerActivity.CUDA]
     for name, fn in runs:
         fn()
@@ -529,13 +719,16 @@ def kernels(pkg_dir):
 
 def archives(pkg_dir):
     """sha256 of the 64 MiB of mixed_corpus written by DIR's Writer as
-    chip_smoke.py writes it: zstd at levels 3 and 9, LZ4 at level 0."""
+    chip_smoke.py writes it: zstd at levels 3 and 9, LZ4 at level 0, zstd
+    through the hash parser."""
     import hashlib
     cs, data = _load(pkg_dir)
     res = {}
     for codec, level in (("zstd", 3), ("zstd", 9), ("lz4", 0)):
         archive, _ = cs.write_archive(data, "cuda", codec, level)
         res[f"{codec} level {level}"] = hashlib.sha256(archive).hexdigest()
+    archive, _, _ = cs.hash_write(data, "cuda")
+    res["zstd hash parser"] = hashlib.sha256(archive).hexdigest()
     print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
 
 
@@ -556,7 +749,7 @@ def _patch(path, variants, tag):
     return None, None
 
 
-def counters(pkg_dir):
+def counters(pkg_dir, only=()):
     import numpy as np
     import torch
     dst = os.path.join(ROOT, "build", "counters")
@@ -575,9 +768,13 @@ def counters(pkg_dir):
                             "k5")
     k4v, k4_fields = _patch(os.path.join(csrc, "decode.cu"),
                             [K4_WARP_PER_FRAME], "k4")
+    k7v, k7_fields = _patch(os.path.join(csrc, "hash_parse.cu"),
+                            [K7_LANE0, K7_ROUNDS], "k7")
+    k6v, k6_fields = _patch(os.path.join(csrc, "exec_blocks.cu"),
+                            [K6_WARP_PER_FRAME], "k6")
     cs, data = _load(dst)
     from libzseek_tpu_torch import kernels
-    from libzseek_tpu_torch.ops import decode, lz4_decode, lz4_emit
+    from libzseek_tpu_torch.ops import decode, hash_parse, lz4_decode, lz4_emit
     from libzseek_tpu_torch.ops import parse_linked as PL
     lib = kernels.library()
     prof = np.zeros((64, 16), np.uint64)
@@ -595,21 +792,35 @@ def counters(pkg_dir):
                 for c in range(n)]
 
     print(json.dumps({"k1_version": k1, "lz4_version": lz, "k5_version": k5v,
-                      "k4_version": k4v}), flush=True)
-    if k5v:
+                      "k4_version": k4v, "k7_version": k7v,
+                      "k6_version": k6v}), flush=True)
+    if k7v and _keep("K7", only):
+        for name, start in K7_BATCHES:
+            k7 = _k7_args(cs, data, start)
+            fn = lambda: hash_parse.hash_parse(*k7)
+            print(json.dumps({f"K7 {name}": {
+                "ms": cs.time_cuda(fn, reps=3),
+                "rows": run(fn, k7_fields, 64, "k7")}}), flush=True)
+    if k6v and _keep("K6", only):
+        for name, calls in _k6_calls(cs, data).items():
+            fn = lambda: [f(*a, **kw) for f, a, kw in calls]
+            print(json.dumps({f"K6 {name}": {
+                "ms": cs.time_cuda(fn, reps=3),
+                "frames": run(fn, k6_fields, 8, "k6")}}), flush=True)
+    if k5v and _keep("K5", only):
         k5, cap = _k5_args(cs, data)
         fn = lambda: lz4_emit.lz4_emit(*k5, cap)
         print(json.dumps({"K5 128 rows": {
             "ms": cs.time_cuda(fn, reps=3),
             "chains": run(fn, k5_fields, 8, "k5")}}), flush=True)
-    if k4v:
+    if k4v and _keep("K4", only):
         for level in (3, 9):
             k4, n, ns = _k4_args(data, level)
             fn = lambda: decode.decode_blocks(*k4, n, **ns)
             print(json.dumps({f"K4 L{level}": {
                 "ms": cs.time_cuda(fn, reps=3),
                 "frames": run(fn, k4_fields, 8, "k4")}}), flush=True)
-    if k1:
+    if k1 and _keep("K1", only):
         for level in (9, 4, 16):
             args, prm = _k1_args(cs, data, level)
             fn = lambda: PL.parse_linked(*args, **prm)
@@ -619,7 +830,7 @@ def counters(pkg_dir):
                 out["ms_table_in_device_memory"] = _global_table(
                     lib, cs, PL, args, prm)
             print(json.dumps({f"K1 L{level}": out}), flush=True)
-    if lz:
+    if lz and _keep("LZ4", only):
         (comp, clens, unc), F, linked = _lz4_window(cs, data)
         d = [a.cuda() for a in (comp, clens, unc)]
         fn = lambda: lz4_decode.lz4_decode_frames(*d, F, linked=linked)
@@ -673,16 +884,18 @@ def main():
     cmd = sys.argv[1] if len(sys.argv) > 1 else ""
     levels = lambda i: [int(x) for x in sys.argv[i].split(",") if x] \
         if len(sys.argv) > i and not sys.argv[i].startswith("-") else []
+    only = [p for a in sys.argv if a.startswith("--only=")
+            for p in a[len("--only="):].split(",") if p]
     if cmd == "times":
-        times(sys.argv[2], levels(3), "--check" in sys.argv)
+        times(sys.argv[2], levels(3), "--check" in sys.argv, only)
     elif cmd == "pair":
-        pair(sys.argv[2], sys.argv[3], levels(4))
+        pair(sys.argv[2], sys.argv[3], levels(4), only)
     elif cmd == "archives":
         archives(sys.argv[2])
     elif cmd == "kernels":
         kernels(sys.argv[2])
     elif cmd == "counters":
-        counters(sys.argv[2])
+        counters(sys.argv[2], only)
     elif cmd == "micro":
         micro()
     else:
