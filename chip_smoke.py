@@ -11,9 +11,13 @@ Phases, each of which must pass (any failure exits non-zero):
      source, in parallel), timed;
   2. each kernel on the card against its plain PyTorch version on the
      CPU, same inputs, exact equality: K1 parse, K2 entropy and K3
-     literal placement on small inputs from mixed_corpus(seed 11) and at
-     the main path's 64-block batch (8 frames of 8 blocks; K2 with the
-     main path's modes, K3 on the rows the main path gives it); K4 decode
+     literal placement (the fused vector_literals call) on small inputs
+     from mixed_corpus(seed 11) and at the main path's 64-block batch (8
+     frames of 8 blocks; K2 with the main path's modes, K3 on the rows
+     the main path gives it); K2 also at the hash write's first batch
+     (64 literal-heavy text rows, as its K2 arm passes them) and at the
+     level-9 write's first batch (64 rows of 64 KiB), K3 at the level-3
+     write's first batch (64 text rows), each timed; K4 decode
      on small frames (the cases of tests/test_decode_smem.py, seed 91,
      written by the port's codec and by stock libzstd at levels 1, 3 and
      19, and a long-window frame) and on damaged copies (rows with a bit
@@ -243,7 +247,8 @@ def against_plain(name, fn, args_gpu):
     import torch
     out_gpu = fn(*args_gpu)
     torch.cuda.synchronize()
-    args_cpu = [a.cpu() for a in args_gpu]
+    args_cpu = [a.cpu() if isinstance(a, torch.Tensor) else a
+                for a in args_gpu]
     plain_ms, out_cpu = time_host(lambda: fn(*args_cpu))
     if isinstance(out_gpu, torch.Tensor):
         out_gpu, out_cpu = [out_gpu], [out_cpu]
@@ -276,6 +281,58 @@ def nbytes(*ts) -> int:
         elif isinstance(t, (tuple, list)):
             n += nbytes(*t)
     return n
+
+
+def k2_work(x, sll, sml, soff, meta, codes, S, lit_cap, seq_cap,
+            ctabs=None) -> tuple[int, int]:
+    """(bytes, operations) that K2 must move and do on these inputs: each
+    output written once (every word is zeroed or written); the meta rows
+    and the constant tables once; on a literal row (MODE_HUF or
+    MODE_RAWLIT) its lc literal bytes, the ll and ml of its n sequences
+    (the run table) and, with MODE_HUF, its 256 codes; on a sequence row
+    its n offsets (and ll, ml) and its sequence tables (the predefined
+    table once, where every row shares it).  Operations: a literal or a
+    sequence each."""
+    import numpy as np
+    from libzseek_tpu_torch.ops import entropy as E
+    B, N = x.shape
+    m = meta.cpu().numpy().astype(np.int64)
+    lc, n, mode = m[:, 1], m[:, 2], m[:, 3]
+    lit = (mode & (E.MODE_HUF | E.MODE_RAWLIT)) != 0
+    seq = ((mode & E.MODE_SEQ) != 0) & (n > 0)
+    huf = (mode & E.MODE_HUF) != 0
+    LMAXA, SMAXA = E.anchor_slots(N, S)
+    out = 4 * B * (lit_cap // 4 + seq_cap // 4 + 8 + 4 * LMAXA + 5 * SMAXA)
+    tables = 4 * E.CTAB_WIDTH * (int(seq.sum()) if ctabs is not None
+                                 else int(seq.any()))
+    read = (4 * 8 * B + 4 * len(E.TABS) + int(lc[lit].sum())
+            + 4 * 256 * int((lit & huf).sum())
+            + 4 * int((n * (2 * (lit | seq) + seq)).sum()) + tables)
+    return out + read, int(lc[lit].sum() + n[seq].sum())
+
+
+def k3_work(x, lit_mask_words, codes, lens, vec_row,
+            lit_cap) -> tuple[int, int]:
+    """(bytes, operations) that K3 must move and do on these inputs: each
+    output written once (the words, sizes and anchors); lens and vec_row;
+    on a row K3 takes, its mask words up to its length, its literal bytes
+    and its 256 codes (a row it does not take gets its sentinels from
+    nothing else).  Operations: a literal each."""
+    import numpy as np
+    from libzseek_tpu_torch.ops import entropy as E
+    B, N = x.shape
+    vec = vec_row.cpu().numpy().astype(bool)
+    ln = lens.cpu().numpy().astype(np.int64)
+    mask = np.ascontiguousarray(lit_mask_words.cpu().numpy())
+    bits = np.unpackbits(mask.view(np.uint8), axis=1,
+                         bitorder="little")[:, :N]
+    bits &= np.arange(N)[None, :] < ln[:, None]
+    lits = int(bits[vec].sum())
+    LMAXA, _ = E.anchor_slots(N, 1)
+    out = 4 * B * (lit_cap // 4 + 4 + 4 * LMAXA)
+    read = (5 * B + lits + 4 * int((-(-ln[vec] // 32)).sum())
+            + 4 * 256 * int(vec.sum()))
+    return out + read, lits
 
 
 def entry(report, name, source, replaces, errs, ms, plain_ms, nb, ops,
@@ -322,41 +379,87 @@ def phase_kernels(data, report):
           "4 blocks in 2 frames; 64 blocks in 8 chains of 8")
 
     # K2 and K3: 8 rows in 2-block frames with every plan mode (K3 on all
-    # 8 rows); then 64 rows with the main path's modes and K3 rows
+    # 8 rows); then 64 rows with the main path's modes and K3 rows; K2
+    # also at the hash write's first batch (64 literal-heavy text rows on
+    # its K2 arm) and at the level-9 write's first batch (64 rows of 64 KiB),
+    # K3 also at the level-3 write's first batch (64 text rows), each with
+    # the arguments the codec passes
+    from libzseek_tpu_torch import ZstdCodec
+
     def k2(x, ll, ml, offv, meta, codes, ctabs):
         return E.entropy_emit(x, ll, ml, offv, meta, codes, S, lit_cap,
                               seq_cap, ctabs=ctabs)
 
-    def k3(val, pos, sent):
-        return VE.place_literals(val, pos, sent, lit_cap // 4)
+    def k3(x, mask, codes, lens, vec):
+        return VE.vector_literals(x, mask, codes, lens, vec, lit_cap)
 
     x, seqs, meta, _k, codes, ctabs, lens_t, _v = chain_inputs(
         *batch_layout(data, K2_ROWS, 2), cuda)
     e2_small, _ = against_plain("K2 (8 rows)", k2, (
         x, seqs["ll"], seqs["ml"], seqs["offv"], meta, codes, ctabs))
     modes = meta[:, 3].cpu().tolist()
-    vp = VE.vector_prep(x, seqs["lit_mask"], codes, lens_t,
-                        torch.ones(8, dtype=torch.bool, device=cuda))
-    e3_small, _ = against_plain("K3 (8 rows)", k3, vp[:3])
+    e3_small, _ = against_plain("K3 (8 rows)", k3, (
+        x, seqs["lit_mask"], codes, lens_t,
+        torch.ones(8, dtype=torch.bool, device=cuda)))
 
     xb, seqsb, _m, kmetab, codesb, ctabsb, lensb, vecb = chain_inputs(
         *batch_layout(data, BATCH_ROWS, 8), cuda)
     k2b = (xb, seqsb["ll"], seqsb["ml"], seqsb["offv"], kmetab, codesb,
            ctabsb)
     e2_big, plain_ms = against_plain("K2 (64 rows)", k2, k2b)
+    text = [data[i * MIB: (i + 1) * MIB] for i in range(8)]
+    k2h = codec_batch(E, "entropy_emit", ZstdCodec(device="cuda",
+                                                   parser="hash"), text)
+    e2_hash, hash_plain_ms = against_plain("K2 (hash text batch)",
+                                           E.entropy_emit, k2h)
+    k2l9 = codec_batch(E, "entropy_emit", ZstdCodec(level=9, device="cuda"),
+                       text[:4])
+    k2_full = (*k2b[:6], S, lit_cap, seq_cap, k2b[6])
+    e2_l9, l9_plain_ms = against_plain("K2 (level-9 text batch)",
+                                       E.entropy_emit, k2l9)
+    hash_ms = time_cuda(lambda: E.entropy_emit(*k2h))
+    l9_ms = time_cuda(lambda: E.entropy_emit(*k2l9))
     entry(report, "K2 entropy_emit", "libzseek_tpu_torch/csrc/entropy.cu",
-          "libzseek_tpu/ops/pallas_entropy.py:144", [e2_small, e2_big],
-          time_cuda(lambda: k2(*k2b)), plain_ms, nbytes(k2b, k2(*k2b)),
-          xb.numel(), f"8 rows, modes {modes}; 64 rows, main-path modes")
+          "libzseek_tpu/ops/pallas_entropy.py:144",
+          [e2_small, e2_big, e2_hash, e2_l9], time_cuda(lambda: k2(*k2b)),
+          plain_ms, *k2_work(*k2_full),
+          f"8 rows, modes {modes}; 64 rows, main-path modes; the hash "
+          f"write's text batch card {hash_ms:.3f} ms (plain "
+          f"{hash_plain_ms:.1f}), the level-9 write's text batch card "
+          f"{l9_ms:.3f} ms (plain {l9_plain_ms:.1f})")
+    report[-1].update(
+        cuda_kernels=K2_KERNELS, hash_batch_ms=hash_ms,
+        hash_batch_bound_ms=bound(*k2_work(*k2h))[0], level9_batch_ms=l9_ms,
+        level9_batch_bound_ms=bound(*k2_work(*k2l9))[0])
     n_vec = int(vecb.sum())
     check(n_vec > 0, "no row of the 64-block batch goes to K3")
-    vb = VE.vector_prep(xb, seqsb["lit_mask"], codesb, lensb, vecb)[:3]
+    vb = (xb, seqsb["lit_mask"], codesb, lensb, vecb)
     e3_big, plain_ms = against_plain("K3 (64 rows)", k3, vb)
-    entry(report, "K3 place_literals", "libzseek_tpu_torch/csrc/place_literals.cu",
-          "libzseek_tpu/ops/vector_entropy.py:60", [e3_small, e3_big],
-          time_cuda(lambda: k3(*vb)), plain_ms, nbytes(vb, k3(*vb)),
-          vb[0].numel(), f"8 rows; 64 rows, {n_vec} of them K3's on the "
-          "main path")
+    k3t = codec_batch(VE, "vector_literals", ZstdCodec(device="cuda"), text)
+    e3_text, text_plain_ms = against_plain("K3 (level-3 text batch)",
+                                           VE.vector_literals, k3t)
+    text_ms = time_cuda(lambda: VE.vector_literals(*k3t))
+    entry(report, "K3 vector_literals",
+          "libzseek_tpu_torch/csrc/place_literals.cu",
+          "libzseek_tpu/ops/vector_entropy.py:60",
+          [e3_small, e3_big, e3_text], time_cuda(lambda: k3(*vb)), plain_ms,
+          *k3_work(*vb, lit_cap),
+          f"the fused call; 8 rows; 64 rows, {n_vec} of them K3's on the "
+          f"main path; the level-3 write's text batch card {text_ms:.3f} ms "
+          f"(plain {text_plain_ms:.1f})")
+    report[-1].update(cuda_kernels=K3_KERNELS, text_batch_ms=text_ms,
+                      text_batch_bound_ms=bound(*k3_work(*k3t))[0])
+
+
+def by_name(report, name):
+    return next(r for r in report if r["name"] == name)
+
+
+def codec_batch(module, name, codec, frames):
+    """The positional arguments of the codec's first call to module.name
+    (keywords in the function's order) while it compresses `frames`."""
+    from libzseek_tpu_torch.testing.capture import first_call
+    return tuple(first_call(module, name, codec, frames).arguments.values())
 
 
 def k4_against_plain(name, frames, raws):
@@ -382,6 +485,8 @@ def k4_against_plain(name, frames, raws):
 
 
 # the CUDA kernels behind each wrapper whose kernel this slice redesigned
+K2_KERNELS = ["tables_kernel", "emit_kernel", "fixup_kernel"]
+K3_KERNELS = ["vec_tables_kernel", "vec_place_kernel", "vec_fixup_kernel"]
 K4_KERNELS = ["huf_kernel", "rec_kernel", "frame_kernel", "check_kernel",
               "final_kernel", "expand_kernel", "pd_round_kernel",
               "pd_finish_kernel"]
@@ -1029,6 +1134,7 @@ def phase_hash(data, card, report, keep: dict) -> dict:
     archive, dt, codec = hash_write(data, "cuda")
     k7["launches"] = hash_parse.launches
     k2_launches = entropy.launches
+    by_name(report, "K2 entropy_emit")["launches_hash"] = k2_launches
     check(hash_parse.launches > 0, "K7 never launched on the hash write")
     check(k2_launches > 0, "K2 never launched on the hash write")
     check(codec.arms["xla"] == 0, "a batch of the corpus took the XLA arm")
@@ -1421,6 +1527,8 @@ def phase_levels(data, card, report, keep: dict) -> dict:
     archive, dt = write_archive(data, "cuda", level=9)
     counts = {k: m.launches for k, m in mods.items()}
     k1[9]["launches"] = counts["K1"]
+    by_name(report, "K2 entropy_emit")["launches_level9"] = counts["K2"]
+    by_name(report, "K3 vector_literals")["launches_level9"] = counts["K3"]
     ratio = len(archive) / len(data)
     print(f"level-9 write path: 64 MiB in {dt:.3f} s = {64 / dt:.2f} MiB/s, "
           f"ratio {ratio:.5f} ({len(archive)} bytes); launches {counts}",
@@ -1704,7 +1812,7 @@ def main() -> None:
     # phase 3
     from libzseek_tpu_torch.ops import entropy, parse_linked, vector_entropy
     mods = {"K1 parse_linked": parse_linked, "K2 entropy_emit": entropy,
-            "K3 place_literals": vector_entropy}
+            "K3 vector_literals": vector_entropy}
     write_archive(data, "cuda")          # warm-up
     for m in mods.values():
         m.launches = 0

@@ -140,6 +140,12 @@ constexpr int C_ML_BITS = 2 * N_LL;
 constexpr int C_ML_BASE = 2 * N_LL + N_ML;
 constexpr int N_CTAB = 2 * N_LL + 2 * N_ML;
 constexpr int FT_SIZE = 1536;           // a row's LL | OF | ML tables
+// the most dynamic shared memory huf_kernel and rec_kernel launch with.
+// Their attributes are set to these, not to a launch's own size: an
+// attribute is the kernel's, shared by the reader's threads, and one
+// thread lowering it under another's larger launch fails that launch.
+constexpr int HUF_SMEM_MAX = (DT_SIZE + HUF_STAGE / 4) * 4;
+constexpr int SEQ_SMEM_MAX = (FT_SIZE + N_CTAB + 2 + SEQ_STAGE / 4) * 4;
 
 // a row's summary (int32, RI_W a row): written by rec_kernel (NWALK ..
 // LPOS, REC), frame_kernel (BASE, FSZ, FOFF), check_kernel (FAIL) and
@@ -751,7 +757,8 @@ extern "C" int zk_decode(const void* lp, const void* sq, const void* dtabs,
   if (B <= 0) return (int)cudaGetLastError();
   const int hsm = (DT_SIZE + min(LPW, HUF_STAGE / 4)) * 4;
   cudaError_t e = cudaFuncSetAttribute(
-      huf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hsm);
+      huf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      HUF_SMEM_MAX);
   if (e != cudaSuccess) return (int)e;
   huf_kernel<<<B, HUF_THREADS, hsm, s>>>(
       (const uint32_t*)lp, LPW, (const int*)dtabs, (const int*)meta, nullptr,
@@ -759,7 +766,8 @@ extern "C" int zk_decode(const void* lp, const void* sq, const void* dtabs,
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const int ssm = (FT_SIZE + N_CTAB + 2 + min(SQW, SEQ_STAGE / 4)) * 4;
   e = cudaFuncSetAttribute(rec_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, ssm);
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           SEQ_SMEM_MAX);
   if (e != cudaSuccess) return (int)e;
   rec_kernel<<<B, 32, ssm, s>>>(
       (const uint32_t*)sq, SQW, (const int*)ftabs, (const int*)meta,
@@ -806,7 +814,8 @@ extern "C" int zk_transcode(const void* lp, const void* sq, const void* dtabs,
   if (lp) {   // null: no row's literals are on the card
     const int hsm = (DT_SIZE + min(LPW, HUF_STAGE / 4)) * 4;
     cudaError_t e = cudaFuncSetAttribute(
-        huf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hsm);
+        huf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        HUF_SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     huf_kernel<<<B, HUF_THREADS, hsm, s>>>(
         (const uint32_t*)lp, LPW, (const int*)dtabs, (const int*)meta,

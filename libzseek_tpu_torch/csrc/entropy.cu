@@ -11,26 +11,44 @@
 //     per-block tables with per-stream accuracy logs), its state flushes
 //     and sequence decode anchors [bits, ll, of, ml state, rep1] every
 //     128 sequences.
-// Literals are walked straight out of the raw block through the
-// sequence list (the run table), as in the reference.
+// Literals are read straight out of the raw block through the sequence
+// list (the run table), as in the reference.
 //
-// Rows share nothing, so one CUDA block takes one row.  Both halves are
-// sequential bit pushers, and they are independent: thread 0 emits the
-// literal payload while thread 32 (another warp) emits the sequence
-// stream; the other threads only zero the word buffers and fill the
-// anchors with -1 first.  Bound: the dependent push chain on one thread
-// per half (latency, not bandwidth).  The TPU's premerged pair-code table
-// is an SMEM instruction-rate trick with the same output and is not carried
-// over.
+// Pushed bit by bit, one thread a row, a literal costs ~340 cycles (its run
+// and its code reloaded from L2 and L1 on the dependent chain), so here
+// every output bit's position is computed in parallel:
+//   * the output buffers are zeroed and the anchors set to -1 by memsets;
+//   * tables_kernel (a block of 1024 threads a row): the run table by a
+//     block scan of ll and ll + ml, then each literal chunk's code-length
+//     sum (csrc/huf_place.cuh, phase 1);
+//   * emit_kernel: blocks 0..B-1 emit the rows' sequence streams, the
+//     other blocks place one literal chunk each (huf_place.cuh, phase 2, or
+//     a raw copy), so the two halves run at once.  A sequence block computes
+//     every sequence's codes in parallel, walks the three FSE state chains
+//     (ll, of, ml) on three lanes with the row's tables in shared memory,
+//     recording each step's state bits, takes each sequence's first bit from
+//     a block scan of the widths, then builds the stream word by word: a
+//     thread packs the pushes of the sequences its words hold and stores
+//     each word whole; rep1 comes from a max-scan of the last explicit
+//     offset;
+//   * fixup_kernel: the literal chunks' shared edge words (huf_place.cuh).
+// No output word has two writers, and no global atomic is used.
+// Bound: the bytes (the zeroed buffers) on rows with few literals; on
+// literal rows the lookups a literal (its run, byte and code, twice); on
+// sequence rows the state chains, one shared-memory load a step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "huf_place.cuh"
 
 namespace {
 
 constexpr int MODE_HUF = 1, MODE_RAWLIT = 2, MODE_SEQ = 4, MODE_HUF1 = 8;
 constexpr int MODE_LL_RLE = 16, MODE_OF_RLE = 32, MODE_ML_RLE = 64;
 constexpr int LL_DEFAULT_LOG = 6, OF_DEFAULT_LOG = 5, ML_DEFAULT_LOG = 6;
+constexpr int CT_MAX = 1536;    // a row's sequence-table pack, ints
+constexpr int TABS_MAX = 1024;  // the constant tables, ints
 
 // offsets into the constant table pack (ops/entropy.py TAB_OFF)
 struct TabOff {
@@ -40,41 +58,6 @@ struct TabOff {
 struct CtOff {
   int ll_st, ll_dnb, ll_dfs, of_st, of_dnb, of_dfs, ml_st, ml_dnb, ml_dfs;
 };
-
-struct BitW {
-  uint32_t* ref;
-  uint32_t buf;
-  int nb;
-  int w;
-};
-
-__device__ __forceinline__ void push(BitW& s, uint32_t v, int nbits) {
-  int total = s.nb + nbits;
-  uint32_t merged = s.buf | (v << s.nb);
-  if (total >= 32) {
-    s.ref[s.w] = merged;
-    s.buf = (v >> (31 - s.nb)) >> 1;
-    s.nb = total - 32;
-    s.w += 1;
-  } else {
-    s.buf = merged;
-    s.nb = total;
-  }
-}
-
-__device__ __forceinline__ BitW stream_open(uint32_t* ref, int byte_base) {
-  BitW s;
-  s.ref = ref;
-  s.w = byte_base >> 2;
-  s.nb = (byte_base & 3) * 8;
-  s.buf = s.nb > 0 ? (ref[s.w] & ((1u << s.nb) - 1u)) : 0u;
-  return s;
-}
-
-__device__ __forceinline__ void stream_close(BitW& s) {
-  push(s, 1u, 1);
-  if (s.nb > 0) s.ref[s.w] = s.buf;
-}
 
 __device__ __forceinline__ int exp_of(int v) {
   int e = 0;
@@ -87,61 +70,157 @@ __device__ __forceinline__ int exp_of(int v) {
   return e;
 }
 
-__device__ void emit_literals(const uint8_t* x, const int* sll, const int* sml,
-                              int n, int lc, int mode, const int* codes,
-                              int* run_pos, int* run_cum, uint32_t* lit_o,
-                              int* osz, int* lanch, int LMAXA) {
-  int pos = 0, cum = 0;
-  for (int j = 0; j < n; ++j) {
-    run_pos[j] = pos;
-    run_cum[j] = cum;
-    pos += sll[j] + sml[j];
-    cum += sll[j];
+// a row's literal half, phase 1: the run table and the chunk sums
+__global__ void __launch_bounds__(1024)
+tables_kernel(const uint8_t* __restrict__ x, const int* __restrict__ sll,
+              const int* __restrict__ sml, const int* __restrict__ meta,
+              const int* __restrict__ codes, int N, int S, int* run_pos,
+              int* run_cum, int* cbits, int* parts) {
+  __shared__ int ws[32];
+  __shared__ int cs[256];
+  const int b = blockIdx.x;
+  const int* m = meta + 8 * b;
+  const int lc = m[1], n = m[2], mode = m[3];
+  const hp::Slots SL = hp::slots(N, false);
+  for (int i = threadIdx.x; i < 4 * SL.nch; i += blockDim.x)
+    parts[(size_t)b * 4 * SL.nch + i] = -1;
+  if (!(mode & (MODE_HUF | MODE_RAWLIT))) return;
+  const size_t rs = (size_t)b * S;
+  int* cum = run_cum + (size_t)b * (S + 1);
+  int* pos = run_pos + (size_t)b * (S + 1);
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int j0 = min(n, (int)threadIdx.x * per), j1 = min(n, j0 + per);
+  int a = 0, q = 0;
+  for (int j = j0; j < j1; ++j) {
+    a += sll[rs + j];
+    q += sll[rs + j] + sml[rs + j];
   }
-  run_pos[n] = pos;
-  run_cum[n] = cum;
-  if (mode & MODE_HUF) {
-    const bool one = (mode & MODE_HUF1) != 0;
-    const int s = one ? lc : (lc + 3) >> 2;
-    int byte_base = 0;
-    for (int s4 = 0; s4 < 4; ++s4) {
-      int sz = 0;
-      if (s4 == 0 || !one) {
-        const int cnt = s4 < 3 ? s : lc - 3 * s;
-        const int gbase = s4 * s;
-        BitW st = stream_open(lit_o, byte_base);
-        int sbits = 0, r = n;
-        for (int g = gbase + cnt - 1; g >= gbase; --g) {
-          while (run_cum[r] > g) --r;
-          const int p = codes[x[run_pos[r] + (g - run_cum[r])]];
-          push(st, (uint32_t)(p >> 4), p & 15);
-          sbits += p & 15;
-          const int k = g - gbase;
-          if (k > 0 && (k & 511) == 0 && (k >> 9) - 1 < LMAXA)
-            lanch[s4 * LMAXA + (k >> 9) - 1] = sbits;
-        }
-        stream_close(st);
-        sz = (sbits + 1 + 7) >> 3;
-      }
-      osz[s4] = sz;
-      byte_base += sz;
-    }
+  int ta, tq;
+  int ea = hp::block_incl(a, ws, &ta) - a;
+  int eq = hp::block_incl(q, ws, &tq) - q;
+  for (int j = j0; j < j1; ++j) {
+    cum[j] = ea;
+    pos[j] = eq;
+    ea += sll[rs + j];
+    eq += sll[rs + j] + sml[rs + j];
   }
-  if (mode & MODE_RAWLIT) {
-    uint8_t* out = (uint8_t*)lit_o;
-    for (int r = 0; r <= n; ++r) {
-      const int rl = (r < n ? run_cum[r + 1] : lc) - run_cum[r];
-      for (int k = 0; k < rl; ++k) out[run_cum[r] + k] = x[run_pos[r] + k];
-    }
-    osz[0] = lc;
+  if (threadIdx.x == 0) {
+    cum[n] = ta;
+    pos[n] = tq;
   }
+  if (!(mode & MODE_HUF)) return;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) cs[i] = codes[256 * b + i];
+  __syncthreads();
+  hp::RunSrc src{cum, pos, x + (size_t)b * N, n};
+  hp::chunk_sums(src, cs, hp::lay(lc, (mode & MODE_HUF1) != 0), SL,
+                 cbits + (size_t)b * SL.nch, ws);
 }
 
-__device__ void emit_sequences(const int* sll, const int* sml,
-                               const int* soff, int n, int mode,
-                               const int* tabs, TabOff TO, const int* ct,
-                               CtOff CO, uint32_t* seq_o, int* osz,
-                               int* sanch, int SMAXA) {
+struct SeqArgs {
+  const int *sll, *sml, *soff, *meta, *tabs, *ctabs;
+  int S, SEQW, SMAXA, CTW, CTS, NTABS;   // CTS: ctabs' row stride (0: shared)
+  TabOff TO;
+  CtOff CO;
+  int* scode;        // (B, S): llc | mlc << 8 | ofc << 16
+  uint16_t* srec;    // (B, 3, S): a step's state bits nb | bv << 4
+  int* sbits;        // (B, S + 1): sequence t's first bit (t = n: the flushes)
+  uint32_t* seq_o;
+  int *osz, *sanch;
+};
+
+// lane k walks one FSE state chain (0: of, 1: ml, 2: ll) over the row's n
+// sequences, last to first, as the serial encoder does; it records each
+// step's state bits and writes its state anchors
+__device__ void state_chain(int k, int n, int mode, const int* ct,
+                            const CtOff& CO, const int* code, uint16_t* rec,
+                            int* sa, int SMAXA, int* fin) {
+  const int sh = k == 0 ? 16 : k == 1 ? 8 : 0;
+  const int st = k == 0 ? CO.of_st : k == 1 ? CO.ml_st : CO.ll_st;
+  const int dn = k == 0 ? CO.of_dnb : k == 1 ? CO.ml_dnb : CO.ll_dnb;
+  const int df = k == 0 ? CO.of_dfs : k == 1 ? CO.ml_dfs : CO.ll_dfs;
+  const bool rle =
+      (mode & (k == 0 ? MODE_OF_RLE : k == 1 ? MODE_ML_RLE : MODE_LL_RLE)) != 0;
+  int tl = (mode >> (k == 0 ? 16 : k == 1 ? 20 : 12)) & 15;
+  if (tl == 0) tl = k == 0 ? OF_DEFAULT_LOG : k == 1 ? ML_DEFAULT_LOG
+                                                     : LL_DEFAULT_LOG;
+  int* arow = sa + (k == 0 ? 2 : k == 1 ? 3 : 1) * SMAXA;
+  int c = (code[n - 1] >> sh) & 255;
+  int d = ct[dn + c];
+  int nb = (d + (1 << 15)) >> 16;
+  int s = ct[st + (((nb << 16) - d) >> nb) + ct[df + c]];
+  rec[0] = 0;
+  if (n - 1 > 0 && ((n - 1) & 127) == 0)
+    arow[((n - 1) >> 7) - 1] = s - (1 << tl);
+  int cn = n > 1 ? (code[n - 2] >> sh) & 255 : 0;
+  for (int t = 1; t < n; ++t) {
+    const int i = n - 1 - t;
+    d = ct[dn + cn];
+    const int f = ct[df + cn];
+    cn = i > 0 ? (code[i - 1] >> sh) & 255 : 0;   // the next step's code
+    nb = (s + d) >> 16;
+    const int bv = s & ((1 << nb) - 1);
+    s = ct[st + (s >> nb) + f];
+    rec[t] = rle ? (uint16_t)0 : (uint16_t)(nb | bv << 4);
+    if (i > 0 && (i & 127) == 0) arow[(i >> 7) - 1] = s - (1 << tl);
+  }
+  fin[k] = s;
+}
+
+// a row's sequence stream (a block of hp::THREADS threads)
+__device__ void seq_block(int b, const SeqArgs& A, int* ws) {
+  __shared__ int ct[CT_MAX];
+  __shared__ int tb[TABS_MAX];
+  __shared__ int fin[3];
+  const int tid = threadIdx.x;
+  const int* m = A.meta + 8 * b;
+  const int n = m[2], mode = m[3];
+  if (!(mode & MODE_SEQ) || n == 0) return;
+  const TabOff& TO = A.TO;
+  const int* ctr = A.ctabs + (size_t)b * A.CTS;
+  for (int i = tid; i < A.CTW; i += blockDim.x) ct[i] = ctr[i];
+  for (int i = tid; i < A.NTABS; i += blockDim.x) tb[i] = A.tabs[i];
+  const size_t rs = (size_t)b * A.S;
+  const int *ll = A.sll + rs, *ml = A.sml + rs, *of = A.soff + rs;
+  int* code = A.scode + rs;
+  uint16_t* rec = A.srec + (size_t)b * 3 * A.S;
+  uint32_t* so = A.seq_o + (size_t)b * A.SEQW;
+  int* sa = A.sanch + (size_t)b * 5 * A.SMAXA;
+  __syncthreads();
+  for (int i = tid; i < n; i += blockDim.x) {
+    const int ll_v = ll[i], mb = ml[i] - 3;
+    const int llc = ll_v > 63 ? exp_of(ll_v) + 19 : tb[TO.ll_code + ll_v];
+    const int mlc = mb > 127 ? exp_of(mb) + 36
+                             : tb[TO.ml_code + max(mb, 0)];
+    code[i] = llc | mlc << 8 | exp_of(of[i]) << 16;
+  }
+  __syncthreads();
+  if (tid < 3)
+    state_chain(tid, n, mode, ct, A.CO, code, rec + tid * A.S, sa, A.SMAXA,
+                fin);
+  __syncthreads();
+  // sequence t (emitted t-th, i = n - 1 - t) pushes four fields; a thread
+  // takes a contiguous run of t, its bit offset from a scan of the widths
+  const int per = (n + blockDim.x - 1) / blockDim.x;
+  const int t0 = min(n, tid * per), t1 = min(n, t0 + per);
+  const uint16_t *r_of = rec, *r_ml = rec + A.S, *r_ll = rec + 2 * A.S;
+  int* sb = A.sbits + (size_t)b * (A.S + 1);
+  auto width = [&](int t) {
+    const int cd = code[n - 1 - t];
+    return (r_of[t] & 15) + (r_ml[t] & 15) + (r_ll[t] & 15) +
+           tb[TO.ll_bits + (cd & 255)] + tb[TO.ml_bits + ((cd >> 8) & 255)] +
+           (cd >> 16);
+  };
+  int sum = 0;
+  for (int t = t0; t < t1; ++t) sum += width(t);
+  int T;
+  int cur = hp::block_incl(sum, ws, &T) - sum;
+  for (int t = t0; t < t1; ++t) {
+    sb[t] = cur;
+    cur += width(t);
+    const int i = n - 1 - t;
+    if (i > 0 && (i & 127) == 0) sa[(i >> 7) - 1] = cur;
+  }
+  // the state flushes (ml, of, ll) and the sentinel after the sequences
   const bool rle_ll = (mode & MODE_LL_RLE) != 0;
   const bool rle_of = (mode & MODE_OF_RLE) != 0;
   const bool rle_ml = (mode & MODE_ML_RLE) != 0;
@@ -150,134 +229,204 @@ __device__ void emit_sequences(const int* sll, const int* sml,
   if (tl_ll == 0) tl_ll = LL_DEFAULT_LOG;
   if (tl_of == 0) tl_of = OF_DEFAULT_LOG;
   if (tl_ml == 0) tl_ml = ML_DEFAULT_LOG;
-  BitW bs{seq_o, 0u, 0, 0};
-  int s_ll = 0, s_of = 0, s_ml = 0;
-  for (int t = 0; t < n; ++t) {
-    const int i = n - 1 - t;
-    const int ll_v = sll[i], ml_v = sml[i], of_v = soff[i];
-    const int llc = ll_v > 63 ? exp_of(ll_v) + 19
-                              : tabs[TO.ll_code + min(ll_v, 63)];
-    const int mb = ml_v - 3;
-    const int mlc = mb > 127 ? exp_of(max(mb, 1)) + 36
-                             : tabs[TO.ml_code + min(max(mb, 0), 127)];
-    const int ofc = exp_of(of_v);
-    int nb_of = 0, nb_ml = 0, nb_ll = 0;
-    uint32_t bv_of = 0, bv_ml = 0, bv_ll = 0;
-    if (t == 0) {
-      int d = ct[CO.of_dnb + ofc], nb = (d + (1 << 15)) >> 16;
-      s_of = ct[CO.of_st + ((((nb << 16) - d)) >> nb) + ct[CO.of_dfs + ofc]];
-      d = ct[CO.ml_dnb + mlc];
-      nb = (d + (1 << 15)) >> 16;
-      s_ml = ct[CO.ml_st + ((((nb << 16) - d)) >> nb) + ct[CO.ml_dfs + mlc]];
-      d = ct[CO.ll_dnb + llc];
-      nb = (d + (1 << 15)) >> 16;
-      s_ll = ct[CO.ll_st + ((((nb << 16) - d)) >> nb) + ct[CO.ll_dfs + llc]];
-    } else {
-      nb_of = (s_of + ct[CO.of_dnb + ofc]) >> 16;
-      bv_of = (uint32_t)(s_of & ((1 << nb_of) - 1));
-      s_of = ct[CO.of_st + (s_of >> nb_of) + ct[CO.of_dfs + ofc]];
-      nb_ml = (s_ml + ct[CO.ml_dnb + mlc]) >> 16;
-      bv_ml = (uint32_t)(s_ml & ((1 << nb_ml) - 1));
-      s_ml = ct[CO.ml_st + (s_ml >> nb_ml) + ct[CO.ml_dfs + mlc]];
-      nb_ll = (s_ll + ct[CO.ll_dnb + llc]) >> 16;
-      bv_ll = (uint32_t)(s_ll & ((1 << nb_ll) - 1));
-      s_ll = ct[CO.ll_st + (s_ll >> nb_ll) + ct[CO.ll_dfs + llc]];
-      if (rle_of) { nb_of = 0; bv_of = 0; }
-      if (rle_ml) { nb_ml = 0; bv_ml = 0; }
-      if (rle_ll) { nb_ll = 0; bv_ll = 0; }
+  const int nml = rle_ml ? 0 : tl_ml, nof = rle_of ? 0 : tl_of,
+            nll = rle_ll ? 0 : tl_ll;
+  const int end = T + nml + nof + nll + 1;
+  if (tid == 0) {
+    sb[n] = T;
+    A.osz[8 * b + 4] = (end + 7) >> 3;
+  }
+  __syncthreads();
+  // a thread builds whole words [w0, w1) of the stream: from the sequence
+  // holding bit 32 * w0 on, through the flushes if they reach its words
+  const int nwd = (end + 31) >> 5, pw = (nwd + blockDim.x - 1) / blockDim.x;
+  const int w0 = min(nwd, tid * pw), w1 = min(nwd, w0 + pw);
+  if (w0 < w1) {
+    int lo = 0, hi = n;   // the last t whose first bit is <= 32 * w0
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (sb[mid] <= (w0 << 5)) lo = mid;
+      else hi = mid - 1;
     }
-    const int llb = tabs[TO.ll_bits + llc];
-    const uint32_t llv = (uint32_t)(ll_v - tabs[TO.ll_base + llc]);
-    const int mlb = tabs[TO.ml_bits + mlc];
-    const uint32_t mlv = (uint32_t)(ml_v - tabs[TO.ml_base + mlc]);
-    const uint32_t ofvx = (uint32_t)(of_v - (1 << ofc));
-    push(bs, bv_of | (bv_ml << nb_of), nb_of + nb_ml);
-    push(bs, bv_ll | (llv << nb_ll), nb_ll + llb);
-    push(bs, mlv, mlb);
-    push(bs, ofvx, ofc);
-    if (i > 0 && (i & 127) == 0) {
-      const int ka = (i >> 7) - 1;
-      sanch[ka] = bs.nb + (bs.w << 5);
-      sanch[SMAXA + ka] = s_ll - (1 << tl_ll);
-      sanch[2 * SMAXA + ka] = s_of - (1 << tl_of);
-      sanch[3 * SMAXA + ka] = s_ml - (1 << tl_ml);
+    hp::WordOut o(so, sb[lo], w0, w1);
+    for (int t = lo; t < n && !o.done(); ++t) {
+      const int i = n - 1 - t;
+      const int cd = code[i];
+      const int llc = cd & 255, mlc = (cd >> 8) & 255, ofc = cd >> 16;
+      const int a = r_of[t], bm = r_ml[t], c = r_ll[t];
+      const int nof_ = a & 15, nml_ = bm & 15, nll_ = c & 15;
+      o.put((uint32_t)((a >> 4) | (bm >> 4) << nof_), nof_ + nml_);
+      o.put((uint32_t)((c >> 4) | (ll[i] - tb[TO.ll_base + llc]) << nll_),
+            nll_ + tb[TO.ll_bits + llc]);
+      o.put((uint32_t)(ml[i] - tb[TO.ml_base + mlc]), tb[TO.ml_bits + mlc]);
+      o.put((uint32_t)(of[i] - (1 << ofc)), ofc);
+    }
+    if (!o.done()) {
+      o.put(rle_ml ? 0u : (uint32_t)(fin[1] & ((1 << tl_ml) - 1)), nml);
+      o.put(rle_of ? 0u : (uint32_t)(fin[0] & ((1 << tl_of) - 1)), nof);
+      o.put(rle_ll ? 0u : (uint32_t)(fin[2] & ((1 << tl_ll) - 1)), nll);
+      o.put(1u, 1);
+      o.close();
     }
   }
-  push(bs, rle_ml ? 0u : (uint32_t)(s_ml & ((1 << tl_ml) - 1)),
-       rle_ml ? 0 : tl_ml);
-  push(bs, rle_of ? 0u : (uint32_t)(s_of & ((1 << tl_of) - 1)),
-       rle_of ? 0 : tl_of);
-  push(bs, rle_ll ? 0u : (uint32_t)(s_ll & ((1 << tl_ll) - 1)),
-       rle_ll ? 0 : tl_ll);
-  const int total = bs.nb + (bs.w << 5) + 1;
-  stream_close(bs);
-  osz[4] = (total + 7) >> 3;
-  int last = 1;
-  for (int i = 0; i < n; ++i) {
-    if (i > 0 && (i & 127) == 0) sanch[4 * SMAXA + (i >> 7) - 1] = last;
-    if (soff[i] > 3) last = soff[i] - 3;
+  // rep1 before sequence 128(ka + 1): the last explicitly coded offset
+  int last = -1;
+  for (int i = t0; i < t1; ++i)
+    if (of[i] > 3) last = i;
+  const int prev = hp::block_excl_max(last, ws);
+  int r1 = prev >= 0 ? of[prev] - 3 : 1;
+  for (int i = t0; i < t1; ++i) {
+    if (i > 0 && (i & 127) == 0) sa[4 * A.SMAXA + (i >> 7) - 1] = r1;
+    if (of[i] > 3) r1 = of[i] - 3;
   }
 }
 
-__global__ void entropy_kernel(const uint8_t* __restrict__ x,
-                               const int* __restrict__ sll,
-                               const int* __restrict__ sml,
-                               const int* __restrict__ soff,
-                               const int* __restrict__ meta,
-                               const int* __restrict__ codes,
-                               const int* __restrict__ tabs,
-                               const int* __restrict__ ctabs, int N, int S,
-                               int LITW, int SEQW, int LMAXA, int SMAXA,
-                               int CTW, TabOff TO, CtOff CO, int* run_pos,
-                               int* run_cum, uint32_t* lit_o,
-                               uint32_t* seq_o, int* osz, int* lanch,
-                               int* sanch) {
-  const int b = blockIdx.x;
-  const int* m = meta + 8 * b;
+// blocks 0..B-1: the rows' sequence streams; then B * nch blocks, one a
+// literal chunk slot of a row
+__global__ void __launch_bounds__(hp::THREADS)
+emit_kernel(const uint8_t* __restrict__ x, const int* __restrict__ codes,
+            int B, int N, int S, int LITW, int LMAXA,
+            const int* __restrict__ run_pos, const int* __restrict__ run_cum,
+            const int* __restrict__ cbits, int* parts, uint32_t* lit_o,
+            int* lanch, SeqArgs A) {
+  __shared__ int ws[32];
+  __shared__ int cs[256];
+  if ((int)blockIdx.x < B) {
+    seq_block(blockIdx.x, A, ws);
+    return;
+  }
+  const hp::Slots SL = hp::slots(N, false);
+  const int id = blockIdx.x - B;
+  const int b = id / SL.nch, j = id % SL.nch;
+  const int* m = A.meta + 8 * b;
   const int lc = m[1], n = m[2], mode = m[3];
+  int s, c;
+  hp::slot_sc(SL, j, s, c);
   uint32_t* lo = lit_o + (size_t)b * LITW;
-  uint32_t* so = seq_o + (size_t)b * SEQW;
-  int* oz = osz + 8 * b;
-  int* la = lanch + (size_t)b * 4 * LMAXA;
-  int* sa = sanch + (size_t)b * 5 * SMAXA;
-  for (int i = threadIdx.x; i < LITW; i += blockDim.x) lo[i] = 0u;
-  for (int i = threadIdx.x; i < SEQW; i += blockDim.x) so[i] = 0u;
-  for (int i = threadIdx.x; i < 4 * LMAXA; i += blockDim.x) la[i] = -1;
-  for (int i = threadIdx.x; i < 5 * SMAXA; i += blockDim.x) sa[i] = -1;
-  if (threadIdx.x < 8) oz[threadIdx.x] = 0;
+  hp::RunSrc src{run_cum + (size_t)b * (S + 1), run_pos + (size_t)b * (S + 1),
+                 x + (size_t)b * N, n};
+  if (mode & MODE_RAWLIT) {
+    if (s == 0) {
+      if (c == 0 && threadIdx.x == 0) A.osz[8 * b] = lc;
+      hp::raw_chunk(src, lc, c, lo);
+    }
+    return;
+  }
+  if (!(mode & MODE_HUF)) return;
+  const hp::Lay L = hp::lay(lc, (mode & MODE_HUF1) != 0);
+  if (s >= L.streams() || c >= L.cps(SL) ||
+      (c > 0 && c * hp::CHUNK >= L.count(s)))
+    return;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) cs[i] = codes[256 * b + i];
   __syncthreads();
-  const size_t rs = (size_t)b * S;
-  if (threadIdx.x == 0 && (mode & (MODE_HUF | MODE_RAWLIT))) {
-    emit_literals(x + (size_t)b * N, sll + rs, sml + rs, n, lc, mode,
-                  codes + 256 * b, run_pos + (size_t)b * (S + 1),
-                  run_cum + (size_t)b * (S + 1), lo, oz, la, LMAXA);
-  }
-  if (threadIdx.x == 32 && (mode & MODE_SEQ) && n > 0) {
-    emit_sequences(sll + rs, sml + rs, soff + rs, n, mode, tabs, TO,
-                   ctabs + (size_t)b * CTW, CO, so, oz, sa, SMAXA);
-  }
+  hp::place_chunk(src, cs, L, SL, s, c, cbits + (size_t)b * SL.nch, lo,
+                  parts + ((size_t)b * SL.nch + j) * 4, A.osz + 8 * b,
+                  lanch + (size_t)b * 4 * LMAXA, LMAXA, ws);
+}
+
+// the literal chunks' shared edge words, a block a row
+__global__ void fixup_kernel(const int* __restrict__ parts, int N, int LITW,
+                             uint32_t* lit_o) {
+  const int nch = hp::slots(N, false).nch;
+  hp::fixup_row(parts + (size_t)blockIdx.x * 4 * nch, nch,
+                lit_o + (size_t)blockIdx.x * LITW);
+}
+
+// the scratch, in int32 words: the run table (B, S + 1) twice, the chunk
+// sums (B, nch), the sequence codes (B, S), the (B, 3, S) int16 state
+// records, the sequences' first bits (B, S + 1), the chunks' edge words
+// (B, nch, 4)
+struct Scratch {
+  size_t run_pos, run_cum, cbits, scode, srec, sbits, parts, words;
+};
+
+Scratch scratch_layout(int B, int N, int S) {
+  const size_t b = B, s = S, nch = hp::slots(N, false).nch;
+  Scratch L;
+  size_t at = 0;
+  L.run_pos = at;
+  at += b * (s + 1);
+  L.run_cum = at;
+  at += b * (s + 1);
+  L.cbits = at;
+  at += b * nch;
+  L.scode = at;
+  at += b * s;
+  L.srec = at;
+  at += (3 * b * s + 1) / 2;
+  L.sbits = at;
+  at += b * (s + 1);
+  L.parts = at;
+  at += b * nch * 4;
+  L.words = at;
+  return L;
 }
 
 }  // namespace
 
+// the int32 words of scratch zk_entropy_emit needs
+extern "C" long long zk_entropy_scratch(int B, int N, int S) {
+  return (long long)scratch_layout(B, N, S).words;
+}
+
+// ctab_stride: ctabs' row stride in ints (0: one table for every row)
 extern "C" int zk_entropy_emit(const void* x, const void* sll,
                                const void* sml, const void* soff,
                                const void* meta, const void* codes,
                                const void* tabs, const void* ctabs, int B,
                                int N, int S, int LITW, int SEQW, int LMAXA,
-                               int SMAXA, const void* offsets, void* run_pos,
-                               void* run_cum, void* lit_o, void* seq_o,
+                               int SMAXA, int ctab_stride, const void* offsets,
+                               void* scratch, void* lit_o, void* seq_o,
                                void* osz, void* lanch, void* sanch,
                                void* stream) {
-  // offsets (host memory): 6 TabOff fields, 9 CtOff fields, CTAB_WIDTH
+  // offsets (host memory): 6 TabOff fields, 9 CtOff fields, CTAB_WIDTH,
+  // the constant tables' length
   const int* o = (const int*)offsets;
-  TabOff TO{o[0], o[1], o[2], o[3], o[4], o[5]};
-  CtOff CO{o[6], o[7], o[8], o[9], o[10], o[11], o[12], o[13], o[14]};
-  entropy_kernel<<<B, 64, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)x, (const int*)sll, (const int*)sml,
-      (const int*)soff, (const int*)meta, (const int*)codes,
-      (const int*)tabs, (const int*)ctabs, N, S, LITW, SEQW, LMAXA, SMAXA,
-      o[15], TO, CO, (int*)run_pos, (int*)run_cum, (uint32_t*)lit_o,
-      (uint32_t*)seq_o, (int*)osz, (int*)lanch, (int*)sanch);
+  if (o[15] > CT_MAX || o[16] > TABS_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t b = (size_t)B;
+  cudaError_t e;
+  if ((e = cudaMemsetAsync(lit_o, 0, b * LITW * 4, st)) ||
+      (e = cudaMemsetAsync(seq_o, 0, b * SEQW * 4, st)) ||
+      (e = cudaMemsetAsync(osz, 0, b * 8 * 4, st)) ||
+      (e = cudaMemsetAsync(lanch, 0xFF, b * 4 * LMAXA * 4, st)) ||
+      (e = cudaMemsetAsync(sanch, 0xFF, b * 5 * SMAXA * 4, st)))
+    return (int)e;
+  if (B == 0) return 0;
+  const Scratch L = scratch_layout(B, N, S);
+  int* tmp = (int*)scratch;
+  int *run_pos = tmp + L.run_pos, *run_cum = tmp + L.run_cum,
+      *cbits = tmp + L.cbits, *parts = tmp + L.parts;
+  SeqArgs A;
+  A.sll = (const int*)sll;
+  A.sml = (const int*)sml;
+  A.soff = (const int*)soff;
+  A.meta = (const int*)meta;
+  A.tabs = (const int*)tabs;
+  A.ctabs = (const int*)ctabs;
+  A.S = S;
+  A.SEQW = SEQW;
+  A.SMAXA = SMAXA;
+  A.CTW = o[15];
+  A.CTS = ctab_stride;
+  A.NTABS = o[16];
+  A.TO = TabOff{o[0], o[1], o[2], o[3], o[4], o[5]};
+  A.CO = CtOff{o[6], o[7], o[8], o[9], o[10], o[11], o[12], o[13], o[14]};
+  A.scode = tmp + L.scode;
+  A.srec = (uint16_t*)(tmp + L.srec);
+  A.sbits = tmp + L.sbits;
+  A.seq_o = (uint32_t*)seq_o;
+  A.osz = (int*)osz;
+  A.sanch = (int*)sanch;
+  tables_kernel<<<B, 1024, 0, st>>>(
+      (const uint8_t*)x, (const int*)sll, (const int*)sml, (const int*)meta,
+      (const int*)codes, N, S, run_pos, run_cum, cbits, parts);
+  if ((e = cudaGetLastError())) return (int)e;
+  const int nch = hp::slots(N, false).nch;
+  emit_kernel<<<B + B * nch, hp::THREADS, 0, st>>>(
+      (const uint8_t*)x, (const int*)codes, B, N, S, LITW, LMAXA, run_pos,
+      run_cum, cbits, parts, (uint32_t*)lit_o, (int*)lanch, A);
+  if ((e = cudaGetLastError())) return (int)e;
+  fixup_kernel<<<B, 128, 0, st>>>(parts, N, LITW, (uint32_t*)lit_o);
   return (int)cudaGetLastError();
 }

@@ -268,8 +268,11 @@ extern "C" int zk_lz4_decode(const void* comp, const void* clens,
   const int L = B * K;
   int stage = M < STAGE_MAX ? M : STAGE_MAX;
   stage = (stage + 15) / 16 * 16;
+  // the attribute is the kernel's, shared by every host thread: set it to
+  // the most any launch asks for, so that a thread launching a smaller
+  // batch never lowers it under another thread's larger launch
   cudaError_t e = cudaFuncSetAttribute(
-      parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, stage);
+      parse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_MAX);
   if (e != cudaSuccess) return (int)e;
   parse_kernel<<<L, 32, stage, st>>>(
       (const uint8_t*)comp, (const int*)clens, (const uint8_t*)unc, L, B, M,

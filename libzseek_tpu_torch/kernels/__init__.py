@@ -41,8 +41,8 @@ _I = ctypes.c_int
 # c_void_p: ctypes would otherwise pass them as 32-bit ints)
 SIGNATURES = {
     "zk_parse_linked": [_P] * 5 + [_I] * 11 + [_P] * 7,
-    "zk_entropy_emit": [_P] * 8 + [_I] * 7 + [_P] * 9,
-    "zk_place_literals": [_P] * 3 + [_I] * 3 + [_P] * 2,
+    "zk_entropy_emit": [_P] * 8 + [_I] * 8 + [_P] * 8,
+    "zk_vector_literals": [_P] * 5 + [_I] * 4 + [_P] * 5,
     "zk_decode": [_P] * 8 + [_I] * 7 + [_P] * 12,
     "zk_transcode": [_P] * 9 + [_I] * 4 + [_P] * 4,
     "zk_lz4_emit": [_P] * 3 + [_I] * 6 + [_P] * 4,
@@ -51,6 +51,12 @@ SIGNATURES = {
     "zk_huf_lanes": [_P] * 6 + [_I] * 6 + [_P] * 3,
     "zk_fse_lanes": [_P] * 10 + [_I] * 6 + [_P] * 6,
     "zk_exec_blocks": [_P] * 7 + [_I] * 6 + [_P] * 10,
+}
+# entry points that return a size: the int32 words of scratch a launch of
+# zk_entropy_emit (B, N, S) or zk_vector_literals (B, N) needs
+SIZES = {
+    "zk_entropy_scratch": [_I] * 3,
+    "zk_vector_scratch": [_I] * 2,
 }
 
 _lock = threading.Lock()
@@ -116,10 +122,12 @@ def library() -> ctypes.CDLL:
             for obj, _ in jobs:
                 os.remove(obj)
         lib = ctypes.CDLL(so)
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        for table, restype in ((SIGNATURES, ctypes.c_int),
+                               (SIZES, ctypes.c_longlong)):
+            for name, argtypes in table.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
         _lib = lib
         return lib
 

@@ -5,13 +5,23 @@ Counterpart of libzseek_tpu/ops/pallas_entropy.py entropy_emit_smem
 pallas_call at :645), with its MODE_* bits (:39-51) and constant tables
 (_build_tabs, _ctab_layout, _ctab_predef, CTAB_WIDTH, MODE_LOG_SHIFT,
 :61-141), rebuilt here in numpy from the port's copies of
-libzseek_tpu/ops/fse.py and format/zstd_frame.py.  The CUDA kernel is csrc/entropy.cu.
+libzseek_tpu/ops/fse.py and format/zstd_frame.py.  The CUDA kernel is
+csrc/entropy.cu, its literal placement csrc/huf_place.cuh (shared with K3).
 
 The plain version below computes the same words from prefix sums
 instead of a sequential bit pusher: a literal's bit offset is the code
 length of the literals after it in its stream, a sequence push's offset
 is the running sum of the pushes before it, and every code lands in a
 disjoint bit range.  It runs only for tensors on the CPU.
+
+The CUDA kernel runs in phases: the run table and each literal chunk's
+code-length sum (a block a row), then a block a chunk places its
+literals after a scan of their lengths, while a block a row walks the
+three FSE state chains on three lanes and places the sequences' pushes
+after a scan of their widths, each thread building whole words.
+testing/entropy_mirror.py mirrors those phases in numpy (chunk slots,
+thread ranges, scans, which words a chunk stores and which it leaves to
+the fix-up, which words each sequence thread builds) for the tests.
 
 Word buffers are int32 (the reference's uint32 words, same bits).  The
 planner uses 4-stream rows only from 256 literals; rows below 9 literals
@@ -118,7 +128,20 @@ _KERNEL_OFFSETS = np.array(
     [TAB_OFF[k] for k in ("ll_code", "ml_code", "ll_bits", "ll_base",
                           "ml_bits", "ml_base")]
     + [CTAB_OFF[f"{s}_{p}"] for s in ("ll", "of", "ml")
-       for p in ("st", "dnb", "dfs")] + [CTAB_WIDTH], np.int32)
+       for p in ("st", "dnb", "dfs")] + [CTAB_WIDTH, len(TABS)], np.int32)
+
+_KERNEL_OFFSETS_PTR = _KERNEL_OFFSETS.ctypes.data
+
+_on_device: dict = {}
+
+
+def _device_const(name: str, table: np.ndarray, dev) -> torch.Tensor:
+    """A constant table, copied to `dev` once."""
+    key = (name, str(dev))
+    t = _on_device.get(key)
+    if t is None:
+        t = _on_device[key] = torch.from_numpy(table).to(dev)
+    return t
 
 
 def anchor_slots(N: int, S: int) -> tuple[int, int]:
@@ -149,9 +172,9 @@ def entropy_emit(x: torch.Tensor, sll: torch.Tensor, sml: torch.Tensor,
     for t in (sll, sml, soff):
         if t.shape != (B, S) or t.dtype != torch.int32:
             raise ValueError("sequences must be (B, S) int32")
-    if ctabs is None:
-        ctabs = torch.from_numpy(CTAB_PREDEF).to(x.device)[None, :] \
-            .expand(B, CTAB_WIDTH)
+    if ctabs is None:   # one row for all: the CUDA kernel reads it at stride 0
+        ctabs = _device_const("ctab_predef", CTAB_PREDEF, x.device)
+        ctabs = ctabs[None].expand(B, -1)
     args = (x, sll, sml, soff, meta.to(torch.int32), codes.to(torch.int32),
             ctabs.to(torch.int32), S, lit_cap // 4, seq_cap // 4,
             *anchor_slots(N, S))
@@ -168,25 +191,22 @@ def _emit_cuda(x, sll, sml, soff, meta, codes, ctabs, S, LITW, SEQW,
     dev = x.device
     B, N = x.shape
     ins = [t.contiguous() for t in (x, sll, sml, soff, meta, codes)]
-    tabs = torch.from_numpy(TABS).to(dev)
-    ctabs = ctabs.contiguous()
-    run_pos = torch.empty((B, S + 1), dtype=torch.int32, device=dev)
-    run_cum = torch.empty_like(run_pos)
-    lit_w = torch.empty((B, LITW), dtype=torch.int32, device=dev)
-    seq_w = torch.empty((B, SEQW), dtype=torch.int32, device=dev)
-    osz = torch.empty((B, 8), dtype=torch.int32, device=dev)
-    lanch = torch.empty((B, 4, LMAXA), dtype=torch.int32, device=dev)
-    sanch = torch.empty((B, 5, SMAXA), dtype=torch.int32, device=dev)
+    tabs = _device_const("tabs", TABS, dev)
+    if ctabs.stride(-1) != 1:
+        ctabs = ctabs.contiguous()
+    outs = [torch.empty(sh, dtype=torch.int32, device=dev) for sh in (
+        (B, LITW), (B, SEQW), (B, 8), (B, 4, LMAXA), (B, 5, SMAXA))]
+    tmp = torch.empty(lib.zk_entropy_scratch(B, N, S), dtype=torch.int32,
+                      device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.zk_entropy_emit(
         *[t.data_ptr() for t in ins], tabs.data_ptr(), ctabs.data_ptr(),
-        B, N, S, LITW, SEQW, LMAXA, SMAXA, _KERNEL_OFFSETS.ctypes.data,
-        run_pos.data_ptr(), run_cum.data_ptr(), lit_w.data_ptr(),
-        seq_w.data_ptr(), osz.data_ptr(), lanch.data_ptr(),
-        sanch.data_ptr(), stream)
+        B, N, S, LITW, SEQW, LMAXA, SMAXA, ctabs.stride(0),
+        _KERNEL_OFFSETS_PTR, tmp.data_ptr(), *[t.data_ptr() for t in outs],
+        stream)
     kernels.check(err, "zk_entropy_emit")
     launches += 1
-    return lit_w, seq_w, osz, lanch, sanch
+    return tuple(outs)
 
 
 # --------------------------------------------------------------------

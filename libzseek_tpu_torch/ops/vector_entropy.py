@@ -1,18 +1,22 @@
 """K3: literal placement for literal-heavy 4-stream Huffman rows.
 
 Counterpart of libzseek_tpu/ops/vector_entropy.py vector_literals
-(:439): its XLA prep `_vector_prep` (:210) and post `_vector_post`
-(:417) become the PyTorch prep below, and its Pallas kernel
-`_place_kernel` (:60, the pallas_call at :135) becomes
-csrc/place_literals.cu.  The output equals K2's literal half
+(:439): its XLA prep `_vector_prep` (:210), its Pallas kernel
+`_place_kernel` (:60, the pallas_call at :135) and its post
+`_vector_post` (:417).  The output equals K2's literal half
 (ops/entropy.py) bit for bit on the rows it takes.
 
-The prep computes each literal's code and its bit position from suffix
-sums of code lengths per stream (streams are emitted in reverse symbol
-order), the four sentinel positions, the stream sizes and the literal
-anchors.  The kernel ORs every code in at its position; no sparse fix-up
-pass is left, because sentinels and stream-straddling bytes are placed
-like any other code.
+On the card the whole call is one fused CUDA route,
+csrc/place_literals.cu over csrc/huf_place.cuh (the placement K2's
+literal half shares): each row's literal ranks from a block scan of the
+popcounts of its coverage bitmask, each literal's code, the suffix sums
+of code lengths a stream (streams are emitted in reverse symbol order),
+the sentinels, sizes and anchors, and every code placed without a
+global atomic (a chunk's words merged in shared memory, the words two
+chunks share by a fix-up pass).  The plain version for tensors
+on the CPU is `vector_prep` (the prep in PyTorch ops) and
+`entropy.place_plain`; testing/entropy_mirror.py mirrors the CUDA phases
+in numpy for the tests.
 """
 
 from __future__ import annotations
@@ -34,35 +38,9 @@ assert VEC_MIN_LC // 4 >= E.LIT_ANCHOR_INTERVAL, VEC_MIN_LC
 launches = 0
 
 
-def place_literals(val: torch.Tensor, pos: torch.Tensor, sent: torch.Tensor,
-                   n_words: int) -> torch.Tensor:
-    """OR each code val (B, N) in at its bit position pos (B, N), -1 for
-    no literal, plus a sentinel bit at each of sent (B, 4) (-1: none),
-    into zeroed (B, n_words) int32 words."""
-    B, N = val.shape
-    if pos.shape != (B, N) or sent.shape != (B, 4):
-        raise ValueError("val/pos must be (B, N) and sent (B, 4)")
-    if val.device.type == "cpu":
-        return E.place_plain(val, pos, sent, n_words)
-    global launches
-    from libzseek_tpu_torch import kernels
-    lib = kernels.library()
-    ins = [t.to(torch.int32).contiguous() for t in (val, pos, sent)]
-    out = torch.empty((B, n_words), dtype=torch.int32, device=val.device)
-    stream = torch.cuda.current_stream(val.device).cuda_stream
-    err = lib.zk_place_literals(ins[0].data_ptr(), ins[1].data_ptr(),
-                                ins[2].data_ptr(), B, N, n_words,
-                                out.data_ptr(), stream)
-    kernels.check(err, "zk_place_literals")
-    launches += 1
-    return out
-
-
 def vector_prep(x, lit_mask_words, codes_packed, lens, vec_row):
     """(val, pos, sent, sizes4, lanch) of the rows marked in vec_row."""
     B, N = x.shape
-    if N != N_BLOCK:
-        raise ValueError(f"vector literal rows are {N_BLOCK}-byte blocks")
     dev = x.device
     shifts = torch.arange(32, dtype=torch.int32, device=dev)
     bits = (lit_mask_words[:, :, None] >> shifts[None, None, :]) & 1
@@ -86,7 +64,39 @@ def vector_literals(x, lit_mask_words, codes_packed, lens, vec_row,
     Returns (lit_words (B, lit_cap//4) int32, sizes4 (B, 4), lanch
     (B, 4, 64)), equal to K2's literal half on MODE_HUF 4-stream rows;
     other rows carry only their four sentinel bits."""
-    val, pos, sent, sz, lanch = vector_prep(x, lit_mask_words, codes_packed,
-                                            lens, vec_row)
-    words = place_literals(val, pos, sent, lit_cap // 4)
-    return words, sz.to(torch.int32), lanch.to(torch.int32)
+    B, N = x.shape
+    if N != N_BLOCK:
+        raise ValueError(f"vector literal rows are {N_BLOCK}-byte blocks")
+    if lit_mask_words.shape != (B, N // 32) or codes_packed.shape != (B, 256):
+        raise ValueError("lit_mask_words must be (B, N//32) and codes (B, 256)")
+    if x.device.type == "cpu":
+        val, pos, sent, sz, lanch = vector_prep(x, lit_mask_words,
+                                                codes_packed, lens, vec_row)
+        words = E.place_plain(val, pos, sent, lit_cap // 4)
+        return words, sz.to(torch.int32), lanch.to(torch.int32)
+    return _vector_cuda(x, lit_mask_words, codes_packed, lens, vec_row,
+                        lit_cap // 4)
+
+
+def _vector_cuda(x, lit_mask_words, codes_packed, lens, vec_row, LITW):
+    global launches
+    from libzseek_tpu_torch import kernels
+    lib = kernels.library()
+    dev = x.device
+    B, N = x.shape
+    LMAXA, _ = E.anchor_slots(N, 1)
+    ins = [x.contiguous()] + [t.to(torch.int32).contiguous() for t in (
+        lit_mask_words, codes_packed, lens)] + [vec_row.to(torch.bool)
+                                                 .contiguous()]
+    out = torch.empty((B, LITW), dtype=torch.int32, device=dev)
+    sizes = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    lanch = torch.empty((B, 4, LMAXA), dtype=torch.int32, device=dev)
+    tmp = torch.empty(lib.zk_vector_scratch(B, N), dtype=torch.int32,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.zk_vector_literals(
+        *[t.data_ptr() for t in ins], B, N, LITW, LMAXA, tmp.data_ptr(),
+        out.data_ptr(), sizes.data_ptr(), lanch.data_ptr(), stream)
+    kernels.check(err, "zk_vector_literals")
+    launches += 1
+    return out, sizes, lanch

@@ -396,3 +396,74 @@ def k7_edge_rows():
     X[8, :n] = mixed_corpus(rng, n)
     lens = np.array([n, big, n - 5, n, n, big, 13, 12, 20], np.int32)
     return X, lens
+
+
+# --- K2 and K3: crafted rows for the edges of the chunked placement
+
+
+def k2_edge_rows(N: int = 16384, S: int = 300, seed: int = 53):
+    """K2 inputs of crafted rows (random bytes, random codes (value << 4) |
+    length of 1-11 bits, random sequences; predefined tables): 4-stream
+    Huffman with lc = 1003 (not a multiple of 4; streams of 251, under the
+    anchor interval), a 4-stream row of no literal (lc = 0: every byte in
+    a match), 1-stream with no sequence (n = 0, all literals in the
+    tail), raw literals with n = S, 4-stream with n = S and lc past
+    4,096 (chunks of two threads' edges), a sequence-only row with lc =
+    0 and RLE ll and ml, an empty row.  (x, ll, ml, off, meta, codes,
+    S)."""
+    rng = np.random.default_rng(seed)
+    specs = [  # (literal mode, literals in sequences, n, tail literals)
+        (E.MODE_HUF, 803, 40, 200),
+        (E.MODE_HUF, 0, 25, 0),
+        (E.MODE_HUF | E.MODE_HUF1, 0, 0, 777),
+        (E.MODE_RAWLIT, 4000, S, 1001),
+        (E.MODE_HUF, 6000, S, 1234),
+        (E.MODE_LL_RLE | E.MODE_ML_RLE, 0, 60, 0),
+        (0, 0, 0, 0)]
+    B = len(specs)
+    x = rng.integers(0, 256, (B, N), np.uint8)
+    ll = np.zeros((B, S), np.int32)
+    ml = np.zeros((B, S), np.int32)
+    off = np.zeros((B, S), np.int32)
+    meta = np.zeros((B, 8), np.int32)
+    for b, (mode, lits, n, tail) in enumerate(specs):
+        if n:
+            cut = np.sort(rng.choice(lits + n - 1, n - 1, replace=False))
+            ll[b, :n] = np.diff(np.concatenate([[-1], cut,
+                                                [lits + n - 1]])) - 1
+            budget = N - lits - tail
+            ml[b, :n] = 3 + rng.integers(0, max(1, budget // n - 3), n)
+            off[b, :n] = rng.integers(1, 1 << 16, n)
+            off[b, :n][rng.random(n) < 0.2] = rng.integers(1, 4)
+        blen = int(ll[b].sum() + ml[b].sum()) + tail
+        mode |= E.MODE_SEQ if n else 0
+        meta[b, :4] = (blen, int(ll[b].sum()) + tail, n, mode)
+    nbits = rng.integers(1, 12, (B, 256))
+    vals = rng.integers(0, 1 << 11, (B, 256)) & ((1 << nbits) - 1)
+    codes = ((vals << 4) | nbits).astype(np.int32)
+    t = torch.from_numpy
+    return t(x), t(ll), t(ml), t(off), t(meta), t(codes), S
+
+
+def k3_edge_rows(seed: int = 59):
+    """K3 inputs of crafted 128 KiB rows: coverage masks of random
+    density (every byte a literal, 3/4, 1/2, a row cut to 100,003 bytes
+    inside a word, a row of 1,500 literals whose streams hold no anchor,
+    a row K3 does not take), random bytes and codes.  (x, mask words,
+    codes, lens, vec_row)."""
+    rng = np.random.default_rng(seed)
+    n = VE.N_BLOCK
+    dens = [1.0, 0.75, 0.5, 0.9, 1500 / n, 0.5]
+    B = len(dens)
+    bits = rng.random((B, n)) < np.array(dens)[:, None]
+    mask = np.packbits(bits, axis=1, bitorder="little").view("<i4")
+    lens = np.full(B, n, np.int32)
+    lens[3] = 100003
+    vec = np.ones(B, bool)
+    vec[5] = False
+    x = rng.integers(0, 256, (B, n), np.uint8)
+    nbits = rng.integers(1, 12, (B, 256))
+    vals = rng.integers(0, 1 << 11, (B, 256)) & ((1 << nbits) - 1)
+    codes = ((vals << 4) | nbits).astype(np.int32)
+    t = torch.from_numpy
+    return t(x), t(np.ascontiguousarray(mask)), t(codes), t(lens), t(vec)

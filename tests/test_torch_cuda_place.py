@@ -1,4 +1,4 @@
-"""K3's CUDA kernel against its plain version on the card.
+"""K3's fused CUDA route against its plain version on the card.
 
 Marked `cuda`: they need an NVIDIA GPU with sm_90a and nvcc, and skip
 elsewhere (the check runs inside the tests, not at import).  On the GPU
@@ -27,12 +27,12 @@ def batch():
 
 
 def test_placement_kernel_matches_plain(cuda, batch):
+    """The fused K3 call on every row of the mixed batch (all four
+    regimes, each taken as a K3 row) against its plain version."""
     x2, lens, _, seqs, _meta, codes, _ = batch
     vec = torch.ones(len(lens), dtype=torch.bool)
-    val, pos, sent, _sz, _la = VE.vector_prep(
-        torch.from_numpy(x2[1:]), seqs["lit_mask"], codes,
-        torch.from_numpy(lens), vec)
-    plain = VE.place_literals(val, pos, sent, LIT_CAP // 4)
-    card = VE.place_literals(val.to(cuda), pos.to(cuda), sent.to(cuda),
-                             LIT_CAP // 4)
-    _same([card], [plain])
+    args = (torch.from_numpy(x2[1:]), seqs["lit_mask"], codes,
+            torch.from_numpy(lens), vec)
+    plain = VE.vector_literals(*args, LIT_CAP)
+    card = VE.vector_literals(*(a.to(cuda) for a in args), LIT_CAP)
+    _same(card, plain)

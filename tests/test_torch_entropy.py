@@ -1,6 +1,6 @@
 """K2: the plain version of the port's entropy kernel against the
-reference Pallas kernel in interpret mode, and the plain K3 placement on
-a hand-made case.
+reference Pallas kernel in interpret mode, and the plain K3 placement
+(entropy.place_plain) on a hand-made case.
 
 K2 (libzseek_tpu_torch/ops/entropy.entropy_emit) is held to
 libzseek_tpu/ops/pallas_entropy.entropy_emit_smem over rows that cover
@@ -21,7 +21,6 @@ from libzseek_tpu.ops import pallas_entropy as jpe
 from libzseek_tpu.testing.corpus import mixed_corpus
 from libzseek_tpu_torch.convert import to_numpy
 from libzseek_tpu_torch.ops import entropy as E
-from libzseek_tpu_torch.ops import vector_entropy as VE
 from test_torch_inputs import S, chain, planted, words
 
 
@@ -89,7 +88,7 @@ def test_place_literals_plain_ors_codes():
     val = torch.tensor([[0b101, 0x7FF, 0]], dtype=torch.int64)
     pos = torch.tensor([[30, 40, -1]], dtype=torch.int64)
     sent = torch.tensor([[0, 64, -1, 70]], dtype=torch.int64)
-    w = VE.place_literals(val, pos, sent, 4).numpy().view(np.uint32)[0]
+    w = E.place_plain(val, pos, sent, 4).numpy().view(np.uint32)[0]
     expect = np.zeros(4, np.uint64)
     for v, p in ((0b101, 30), (0x7FF, 40), (1, 0), (1, 64), (1, 70)):
         big = int(v) << p

@@ -288,3 +288,39 @@ def level_archives(monkeypatch, level: int, parser: str = "linked"):
                                         entropy="smem"), **kw))
         write(Writer(got, "zstd", level=level, device="cpu", **kw))
     return data, ref.getvalue(), got.getvalue()
+
+
+def k2_chain_rows(N: int = 16384, seed: int = 31):
+    """K2 rows through the port's chain (one-block frames): planted
+    matches, words, a 1-stream row, raw literals (a noise half twice),
+    period-337 repeats, an empty-ish row, a 7,000-byte row, an empty row
+    (every literal mode; per-block FSE and RLE tables at both accuracy
+    logs at N = 16384).  (rows, seqs, meta, codes, ctabs)."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((8, N), np.uint8)
+    rows[0] = planted(rng, N)
+    rows[1] = words(rng, N)
+    rows[2] = np.tile(rng.choice(np.frombuffer(b"aaaabbbcd", np.uint8),
+                                 150), N // 150 + 1)[:N]
+    noise = rng.integers(0, 256, N // 2, np.uint8)
+    rows[3] = np.concatenate([noise, noise])
+    rows[4] = mixed_corpus(rng, 4 * N)[N: 2 * N]
+    rows[6] = words(rng, N)
+    lens = np.array([N, N, N, N, N, N, 7000, 0], np.int32)
+    rows[6, 7000:] = 0
+    return (rows,) + chain(rows, lens)
+
+
+def k3_chain_rows(seed: int = 41):
+    """K3 rows of 128 KiB through the port's chain: planted matches, words
+    cut to N - 1000 bytes, noise; the first two are K3's.  (rows, lens,
+    seqs, codes, vec)."""
+    n = 131072
+    rng = np.random.default_rng(seed)
+    rows = np.stack([planted(rng, n), words(rng, n),
+                     rng.integers(0, 256, n, np.uint8)])
+    lens = np.full(3, n, np.int32)
+    lens[1] = n - 1000
+    rows[1, n - 1000:] = 0
+    seqs, _meta, codes, _ctabs = chain(rows, lens)
+    return rows, lens, seqs, codes, torch.tensor([True, True, False])

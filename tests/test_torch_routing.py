@@ -36,6 +36,11 @@ def test_non_cpu_tensors_go_to_the_kernels(monkeypatch):
                        torch.empty((B, 256), device=meta, **i32), S,
                        N + 128, 9 * S + 128)
     with pytest.raises(_Launch):
-        VE.place_literals(torch.empty((B, N), device=meta, **i32),
-                          torch.empty((B, N), device=meta, **i32),
-                          torch.empty((B, 4), device=meta, **i32), N // 4)
+        NV = VE.N_BLOCK
+        VE.vector_literals(torch.empty((B, NV), dtype=torch.uint8,
+                                       device=meta),
+                           torch.empty((B, NV // 32), device=meta, **i32),
+                           torch.empty((B, 256), device=meta, **i32),
+                           torch.full((B,), NV, device=meta, **i32),
+                           torch.ones((B,), dtype=torch.bool, device=meta),
+                           NV + 128)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Timings and clock-counter attributions of the port's K1 (linked parse),
-K4 (fused decode, execute arm), K5 (LZ4 block encode), K6 (the lane
-route's block executor), K7 (per-block hash parse) and LZ4 decoder on an
-H100, for PERF.md section 6.
+K2 (entropy emission), K3 (literal placement), K4 (fused decode, execute
+arm), K5 (LZ4 block encode), K6 (the lane route's block executor), K7
+(per-block hash parse) and LZ4 decoder on an H100, for PERF.md section 6.
 
     python3 tools/torch_kernel_profile.py times DIR [LEVELS] [--check] [--only=K6,K7]
     python3 tools/torch_kernel_profile.py pair PARENT_DIR DIR [LEVELS] [--only=K6,K7]
     python3 tools/torch_kernel_profile.py counters DIR [--only=K6,K7]
-    python3 tools/torch_kernel_profile.py kernels DIR
+    python3 tools/torch_kernel_profile.py kernels DIR [--only=K2,K3]
     python3 tools/torch_kernel_profile.py archives DIR
+    python3 tools/torch_kernel_profile.py writes PARENT_DIR DIR [ROUNDS]
     python3 tools/torch_kernel_profile.py micro
 
 DIR is a directory holding libzseek_tpu_torch/ and chip_smoke.py: the
@@ -26,9 +27,17 @@ window of the codec's own frames (one per quarter), K7 at chip_smoke's
 contiguous MiB each: text, repeats, zeros, noise), and K6 at the lane
 route's calls for the level-3 archive's frames 0-7 (with hints, as
 chip_smoke's phase 8; without hints too), 16-23 (repeats) and 32-39
-(zeros); CUDA events, mean of 5; --check compares each output with the
-plain version first; --only keeps the entries whose names start with one
-of the given prefixes.  Each output's sha256 is printed.
+(zeros), K2 at chip_smoke's 64 rows (the main path's K2 modes), at the
+64 MiB hash write's batches 0, 2, 4 and 6 (the arguments the codec's K2
+arm passes, captured from ZstdCodec(parser="hash") on those 8 MiB) and
+at the level-9 write's first batch of each quarter (64 rows of 64 KiB),
+and K3 at chip_smoke's 64 rows and at the level-3 write's two text
+batches (the arguments the codec passes to vector_literals): the whole
+call and, where DIR's K3 has a separate placement kernel, that kernel
+alone; each K2 and K3 input's rows are summarised (modes, literals,
+sequences); CUDA events, mean of 5; --check compares each output with
+the plain version first; --only keeps the entries whose names start with
+one of the given prefixes.  Each output's sha256 is printed.
 
 pair: `times` in fresh processes from PARENT_DIR, DIR, DIR, PARENT_DIR
 (one card, in turns), then checks that both gave the same outputs.
@@ -40,22 +49,35 @@ one-warp version (the phased decoder that replaced it is timed per
 kernel by torch.profiler instead), into K5's one-thread chain walk, into
 K4's first, one-warp frame walk (seq_kernel), into K7's walk (the first
 version's lane-0 walk or the round walk that replaced it; per row of
-each K7 batch) and into K6's first, one-warp frame walk (per frame of
-each K6 call), builds that copy, and prints per chain (per frame, per
+each K7 batch), into K6's first, one-warp frame walk (per frame of
+each K6 call) and into K2's first, two-thread version (per row of each
+K2 input of `times`: thread 0's run table, and per literal its run walk,
+`x` load, code load and push; its raw copy; thread 32's sequence walk;
+the zeroing), builds that copy, and prints per chain (per frame, per
 row) the cycles of each part of the walk and its counts.  For the
 one-thread K1 it also times the walk with the dual table in device
 memory instead of shared memory.  Kernels that DIR holds in another
 design are skipped, and so are those that --only leaves out.
 
 kernels: K4's execute arm (level 3, 64 blocks; level 9, 128 blocks), K5
-(128 rows), K7 (chip_smoke's 64 rows; the text batch) and K6 (the 8
-frames with hints; the 8 repeats frames) under torch.profiler, five calls each: the mean
-milliseconds and launches a call of each CUDA kernel.
+(128 rows), K7 (chip_smoke's 64 rows; the text batch), K6 (the 8
+frames with hints; the 8 repeats frames), K2 (64 rows; the hash write's
+text batch) and K3 (the first text batch, the whole call) under
+torch.profiler, five calls each: the mean milliseconds and launches a
+call of each CUDA kernel; --only as for `times`.
 
 archives: the sha256 of the 64 MiB of mixed_corpus (seed 11) that DIR's
 Writer writes as chip_smoke.py does (zstd at levels 3 and 9, LZ4 at
 level 0, and zstd through ZstdCodec(parser="hash")), to show two
 commits' archives equal.
+
+writes: the MiB/s of the level-3, level-9 and hash-parser writes of
+those 64 MiB (chip_smoke.py's write_archive and hash_write, host clock to
+torch.cuda.synchronize(), no profiler), each process writing each once to
+warm up and then twice; ROUNDS (default 5) rounds of a process from
+PARENT_DIR and one from DIR, the first side alternating; prints each
+side's runs, their medians, the parent's quartile spread and how many
+change runs beat every parent run.
 
 micro: latency in cycles of warp intrinsics and loads on the card.
 """
@@ -442,6 +464,70 @@ K6_WARP_PER_FRAME = ("frame", ["walk", "checks", "lit_copy", "match_ge_ml",
      "    for (int i = 0; i < 16; ++i) g_prof[f & 63][i] += P[i];\n  }\n}\n"),
 ])
 
+# K2, the first version's two threads (per row): thread 0 builds the run
+# table, then per literal walks the run back, loads the byte from x, loads
+# its code and pushes it (each part timed to a MOV that uses its value);
+# its raw copy; thread 32's sequence walk and its tail (the state flushes
+# and the rep1 pass); thread 0's zeroing (from the kernel's start to the
+# barrier after it)
+K2_SERIAL = ("two_threads", ["lit_walk", "run_walk", "x_load", "code_load",
+                             "push", "lits", "raw_copy", "raw_bytes",
+                             "seq_walk", "seqs", "zero", "run_table",
+                             "run_steps", "seq_tail"], [
+    ("                              int* osz, int* lanch, int LMAXA) {\n"
+     "  int pos = 0, cum = 0;\n",
+     "                              int* osz, int* lanch, int LMAXA) {\n"
+     "  unsigned long long P[16] = {0};\n  long long Tr = clock64();\n"
+     "  int pos = 0, cum = 0;\n"),
+    ("  run_cum[n] = cum;\n  if (mode & MODE_HUF) {\n",
+     "  run_cum[n] = cum;\n  P[11] += clock64() - Tr;\n"
+     "  long long Tl = clock64();\n  if (mode & MODE_HUF) {\n"),
+    ("          while (run_cum[r] > g) --r;\n"
+     "          const int p = codes[x[run_pos[r] + (g - run_cum[r])]];\n"
+     "          push(st, (uint32_t)(p >> 4), p & 15);\n",
+     "          long long t0 = clock64();\n"
+     "          while (run_cum[r] > g) { --r; P[12] += 1; }\n"
+     "          int ip_ = run_pos[r] + (g - run_cum[r]);\n"
+     "          asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(ip_));\n"
+     "          long long t1 = clock64();\n"
+     "          int xb_ = x[ip_];\n"
+     "          asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(xb_));\n"
+     "          long long t2 = clock64();\n"
+     "          int p = codes[xb_];\n"
+     "          asm volatile(\"mov.b32 %0, %0;\" : \"+r\"(p));\n"
+     "          long long t3 = clock64();\n"
+     "          push(st, (uint32_t)(p >> 4), p & 15);\n"),
+    ("            lanch[s4 * LMAXA + (k >> 9) - 1] = sbits;\n        }\n",
+     "            lanch[s4 * LMAXA + (k >> 9) - 1] = sbits;\n"
+     "          P[1] += t1 - t0; P[2] += t2 - t1; P[3] += t3 - t2;\n"
+     "          P[4] += clock64() - t3; P[5] += 1;\n        }\n"),
+    ("  if (mode & MODE_RAWLIT) {\n    uint8_t* out = (uint8_t*)lit_o;\n",
+     "  P[0] += clock64() - Tl;\n  long long Tw = clock64();\n"
+     "  if (mode & MODE_RAWLIT) {\n    P[7] += lc;\n"
+     "    uint8_t* out = (uint8_t*)lit_o;\n"),
+    ("    osz[0] = lc;\n  }\n}\n",
+     "    osz[0] = lc;\n  }\n  P[6] += clock64() - Tw;\n"
+     "  for (int i = 0; i < 16; ++i) g_prof[blockIdx.x & 63][i] += P[i];\n"
+     "}\n"),
+    ("  int s_ll = 0, s_of = 0, s_ml = 0;\n  for (int t = 0; t < n; ++t) {\n",
+     "  int s_ll = 0, s_of = 0, s_ml = 0;\n  long long Ts = clock64();\n"
+     "  for (int t = 0; t < n; ++t) {\n"),
+    ("  push(bs, rle_ml ? 0u : (uint32_t)(s_ml & ((1 << tl_ml) - 1)),\n",
+     "  long long Tt = clock64();\n"
+     "  g_prof[blockIdx.x & 63][8] += Tt - Ts;\n"
+     "  g_prof[blockIdx.x & 63][9] += n;\n"
+     "  push(bs, rle_ml ? 0u : (uint32_t)(s_ml & ((1 << tl_ml) - 1)),\n"),
+    ("    if (soff[i] > 3) last = soff[i] - 3;\n  }\n}\n",
+     "    if (soff[i] > 3) last = soff[i] - 3;\n  }\n"
+     "  g_prof[blockIdx.x & 63][13] += clock64() - Tt;\n}\n"),
+    ("  const int b = blockIdx.x;\n  const int* m = meta + 8 * b;\n",
+     "  long long Tz = clock64();\n  const int b = blockIdx.x;\n"
+     "  const int* m = meta + 8 * b;\n"),
+    ("  if (threadIdx.x < 8) oz[threadIdx.x] = 0;\n  __syncthreads();\n",
+     "  if (threadIdx.x < 8) oz[threadIdx.x] = 0;\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0) g_prof[b & 63][10] += clock64() - Tz;\n"),
+])
+
 MICRO = r'''
 #include <cstdio>
 #include <cuda_runtime.h>
@@ -586,6 +672,116 @@ def _k6_calls(cs, data):
     return out
 
 
+# the 64 MiB corpus's quarters (MiB offsets): the hash write's batches 0,
+# 2, 4 and 6, and the level-9 write's first batch of each quarter
+QUARTERS = (("text", 0), ("repeats", 16), ("zeros", 32), ("noise", 48))
+
+
+def _clone(v):
+    import torch
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, (tuple, list)):
+        return type(v)(_clone(a) for a in v)
+    if isinstance(v, dict):
+        return {k: _clone(a) for k, a in v.items()}
+    return v
+
+
+def _capture(module, name, codec, frames):
+    """The arguments (args, kwargs) of the codec's first call to
+    module.name while it compresses `frames` (the call itself runs); the
+    tool's own copy of testing/capture.first_call, which DIR's package
+    may not have."""
+    real = getattr(module, name)
+    got = []
+
+    def spy(*a, **kw):
+        if not got:
+            got.append((_clone(a), _clone(kw)))
+        return real(*a, **kw)
+    setattr(module, name, spy)
+    try:
+        codec.compress_frames(frames)
+    finally:
+        setattr(module, name, real)
+    return got[0]
+
+
+def _k2_calls(cs, data):
+    """K2's inputs {name: (args, kwargs)}: chip_smoke's 64 rows with the
+    main path's K2 modes, the hash write's batches 0, 2, 4, 6 and the
+    level-9 write's first batch of each quarter."""
+    import torch
+    from libzseek_tpu_torch import ZstdCodec
+    from libzseek_tpu_torch.ops import entropy as E
+    cuda = torch.device("cuda")
+    S = 8192
+    xb, seqs, _m, kmeta, codes, ctabs, _l, _v = cs.chain_inputs(
+        *cs.batch_layout(data, cs.BATCH_ROWS, 8), cuda)
+    out = {"64 rows": ((xb, seqs["ll"], seqs["ml"], seqs["offv"], kmeta,
+                        codes, S, (cs.N + 64 + 127) // 128 * 128,
+                        (9 * S + 64 + 127) // 128 * 128), {"ctabs": ctabs})}
+    for name, start in QUARTERS:
+        out[f"hash {name}"] = _capture(
+            E, "entropy_emit", ZstdCodec(device="cuda", parser="hash"),
+            [data[(start + i) * MIB: (start + i + 1) * MIB]
+             for i in range(8)])
+    for name, start in QUARTERS:
+        out[f"L9 {name}"] = _capture(
+            E, "entropy_emit", ZstdCodec(level=9, device="cuda"),
+            [data[(start + i) * MIB: (start + i + 1) * MIB]
+             for i in range(4)])
+    return out
+
+
+def _k3_calls(cs, data):
+    """K3's inputs {name: vector_literals args}: chip_smoke's 64 rows (the
+    main path's K3 rows) and the level-3 write's two text batches."""
+    import torch
+    from libzseek_tpu_torch import ZstdCodec
+    from libzseek_tpu_torch.ops import vector_entropy as VE
+    cuda = torch.device("cuda")
+    xb, seqs, _m, _k, codes, _c, lens, vec = cs.chain_inputs(
+        *cs.batch_layout(data, cs.BATCH_ROWS, 8), cuda)
+    out = {"64 rows": (xb, seqs["lit_mask"], codes, lens, vec,
+                       (cs.N + 64 + 127) // 128 * 128)}
+    for k in range(2):
+        out[f"text {k}"] = _capture(
+            VE, "vector_literals", ZstdCodec(device="cuda"),
+            [data[(8 * k + i) * MIB: (8 * k + i + 1) * MIB]
+             for i in range(8)])[0]
+    return out
+
+
+def _k2_rows(meta):
+    """A K2 input's rows: counts of each literal mode, literals and
+    sequences."""
+    from libzseek_tpu_torch.ops import entropy as E
+    m = meta.cpu().numpy()
+    mode, lc, n = m[:, 3], m[:, 1], m[:, 2]
+    huf = (mode & E.MODE_HUF) != 0
+    one = (mode & E.MODE_HUF1) != 0
+    raw = (mode & E.MODE_RAWLIT) != 0
+    seq = ((mode & E.MODE_SEQ) != 0) & (n > 0)
+    return {"huf4": int((huf & ~one).sum()), "huf1": int((huf & one).sum()),
+            "raw": int(raw.sum()), "no_literals": int((~huf & ~raw).sum()),
+            "huf_literals": int(lc[huf].sum()),
+            "raw_literals": int(lc[raw].sum()), "seq_rows": int(seq.sum()),
+            "sequences": int(n[seq].sum()),
+            "n_max": int(n[seq].max()) if seq.any() else 0}
+
+
+def _k3_rows(args):
+    """A K3 input's rows: the rows it takes and their literals."""
+    import numpy as np
+    x, mask, _codes, lens, vec = (a.cpu().numpy() for a in args[:5])
+    bits = np.unpackbits(mask.view(np.uint8), axis=1, bitorder="little")
+    live = np.arange(x.shape[1])[None, :] < lens[:, None]
+    lits = (bits.astype(bool) & live)[vec.astype(bool)].sum()
+    return {"rows": int(vec.sum()), "literals": int(lits)}
+
+
 def _keep(name, only):
     return not only or any(name.startswith(p) for p in only)
 
@@ -642,13 +838,32 @@ def times(pkg_dir, levels, check, only=()):
         k7 = _k7_args(cs, data, start)
         run(f"K7 {name}", lambda: hash_parse.hash_parse(*k7),
             lambda: hash_parse.hash_parse(*[a.cpu() for a in k7]))
+    cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
     if _keep("K6", only):
-        cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
         for name, calls in _k6_calls(cs, data).items():
             run(f"K6 {name}",
                 lambda: [t for fn, a, kw in calls for t in fn(*a, **kw)],
                 lambda: [t for fn, a, kw in calls for t in fn(
                     *map(cpu, a), **{k: cpu(v) for k, v in kw.items()})])
+    if _keep("K2", only):
+        from libzseek_tpu_torch.ops import entropy as E
+        for name, (a, kw) in _k2_calls(cs, data).items():
+            res[f"K2 {name} rows"] = _k2_rows(a[4])
+            run(f"K2 {name}", lambda: E.entropy_emit(*a, **kw),
+                lambda: E.entropy_emit(*map(cpu, a),
+                                       **{k: cpu(v) for k, v in kw.items()}))
+    if _keep("K3", only):
+        from libzseek_tpu_torch.ops import vector_entropy as VE
+        for name, a in _k3_calls(cs, data).items():
+            res[f"K3 {name} rows"] = _k3_rows(a)
+            run(f"K3 {name} call", lambda: VE.vector_literals(*a),
+                lambda: VE.vector_literals(*map(cpu, a)))
+            if hasattr(VE, "place_literals"):
+                # the parent's placement kernel alone, on its prep's output
+                prep = VE.vector_prep(*a[:5])[:3]
+                run(f"K3 {name} kernel",
+                    lambda: [VE.place_literals(*prep, a[5] // 4)],
+                    lambda: [VE.place_literals(*map(cpu, prep), a[5] // 4)])
     print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
     return res
 
@@ -669,42 +884,64 @@ def pair(parent, change, levels, only=()):
         runs.append(json.loads(out.strip().splitlines()[-1]))
         print(out.strip().splitlines()[-1], flush=True)
     res = [next(iter(r.values())) for r in runs]
-    same = {k: res[0][k] == res[1][k] for k in res[0] if k.endswith("sha256")}
-    summary = {k[:-3]: {"parent": (res[0][k] + res[3][k]) / 2,
-                        "change": (res[1][k] + res[2][k]) / 2}
-               for k in res[0] if k.endswith(" ms")}
+    same = {k: res[0][k] == res[1][k] for k in res[0]
+            if k.endswith("sha256") and k in res[1]}
+    # a kernel held in another form on one side has its times on that side
+    summary = {}
+    for k in dict.fromkeys([*res[0], *res[1]]):
+        if k.endswith(" ms"):
+            summary[k[:-3]] = {
+                side: (res[a][k] + res[b][k]) / 2
+                for side, a, b in (("parent", 0, 3), ("change", 1, 2))
+                if k in res[a]}
     print(json.dumps({"outputs equal": same, "mean ms": summary}),
           flush=True)
     if not all(same.values()):
         sys.exit("pair: the parent's and the change's outputs differ")
 
 
-def kernels(pkg_dir):
+def kernels(pkg_dir, only=()):
     """K4's execute arm (level 3, 64 blocks; level 9, 128 blocks), K5
-    (128 rows), K7 (64 rows; the text batch) and K6 (8 frames with
-    hints; 8 repeats frames), five calls each under torch.profiler: the mean time of each
-    CUDA kernel a call launches."""
+    (128 rows), K7 (64 rows; the text batch), K6 (8 frames with hints; 8
+    repeats frames), K2 (64 rows; the hash text batch) and K3 (the first
+    text batch), five calls each under torch.profiler: the mean time of
+    each CUDA kernel a call launches."""
     import torch
     cs, data = _load(pkg_dir)
     from libzseek_tpu_torch.ops import decode, hash_parse, lz4_emit
     runs = []
-    for level in (3, 9):
+    for level in (3, 9) if _keep("K4", only) else ():
         k4, n, ns = _k4_args(data, level)
         runs.append((f"K4 L{level} {k4[4].shape[0]} blocks",
                      lambda k4=k4, n=n, ns=ns: decode.decode_blocks(
                          *k4, n, **ns)))
-    k5, cap = _k5_args(cs, data)
-    runs.append(("K5 128 rows", lambda: lz4_emit.lz4_emit(*k5, cap)))
-    for name, start in K7_BATCHES[:2]:
+    if _keep("K5", only):
+        k5, cap = _k5_args(cs, data)
+        runs.append(("K5 128 rows", lambda: lz4_emit.lz4_emit(*k5, cap)))
+    for name, start in K7_BATCHES[:2] if _keep("K7", only) else ():
         k7 = _k7_args(cs, data, start)
         runs.append((f"K7 {name}",
                      lambda k7=k7: hash_parse.hash_parse(*k7)))
-    k6 = _k6_calls(cs, data)
-    for name in ("8 frames", "repeats 8 frames"):
-        runs.append((f"K6 {name}", lambda calls=k6[name]: [
-            fn(*a, **kw) for fn, a, kw in calls]))
+    if _keep("K6", only):
+        k6 = _k6_calls(cs, data)
+        for name in ("8 frames", "repeats 8 frames"):
+            runs.append((f"K6 {name}", lambda calls=k6[name]: [
+                fn(*a, **kw) for fn, a, kw in calls]))
+    if _keep("K2", only):
+        from libzseek_tpu_torch.ops import entropy as E
+        k2 = _k2_calls(cs, data)
+        for name in ("64 rows", "hash text"):
+            a, kw = k2[name]
+            runs.append((f"K2 {name}", lambda a=a, kw=kw: E.entropy_emit(
+                *a, **kw)))
+    if _keep("K3", only):
+        from libzseek_tpu_torch.ops import vector_entropy as VE
+        a = _k3_calls(cs, data)["text 0"]
+        runs.append(("K3 text 0 call", lambda: VE.vector_literals(*a)))
     act = [torch.profiler.ProfilerActivity.CUDA]
     for name, fn in runs:
+        if not _keep(name, only):
+            continue
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=act) as prof:
@@ -730,6 +967,58 @@ def archives(pkg_dir):
     archive, _, _ = cs.hash_write(data, "cuda")
     res["zstd hash parser"] = hashlib.sha256(archive).hexdigest()
     print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
+
+
+WRITES = ("zstd level 3", "zstd level 9", "zstd hash parser")
+
+
+def write_rates(pkg_dir):
+    """MiB/s of DIR's writes (WRITES), a warm-up each, then two each."""
+    cs, data = _load(pkg_dir)
+    run = {"zstd level 3": lambda: cs.write_archive(data, "cuda")[1],
+           "zstd level 9": lambda: cs.write_archive(data, "cuda", "zstd",
+                                                    9)[1],
+           "zstd hash parser": lambda: cs.hash_write(data, "cuda")[1]}
+    for name in WRITES:
+        run[name]()
+    res = {name: [] for name in WRITES}
+    for _ in range(2):
+        for name in WRITES:
+            res[name].append(len(data) / MIB / run[name]())
+    print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
+
+
+def writes(parent, change, rounds):
+    """write_rates in fresh processes, a round parent and change, the
+    first side alternating."""
+    import numpy as np
+    got = {"parent": {n: [] for n in WRITES},
+           "change": {n: [] for n in WRITES}}
+    for r in range(rounds):
+        order = (("parent", parent), ("change", change))
+        for side, d in order if r % 2 == 0 else order[::-1]:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "write_rates",
+                 d], capture_output=True, text=True)
+            if proc.returncode:
+                sys.exit(f"writes: {d} failed:\n{proc.stderr}")
+            line = proc.stdout.strip().splitlines()[-1]
+            print(side, line, flush=True)
+            for n, v in next(iter(json.loads(line).values())).items():
+                got[side][n] += v
+    out = {}
+    for n in WRITES:
+        p, c = np.array(got["parent"][n]), np.array(got["change"][n])
+        q1, q3 = np.percentile(p, [25, 75])
+        out[n] = {"parent": got["parent"][n], "change": got["change"][n],
+                  "median parent": float(np.median(p)),
+                  "median change": float(np.median(c)),
+                  "parent quartile spread": float(q3 - q1),
+                  "change runs above every parent run":
+                      f"{int((c > p.max()).sum())} of {c.size}",
+                  "change runs below every parent run":
+                      f"{int((c < p.min()).sum())} of {c.size}"}
+    print(json.dumps(out), flush=True)
 
 
 def _patch(path, variants, tag):
@@ -772,6 +1061,8 @@ def counters(pkg_dir, only=()):
                             [K7_LANE0, K7_ROUNDS], "k7")
     k6v, k6_fields = _patch(os.path.join(csrc, "exec_blocks.cu"),
                             [K6_WARP_PER_FRAME], "k6")
+    k2v, k2_fields = _patch(os.path.join(csrc, "entropy.cu"), [K2_SERIAL],
+                            "k2")
     cs, data = _load(dst)
     from libzseek_tpu_torch import kernels
     from libzseek_tpu_torch.ops import decode, hash_parse, lz4_decode, lz4_emit
@@ -793,7 +1084,16 @@ def counters(pkg_dir, only=()):
 
     print(json.dumps({"k1_version": k1, "lz4_version": lz, "k5_version": k5v,
                       "k4_version": k4v, "k7_version": k7v,
-                      "k6_version": k6v}), flush=True)
+                      "k6_version": k6v, "k2_version": k2v}), flush=True)
+    if k2v and _keep("K2", only):
+        from libzseek_tpu_torch.ops import entropy as E
+        for name, (a, kw) in _k2_calls(cs, data).items():
+            fn = lambda: E.entropy_emit(*a, **kw)
+            rows = run(fn, k2_fields, 64, "k2")
+            print(json.dumps({f"K2 {name}": {
+                "ms": cs.time_cuda(fn, reps=3), "rows": _k2_rows(a[4]),
+                "summary": _k2_summary(rows), "per_row": rows}}),
+                flush=True)
     if k7v and _keep("K7", only):
         for name, start in K7_BATCHES:
             k7 = _k7_args(cs, data, start)
@@ -837,6 +1137,23 @@ def counters(pkg_dir, only=()):
         print(json.dumps({"LZ4 decode": {
             "ms": cs.time_cuda(fn, reps=3),
             "frames": run(fn, lz_fields, 4, "lz4")}}), flush=True)
+
+
+def _k2_summary(rows):
+    """Cycles a literal of each part of thread 0's walk (over all rows),
+    a raw byte, a sequence; the slowest row's thread-0 and thread-32
+    cycles; the mean zeroing cycles."""
+    tot = {k: sum(r[k] for r in rows) for k in rows[0]}
+    per = lambda k, n: round(tot[k] / tot[n], 2) if tot[n] else None
+    out = {f"{k}_per_literal": per(k, "lits")
+           for k in ("lit_walk", "run_walk", "x_load", "code_load", "push")}
+    out["raw_copy_per_byte"] = per("raw_copy", "raw_bytes")
+    out["seq_walk_per_sequence"] = per("seq_walk", "seqs")
+    out["max_thread0"] = max(r["run_table"] + r["lit_walk"] + r["raw_copy"]
+                             for r in rows)
+    out["max_thread32"] = max(r["seq_walk"] + r["seq_tail"] for r in rows)
+    out["zero_mean"] = round(tot["zero"] / len(rows), 1)
+    return out
 
 
 def _global_table(lib, cs, PL, args, prm):
@@ -892,8 +1209,13 @@ def main():
         pair(sys.argv[2], sys.argv[3], levels(4), only)
     elif cmd == "archives":
         archives(sys.argv[2])
+    elif cmd == "write_rates":
+        write_rates(sys.argv[2])
+    elif cmd == "writes":
+        writes(sys.argv[2], sys.argv[3],
+               int(sys.argv[4]) if len(sys.argv) > 4 else 5)
     elif cmd == "kernels":
-        kernels(sys.argv[2])
+        kernels(sys.argv[2], only)
     elif cmd == "counters":
         counters(sys.argv[2], only)
     elif cmd == "micro":
