@@ -111,11 +111,28 @@ Phases, each of which must pass (any failure exits non-zero):
      (the arm must launch, no batch may leave the route), the
      long-window frame and the level-9 archive go through it without a
      fallback, and the fused, lane and transcode reads of the 64 MiB run
-     in turn, three rounds, each read's MiB/s printed.
+     in turn, three rounds, each read's MiB/s printed;
+ 11. the sort parser and the public API: greedy_select (the kernel of
+     the sort parser, csrc/greedy_select.cu) against its plain version,
+     exact, on small cases (one 16 KiB row per quarter, seg_size 4 and
+     8, and the LZ4 context arm) and at the path's batches, the
+     arguments captured from the codecs on 8 frames (two per quarter):
+     64 zstd rows of 128 KiB and 128 LZ4 rows of 64 KiB window plus 64
+     KiB block, timed; Writer(sink, ZstdCodec(parser="sort")) writes the
+     64 MiB after an 8 MiB warm-up (greedy_select must launch; libzstd
+     decodes it, 64 frames, the first frame equals the CPU-plain write's,
+     Reader(device="cuda") reads it back with K4 launching and 16 random
+     4 KiB preads equal), then Writer(codec=LZ4Codec(parser="sort")) the
+     same with liblz4 and the LZ4 decoder; level 1 zstd and LZ4 level -1
+     (seg_size 8) write 8 MiB each, decoded by the stock libraries; the
+     zseek_* shims write 8 MiB (CompressionParams("zstd",
+     ZstdParams(3))), read it back with 64 zseek_preads and one
+     Reader.prefetch of 8 offsets (one decode call), and print the
+     reader's stats.
 
 Prints JSON lines for the write path, the read path, the LZ4 path, the
-hash path, the lane route, the level >= 4 path, the transcode route and
-the kernels, the
+hash path, the lane route, the level >= 4 path, the transcode route, the
+sort path and the kernels, the
 card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
@@ -688,6 +705,9 @@ class Sink:
 
 def write_archive(data: bytes, device: str, codec="zstd",
                   level: int = 3) -> tuple[bytes, float]:
+    """`data` through Writer(sink, codec) (a name at `level`, or a codec
+    object), 1 MiB frames and writes, batch_frames=16: (archive,
+    seconds)."""
     import torch
     from libzseek_tpu_torch import Writer
     sink = Sink()
@@ -1764,6 +1784,259 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
             "card_ms": card_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the sort parser and the public API
+
+GREEDY_KERNELS = ["greedy_kernel"]
+
+
+def capture_greedy(codec, frames) -> tuple[list, dict]:
+    """compress_frames(frames) with ops.match.greedy_select wrapped: the
+    arguments of its first call (tensors cloned) and its keywords."""
+    from libzseek_tpu_torch.ops import match
+    orig = match.greedy_select
+    got = []
+
+    def spy(*a, **kw):
+        if not got:
+            got.append(([t.clone() if hasattr(t, "clone") else t
+                         for t in a], kw))
+        return orig(*a, **kw)
+    match.greedy_select = spy
+    try:
+        codec.compress_frames(frames)
+    finally:
+        match.greedy_select = orig
+    return got[0]
+
+
+def greedy_small(data):
+    """greedy_select's small cases: one 16 KiB row per quarter through
+    the zstd candidates (seg_size 4 and 8, min_tail 4) and the LZ4
+    context arm (8 KiB window, 8 KiB block, seg_size 4, c0 = 8192,
+    min_tail 12): (name, args on the card, keywords)."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch.ops import match
+    cuda = torch.device("cuda")
+    rows = np.stack([np.frombuffer(data, np.uint8, 16384, q * 16 * MIB)
+                     for q in range(4)])
+    X = torch.from_numpy(rows).to(cuda)
+    lens = torch.tensor([16384, 16384, 16000, 11], dtype=torch.int32,
+                        device=cuda)
+    out = []
+    for seg in (4, 8):
+        p, off, e, has = match.find_segment_matches(
+            X, lens, seg_size=seg, max_len=48, min_tail=4, end_margin=0,
+            max_offset=(1 << 17) - 1, window=8)
+        out.append((f"zstd seg_size {seg}", [p, off, e, has, lens],
+                    dict(min_tail=4)))
+    lens_c = torch.tensor([16384, 16384, 12000, 8192], dtype=torch.int32,
+                          device=cuda)
+    min_ref = torch.tensor([0, 8192, 100, 0], dtype=torch.int32,
+                           device=cuda)
+    p, off, e, has = match.find_segment_matches(
+        X, lens_c, seg_size=4, max_len=48, max_back=4, dual=True,
+        ctx_len=8192, min_ref=min_ref)
+    out.append(("LZ4 context", [p, off, e, has, lens_c],
+                dict(min_tail=12, c0=8192)))
+    return out
+
+
+def greedy_work(args) -> tuple[int, int]:
+    """(bytes, operations) greedy_select must move and do: p, e, has and
+    lengths read once, sel, start, lit_from and c_final written once;
+    about 4 integer operations a segment (a max, two compares, a
+    select)."""
+    p = args[0]
+    B, nseg = p.shape
+    return (nbytes(args[0], args[2], args[3], args[4])
+            + B * nseg * (1 + 4 + 4) + 4 * B), 4 * B * nseg
+
+
+def sort_read(archive: bytes, data: bytes, D, name: str) -> float:
+    """Reader(device="cuda") over the archive: the decoder module D must
+    launch, the bytes equal the input, and 16 random 4 KiB preads (seed
+    7) equal; returns the sequential MiB/s."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import Reader
+    D.launches = 0
+    t0 = time.perf_counter()
+    with Reader(archive, device="cuda") as r:
+        got = read_all(r)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rng = np.random.default_rng(7)
+        for off in rng.integers(0, len(data) - 4096, 16).tolist():
+            check(r.pread_full(4096, off) == data[off: off + 4096],
+                  f"sort archive: pread at {off} differs")
+    check(got == data, "the Reader's read of a sort archive differs")
+    check(D.launches > 0, f"{name} never launched on the sort read")
+    return len(data) / MIB / dt
+
+
+def phase_sort(data, card, report) -> dict:
+    """Phase 11: greedy_select against its plain version, the zstd and
+    LZ4 sort writes and their reads, levels 1 / -1, the public API."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import LZ4Codec, ZstdCodec, api
+    from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
+    from libzseek_tpu_torch.ops import decode, lz4_decode, match
+    from libzseek_tpu_torch.testing import golden
+
+    # greedy_select: small cases, then the path's batches
+    errs = []
+    for name, args, kw in greedy_small(data):
+        e, _ = against_plain(f"greedy_select ({name})",
+                             lambda *a, kw=kw: match.greedy_select(*a, **kw),
+                             args)
+        errs.append(e)
+    frames = [data[f * 8 * MIB: f * 8 * MIB + MIB] for f in range(8)]
+    zargs, zkw = capture_greedy(ZstdCodec(parser="sort"), frames)
+    largs, lkw = capture_greedy(LZ4Codec(parser="sort"), frames)
+    check(tuple(zargs[0].shape) == (64, N // 4) and
+          tuple(largs[0].shape) == (128, N // 4),
+          f"greedy_select batches {tuple(zargs[0].shape)}, "
+          f"{tuple(largs[0].shape)}")
+    zfn = lambda *a: match.greedy_select(*a, **zkw)
+    lfn = lambda *a: match.greedy_select(*a, **lkw)
+    e_z, plain_ms = against_plain("greedy_select (64 zstd rows)", zfn, zargs)
+    e_l, lz4_plain_ms = against_plain("greedy_select (128 LZ4 rows)", lfn,
+                                      largs)
+    ms = time_cuda(lambda: zfn(*zargs))
+    lz4_ms = time_cuda(lambda: lfn(*largs))
+    lz4_bound, _ = bound(*greedy_work(largs))
+    has_z = int(zargs[3].sum())
+    has_l = int(largs[3].sum())
+    entry(report, "greedy_select", "libzseek_tpu_torch/csrc/greedy_select.cu",
+          "libzseek_tpu/ops/match.py:213", errs + [e_z, e_l], ms, plain_ms,
+          *greedy_work(zargs),
+          f"not a TPU kernel (a lax.scan); one 16 KiB row per quarter, "
+          f"seg_size 4/8 and the LZ4 context arm; 64 zstd rows x 32768 "
+          f"segments ({has_z} with a candidate after the gate); 128 LZ4 "
+          f"rows x 32768 segments ({has_l} with a candidate) card "
+          f"{lz4_ms:.3f} ms, plain {lz4_plain_ms:.1f} ms, bound "
+          f"{lz4_bound:.4f} ms")
+    g = report[-1]
+    g.update(cuda_kernels=GREEDY_KERNELS, lz4_batch_ms=lz4_ms,
+             lz4_plain_ms=lz4_plain_ms, lz4_bound_ms=lz4_bound)
+
+    # the zstd sort write: an 8 MiB warm-up, then the 64 MiB
+    write_archive(data[:8 * MIB], "cuda", ZstdCodec(parser="sort"))
+    match.launches = 0
+    archive, dt = write_archive(data, "cuda", ZstdCodec(parser="sort"))
+    g["launches"] = match.launches
+    check(match.launches > 0, "greedy_select never launched on the zstd "
+          "sort write")
+    ratio = len(archive) / len(data)
+    print(f"zstd sort write: 64 MiB in {dt:.3f} s = {64 / dt:.2f} MiB/s, "
+          f"ratio {ratio:.5f} ({len(archive)} bytes); greedy_select "
+          f"launches {match.launches}", flush=True)
+    check(golden.zstd_decompress(archive) == data,
+          "stock libzstd does not reproduce the zstd sort archive")
+    print(f"zstd sort archive sha256 {hashlib.sha256(archive).hexdigest()}",
+          flush=True)
+    table = parse_seek_table_bytes(archive)
+    check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
+    cpu_archive, cpu_dt = write_archive(data[:MIB], "cpu",
+                                        ZstdCodec(device="cpu", parser="sort"))
+    check(frame_bytes(cpu_archive, parse_seek_table_bytes(cpu_archive), 0)
+          == frame_bytes(archive, table, 0),
+          "first zstd sort frame differs between the card and plain")
+    read_mib_s = sort_read(archive, data, decode, "K4")
+    print(f"zstd sort archive: libzstd decode equal, 64 frames, first frame "
+          f"equal to plain (CPU, {cpu_dt:.1f} s), Reader read equal "
+          f"({read_mib_s:.2f} MiB/s, K4 launching), 16 preads equal",
+          flush=True)
+
+    # the LZ4 sort write
+    write_archive(data[:8 * MIB], "cuda", LZ4Codec(parser="sort"))
+    match.launches = 0
+    l_archive, l_dt = write_archive(data, "cuda", LZ4Codec(parser="sort"))
+    g["launches_lz4"] = match.launches
+    check(match.launches > 0, "greedy_select never launched on the LZ4 "
+          "sort write")
+    l_ratio = len(l_archive) / len(data)
+    print(f"LZ4 sort write: 64 MiB in {l_dt:.3f} s = {64 / l_dt:.2f} MiB/s, "
+          f"ratio {l_ratio:.5f} ({len(l_archive)} bytes); greedy_select "
+          f"launches {match.launches}", flush=True)
+    check(golden.lz4f_decompress(l_archive) == data,
+          "stock liblz4 does not reproduce the LZ4 sort archive")
+    print(f"LZ4 sort archive sha256 "
+          f"{hashlib.sha256(l_archive).hexdigest()}", flush=True)
+    l_table = parse_seek_table_bytes(l_archive)
+    check(l_table.num_frames == 64,
+          f"seek table has {l_table.num_frames} frames")
+    cpu_l, cpu_l_dt = write_archive(data[:MIB], "cpu",
+                                    LZ4Codec(device="cpu", parser="sort"))
+    check(frame_bytes(cpu_l, parse_seek_table_bytes(cpu_l), 0)
+          == frame_bytes(l_archive, l_table, 0),
+          "first LZ4 sort frame differs between the card and plain")
+    l_read = sort_read(l_archive, data, lz4_decode, "LZ4 decoder")
+    print(f"LZ4 sort archive: liblz4 decode equal, 64 frames, first frame "
+          f"equal to plain (CPU, {cpu_l_dt:.1f} s), Reader read equal "
+          f"({l_read:.2f} MiB/s, the LZ4 decoder launching), 16 preads "
+          f"equal", flush=True)
+
+    # level 1 zstd and LZ4 level -1 (seg_size 8), 8 MiB of each quarter's
+    # first 2 MiB
+    small = sample_8mib(data)
+    z1, z1_dt = write_archive(small, "cuda",
+                              ZstdCodec(level=1, parser="sort"))
+    check(golden.zstd_decompress(z1) == small,
+          "stock libzstd does not reproduce the level-1 sort archive")
+    l1, l1_dt = write_archive(small, "cuda",
+                              LZ4Codec(level=-1, parser="sort"))
+    check(golden.lz4f_decompress(l1) == small,
+          "stock liblz4 does not reproduce the level -1 sort archive")
+    print(f"sort, 8 MiB: zstd level 1 {8 / z1_dt:.2f} MiB/s ratio "
+          f"{len(z1) / len(small):.5f}, LZ4 level -1 {8 / l1_dt:.2f} MiB/s "
+          f"ratio {len(l1) / len(small):.5f}; stock decodes equal",
+          flush=True)
+
+    # the public API: the zseek_* shims on the card
+    sink = Sink()
+    t0 = time.perf_counter()
+    w = api.zseek_writer_open_full(sink, api.CompressionParams(
+        "zstd", api.ZstdParams(3)), min_frame_size=MIB)
+    for pos in range(0, len(small), MIB):
+        check(api.zseek_write(w, small[pos: pos + MIB]), "zseek_write")
+    wst = api.zseek_writer_close(w)
+    torch.cuda.synchronize()
+    api_dt = time.perf_counter() - t0
+    check(wst.frames == 8, f"zseek_writer_close: {wst.frames} frames")
+    r = api.zseek_reader_open(sink.value())
+    calls = []
+    orig = r._codec.decompress_frames
+    r._codec.decompress_frames = lambda *a, **kw: (
+        calls.append(len(a[0])), orig(*a, **kw))[1]
+    r.prefetch([i * MIB + 5 for i in range(8)])
+    check(calls == [8], f"prefetch made decode calls {calls}")
+    offs = np.random.default_rng(17).integers(0, len(small) - 4096, 64)
+    for off in offs.tolist():
+        check(api.zseek_pread(r, 4096, off) == small[off: off + 4096],
+              f"zseek_pread at {off} differs")
+    check(api.zseek_read(r, 4096) == small[:4096], "zseek_read differs")
+    check(len(calls) == 1, f"the preads after prefetch decoded {calls}")
+    rst = api.zseek_reader_stats(r)
+    api.zseek_reader_close(r)
+    print(f"zseek_* API: 8 MiB written in {api_dt:.3f} s ({wst}), 64 "
+          f"zseek_preads equal, prefetch of 8 offsets in one decode call "
+          f"({calls[0]} frames), {rst}", flush=True)
+    return {"card": card, "write_mib_s": 64 / dt, "ratio": ratio,
+            "read_mib_s": read_mib_s, "lz4_write_mib_s": 64 / l_dt,
+            "lz4_ratio": l_ratio, "lz4_read_mib_s": l_read,
+            "level1_write_mib_s": 8 / z1_dt,
+            "level1_ratio": len(z1) / len(small),
+            "lz4_level_m1_write_mib_s": 8 / l1_dt,
+            "lz4_level_m1_ratio": len(l1) / len(small),
+            "greedy_launches": g["launches"],
+            "greedy_launches_lz4": g["launches_lz4"],
+            "api_write_s": api_dt, "prefetch_frames": calls[0]}
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "libzseek_tpu_torch")):
         fail("libzseek_tpu_torch is not beside chip_smoke.py")
@@ -1868,6 +2141,9 @@ def main() -> None:
     transcode_path = phase_transcode(archive, table, data, kept, card,
                                      report)
 
+    # phase 11
+    sort_path = phase_sort(data, card, report)
+
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
           flush=True)
@@ -1877,6 +2153,7 @@ def main() -> None:
     print(json.dumps({"lane_path": lane_path}), flush=True)
     print(json.dumps({"levels_path": levels_path}), flush=True)
     print(json.dumps({"transcode_path": transcode_path}), flush=True)
+    print(json.dumps({"sort_path": sort_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

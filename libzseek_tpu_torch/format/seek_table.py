@@ -83,6 +83,14 @@ class SeekTable:
             idx += 1
         return idx
 
+    def frames_for_offsets(self, d_offsets: np.ndarray) -> np.ndarray:
+        """Vectorized frame_for_offset for batched random reads (it does
+        not skip empty frames)."""
+        d_offsets = np.asarray(d_offsets, dtype=np.uint64)
+        n = self.num_frames
+        idx = np.searchsorted(self.d_offsets, d_offsets, side="right") - 1
+        return np.clip(idx, 0, n - 1).astype(np.int64)
+
     def frame_c_offset(self, idx: int) -> int:
         return int(self.c_offsets[idx])
 
@@ -129,6 +137,10 @@ class FrameLog:
         self._checksums.append(int(checksum) & 0xFFFFFFFF)
 
     def __len__(self) -> int:
+        return len(self._c_sizes)
+
+    @property
+    def entries(self) -> int:
         return len(self._c_sizes)
 
     def size(self) -> int:

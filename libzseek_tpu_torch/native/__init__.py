@@ -2,10 +2,12 @@
 ctypes.
 
 Counterpart of libzseek_tpu/native/__init__.py, cut to the entry points
-the port calls, plus `gate_entropy` (the hash parser's gate scale, which
-the reference computes on its device).  `zir_execute` and
-`huf_decode_batch` raise FormatError on corrupt input where the
-reference's return -1 and None (its caller then falls back).  The library is built at first use
+the port calls and the seek table's seektable_serialize and
+seektable_parse (:130-150), plus `gate_entropy` (the hash and sort
+parsers' gate scale, which the reference computes on its device).
+`zir_execute` and `huf_decode_batch` raise FormatError on corrupt input
+where the reference's return -1 and None (its caller then falls back).
+The library is built at first use
 with `c++ -O2 -std=c++17 -shared -fPIC -ffp-contract=off` (no fused
 multiply-adds but the ones zn.cc writes) into `build/torch_native/` at the
 repository root (a gitignored directory), named by a hash of the source
@@ -80,6 +82,10 @@ def library() -> ctypes.CDLL:
         lib.zn_xxh64.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                  ctypes.c_uint64]
         lib.zn_xxh64.restype = ctypes.c_uint64
+        lib.zn_seektable_serialize.argtypes = [u32p, ctypes.c_int64, u8p]
+        lib.zn_seektable_serialize.restype = ctypes.c_int64
+        lib.zn_seektable_parse.argtypes = [u8p, ctypes.c_int64, i64p]
+        lib.zn_seektable_parse.restype = ctypes.c_int64
         lib.zn_ldm_scan.argtypes = [u8p, ctypes.c_int64, ctypes.c_int64,
                                     i64p, i32p, ctypes.c_int64, i64p]
         lib.zn_ldm_scan.restype = ctypes.c_int64
@@ -148,6 +154,29 @@ def huf_tree_batch(weights: np.ndarray) -> list[bytes | None]:
 def xxh64(data, seed: int = 0) -> int:
     data = bytes(data)
     return int(library().zn_xxh64(data, len(data), seed))
+
+
+def seektable_serialize(entries: np.ndarray) -> bytes:
+    """entries (n, 2) uint32 (c_size, d_size) -> the serialized seek
+    table's skippable frame (no checksums)."""
+    n = entries.shape[0]
+    entries = np.ascontiguousarray(entries, np.uint32)
+    out = np.zeros(8 + 8 * n + 9, np.uint8)
+    wrote = library().zn_seektable_serialize(entries.reshape(-1), n, out)
+    return out[:wrote].tobytes()
+
+
+def seektable_parse(table_frame: bytes):
+    """The seek table's skippable-frame bytes (magic through footer) ->
+    (n, cumulative (n+1, 2) int64 (c_off, d_off)), or None when they are
+    malformed."""
+    buf = np.ascontiguousarray(np.frombuffer(table_frame, np.uint8))
+    max_n = max(1, (len(table_frame) - 17) // 8 + 1)
+    cum = np.zeros((max_n + 1, 2), np.int64)
+    n = library().zn_seektable_parse(buf, len(buf), cum.reshape(-1))
+    if n < 0:
+        return None
+    return int(n), cum[: n + 1]
 
 
 def ldm_scan(x: np.ndarray, nblocks: int, bsize: int,

@@ -16,6 +16,8 @@
 //     reference's XLA code computes it on the CPU (not in the reference's
 //     native library: the reference computes it on its device);
 //   * zn_xxh64: XXH64, the seek table's per-frame checksum;
+//   * zn_seektable_serialize, zn_seektable_parse: the seek table's
+//     skippable frame (no checksums) and its cumulative offsets;
 //   * zn_lz4_decode: one LZ4 block into a frame buffer, the LZ4 codec's
 //     host decode route;
 //   * zn_zir_execute: one transcoded zstd block (literal bytes and the
@@ -501,6 +503,67 @@ void zn_huf_tree_batch(const uint8_t* weights, int nh, uint8_t* trees,
     std::memcpy(tree, best->data(), best->size());
     tree_lens[i] = (int32_t)best->size();
   }
+}
+
+// ---------------------------------------------------------------------------
+// zstd seekable seek table (the reference library's seek_table.c layout)
+// ---------------------------------------------------------------------------
+
+// Serialize: entries (n, 2) uint32 row-major (c_size, d_size) -> out buffer.
+// Returns bytes written.  out must hold 8 + 8n + 9 bytes (no checksums).
+int64_t zn_seektable_serialize(const uint32_t* entries, int64_t n,
+                               uint8_t* out) {
+  uint8_t* p = out;
+  uint32_t magic = 0x184D2A5E;
+  uint32_t frame_size = (uint32_t)(n * 8 + 9);
+  std::memcpy(p, &magic, 4);
+  p += 4;
+  std::memcpy(p, &frame_size, 4);
+  p += 4;
+  for (int64_t i = 0; i < n; ++i) {
+    std::memcpy(p, entries + 2 * i, 8);
+    p += 8;
+  }
+  uint32_t nf = (uint32_t)n;
+  std::memcpy(p, &nf, 4);
+  p += 4;
+  *p++ = 0;  // seek-table descriptor: no checksums
+  uint32_t foot = 0x8F92EAB1;
+  std::memcpy(p, &foot, 4);
+  p += 4;
+  return p - out;
+}
+
+// Parse: buf = last (9 + 8n [+4n]) bytes ending at the footer.  Fills
+// cum (n+1, 2) int64 cumulative (c_off, d_off) pairs.  Returns n or -1.
+int64_t zn_seektable_parse(const uint8_t* table_frame, int64_t frame_bytes,
+                           int64_t* cum) {
+  if (frame_bytes < 17) return -1;
+  const uint8_t* foot = table_frame + frame_bytes - 9;
+  uint32_t magic;
+  std::memcpy(&magic, foot + 5, 4);
+  if (magic != 0x8F92EAB1) return -1;
+  uint32_t nf;
+  std::memcpy(&nf, foot, 4);
+  uint8_t desc = foot[4];
+  if (desc & 0x7C) return -1;  // reserved bits
+  int entry = (desc & 0x80) ? 12 : 8;
+  if (frame_bytes < 8 + (int64_t)entry * nf + 9) return -1;
+  const uint8_t* e = table_frame + 8;
+  int64_t c = 0, d = 0;
+  for (uint32_t i = 0; i < nf; ++i) {
+    cum[2 * i] = c;
+    cum[2 * i + 1] = d;
+    uint32_t cs, ds;
+    std::memcpy(&cs, e, 4);
+    std::memcpy(&ds, e + 4, 4);
+    e += entry;
+    c += cs;
+    d += ds;
+  }
+  cum[2 * nf] = c;
+  cum[2 * nf + 1] = d;
+  return nf;
 }
 
 // XXH64 (zstd seekable per-frame checksum = low 32 bits over the

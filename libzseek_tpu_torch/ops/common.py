@@ -1,10 +1,11 @@
 """Batched histogram, prefix-sum, gather/scatter and region helpers.
 
-Counterparts of libzseek_tpu/ops/common.py hist256 (:117), hist_nk (:144),
-exclusive_cumsum (:36), and of the helpers of the LZ4 decoder's plain
-version: take1 (:41), scatter1_set (:53), scatter1_add (:63),
-fill_regions (:72), region_index (:89), ff_run_length (:102) and
-resolve_copy_chains (:169).  The reference builds histograms as bf16
+Counterparts of libzseek_tpu/ops/common.py INVALID (:19), u32_window
+(:22), hist256 (:117), hist_nk (:144), exclusive_cumsum (:36), and of
+the helpers of the LZ4 decoder's plain version and the sort parser:
+take1 (:41), scatter1_set (:53), scatter1_add (:63), fill_regions (:72),
+region_index (:89), ff_run_length (:102) and resolve_copy_chains
+(:169).  The reference builds histograms as bf16
 one-hot matmuls with f32 accumulation (exact for counts, and the fast
 form on the TPU's matrix unit); here they are plain `scatter_add_`
 counts, exact by construction.  Batched arrays are (B, N): rows are
@@ -14,6 +15,20 @@ independent blocks or frames.
 from __future__ import annotations
 
 import torch
+
+INVALID = -1
+
+
+def u32_window(x: torch.Tensor) -> torch.Tensor:
+    """Little-endian 4-byte value starting at every position: (B, N)
+    uint8 -> (B, N) int64 holding the unsigned 32-bit value (positions
+    N-3.. read zero padding; callers mask by valid length).  The
+    reference returns the same bits as int32."""
+    xi = x.to(torch.int64)
+    out = xi.clone()
+    for k in (1, 2, 3):
+        out[:, : -k] |= xi[:, k:] << (8 * k)
+    return out
 
 
 def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

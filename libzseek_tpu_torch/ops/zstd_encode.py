@@ -2,7 +2,8 @@
 (the per-block hash parse).
 
 Counterparts in libzseek_tpu/ops/zstd_encode.py: GATE_FIXED_BITS (:39),
-SORT_GATE_BITS (:41), _const_byte (:79), _fast_post (:416),
+SORT_GATE_BITS (:41), _const_byte (:79), zstd_sequences (:90, the sort
+parser's, over ops/match.py), _fast_post (:416),
 _fast_post_nolit (:473), extract_literals (:525), compact_payload (:544),
 _hist_quarters (:596), _rep1_rewrite (:612), block_entropy_h16 (:668),
 _linked_post (:695), level_search_params (:740), apply_ldm_override
@@ -12,10 +13,10 @@ zstd_sequences_fast (:895) and zstd_sequences_fast_nolit (:905).  The
 are constants here.
 
 Both float entropies are taken on the host from a device histogram, so
-the card and the CPU agree: h16 is rounded to 1/16 bit, but the hash
-path's gate compares ml * H with an integer cost unrounded, where one ulp
-of H flips a sequence, so gate_entropy reproduces the reference's XLA
-arithmetic bit for bit (native zn_gate_entropy).
+the card and the CPU agree: h16 is rounded to 1/16 bit, but the hash and
+sort parsers' gate compares ml * H with an integer cost unrounded, where
+one ulp of H flips a sequence, so gate_entropy reproduces the
+reference's XLA arithmetic bit for bit (native zn_gate_entropy).
 """
 
 from __future__ import annotations
@@ -27,12 +28,14 @@ from libzseek_tpu_torch import native
 from libzseek_tpu_torch.ops import common as C
 from libzseek_tpu_torch.ops.common import u32_to_i32
 from libzseek_tpu_torch.ops.entropy import exp_of
+from libzseek_tpu_torch.ops import match as M
 from libzseek_tpu_torch.ops.hash_parse import hash_parse
 from libzseek_tpu_torch.ops.parse_linked import parse_linked
 
 # fixed per-sequence bit cost the in-kernel profitability gate charges
 GATE_FIXED_BITS = 14
-# the hash parse's gate: fixed bits per sequence on top of the offset's
+# the sort and hash parsers' gate: fixed bits per sequence on top of the
+# offset's
 SORT_GATE_BITS = 20.0
 # the gate's cost scale samples this many leading bytes of each block
 H16_SAMPLE = 32768
@@ -45,6 +48,53 @@ def _const_byte(x, lengths, in_range):
     return torch.where((nonconst == 0) & (lengths > 0),
                        x[:, 0].to(torch.int32),
                        torch.full_like(lengths, -1))
+
+
+def zstd_sequences(x: torch.Tensor, lengths: torch.Tensor, *,
+                   seg_size: int = 4, max_len: int = 16, max_back: int = 0,
+                   max_offset: int = (1 << 17) - 1, dual: bool = False,
+                   window: int = 8):
+    """The sort parser's LZ77 parse of zstd blocks (ops/match.py, zstd's
+    end rules), the profitability gate, greedy selection and run merging.
+    A candidate stays when mlen * H > SORT_GATE_BITS + floor(log2(off +
+    3)), H the row's byte entropy (gate_entropy).  Returns the dict of
+    (B, N / seg_size + 1) ll, ml, offv (offset + 3, repcodes rewritten),
+    and n_seq, last_literals, the compacted literal plane, lit_count,
+    hist, hist_q and const."""
+    B, N = x.shape
+    dev = x.device
+    nseq = N // seg_size + 1
+    p, off, e, has = M.find_segment_matches(
+        x, lengths, seg_size=seg_size, max_len=max_len, min_tail=4,
+        max_back=max_back, end_margin=0, max_offset=max_offset, dual=dual,
+        window=window)
+    in_range = torch.arange(N, device=dev)[None, :] < lengths[:, None]
+    H = gate_entropy(C.hist256(x, in_range))
+    cost = SORT_GATE_BITS + exp_of(torch.clamp(off + 3, min=1)) \
+        .to(torch.float32)
+    has = has & ((e - p).to(torch.float32) * H[:, None] > cost)
+    sel, start, end, off, lit_from, c_final = M.greedy_select(
+        p, off, e, has, lengths, min_tail=4)
+    is_head, merged_end = M.merge_runs(sel, start, end, off, lit_from)
+    rank = torch.cumsum(is_head, 1, dtype=torch.int32) - 1
+    n_seq = is_head.sum(1, dtype=torch.int32)
+    zero = torch.zeros((B, nseq), dtype=torch.int32, device=dev)
+    seq_lit_from, seq_start, seq_end, seq_off = (
+        C.scatter1_set(zero, rank, v, is_head)
+        for v in (lit_from, start, merged_end, off))
+    valid = torch.arange(nseq, device=dev)[None, :] < n_seq[:, None]
+    ll = torch.where(valid, seq_start - seq_lit_from, zero)
+    ml = torch.where(valid, seq_end - seq_start, zero)
+    offv = _rep1_rewrite(torch.where(valid, seq_off + 3, zero), ll, valid)
+    # literals: the bytes no selected match covers
+    is_lit = ~C.fill_regions(N, seq_start, seq_end, valid) & in_range
+    lit_count = is_lit.sum(1, dtype=torch.int32)
+    hist_q = _hist_quarters(x, is_lit, lit_count)
+    return dict(ll=ll, ml=ml, offv=offv, n_seq=n_seq,
+                last_literals=lengths - c_final,
+                literals=_literal_plane(x, is_lit), lit_count=lit_count,
+                hist=hist_q.sum(1, dtype=torch.int32), hist_q=hist_q,
+                const=_const_byte(x, lengths, in_range))
 
 
 def _hist_quarters(x, is_lit, lit_count):

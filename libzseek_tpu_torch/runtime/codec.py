@@ -1,13 +1,20 @@
 """LZ4 frame codec on the GPU: LZ4F frames of 64 KiB blocks.
 
 Counterpart of libzseek_tpu/runtime/codec.py LZ4Codec with its fused
-parser (parser="hash", the reference's device arm) and _LZ4Stream:
+parser (parser="auto" or "hash", the reference's device arm), its sort
+parser (parser="sort", the reference's CPU default) and _LZ4Stream:
 
-  host:   batch layout (Bp+1, 64 KiB) with Bp = max(8, pow2) rows, row
-          i+1 = block i and row i its context (shared, not duplicated),
-          lengths and absolute min_ref fences (_dispatch_batch, :175-226);
-  device: K5 (ops/lz4_emit.py, csrc/lz4_emit.cu), then compact_payload
-          of the payloads that beat their block's size;
+  host:   batch layout: for K5 (Bp+1, 64 KiB) with Bp = max(8, pow2)
+          rows, row i+1 = block i and row i its context (shared, not
+          duplicated), lengths and absolute min_ref fences (:175-226);
+          for the sort parser (Bp, ctx + 64 KiB), each row its block
+          behind a copy of its 64 KiB window (ctx = 0 for
+          block_independent), min_ref where the frame's history starts
+          (:226-242);
+  device: K5 (ops/lz4_emit.py, csrc/lz4_emit.cu), or lz4_encode_blocks
+          (ops/lz4_encode.py: the sort pipeline of ops/match.py with the
+          greedy_select kernel, then the packing as PyTorch ops); then
+          compact_payload of the payloads that beat their block's size;
   host:   one fetch of the lengths, bases and payload, the adaptive cap
           with its recompact/refetch path (_finish_batch, :245-278), and
           LZ4F assembly, storing a block raw from the host's bytes where
@@ -17,8 +24,9 @@ Decoding runs the card's LZ4 decoder (ops/lz4_decode.py,
 csrc/lz4_decode.cu) for every call, host delivery and to_device alike;
 device="cpu" runs its plain version.  The reference's host route over
 the native block decoder is kept as _decompress_frames_host, which no
-call takes by default.  Not ported: the sort parser (lz4_encode_blocks,
-ROADMAP A9), `workers` (A10) and the ZN_LZ4_HOST_DECODE knob.
+call takes by default.  `workers` behaves as the reference's does with
+one device; its round-robin over several CUDA devices is not ported
+(ROADMAP A3) and raises.  Not ported: the ZN_LZ4_HOST_DECODE knob.
 """
 
 from __future__ import annotations
@@ -35,8 +43,9 @@ from libzseek_tpu_torch.errors import FormatError, ParameterError
 from libzseek_tpu_torch.format import lz4f
 from libzseek_tpu_torch.ops.lz4_decode import lz4_decode_frames
 from libzseek_tpu_torch.ops.lz4_emit import lz4_emit, out_cap
+from libzseek_tpu_torch.ops.lz4_encode import lz4_encode_blocks
 from libzseek_tpu_torch.ops.zstd_encode import compact_payload
-from libzseek_tpu_torch.utils.device import resolve_device
+from libzseek_tpu_torch.utils.device import check_workers, resolve_device
 
 BLOCK = 1 << 16  # 64 KiB blocks, like the reference writer
 MAX_BATCH_BLOCKS = 128
@@ -72,19 +81,19 @@ class LZ4Codec:
     def __init__(self, level: int = 0,
                  max_batch_blocks: int = MAX_BATCH_BLOCKS,
                  block_independent: bool = False, parser: str = "auto",
-                 device: str = "cuda"):
-        if parser == "sort":
-            raise ParameterError("the LZ4 sort parser (lz4_encode_blocks) "
-                                 "is not ported (ROADMAP A9)")
-        if parser not in ("auto", "hash"):
+                 device: str = "cuda", workers: int | None = None):
+        if parser not in ("auto", "hash", "sort"):
             raise ParameterError(f"unknown LZ4 parser {parser!r}")
         if max_batch_blocks < 1:
             raise ParameterError("max_batch_blocks must be positive")
         self.level = level
+        # the sort parser's candidate granularity
+        self.seg_size = 8 if level < 0 else 4
         self.max_batch_blocks = min(max_batch_blocks, MAX_BATCH_BLOCKS)
         self.block_independent = block_independent
         self.parser = parser
         self.device = resolve_device(device)
+        check_workers(workers, self.device)
         # adaptive payload-fetch cap, sized from recent batches' realized
         # compressed bytes instead of the compress bound
         self._cap_hint: int | None = None
@@ -156,32 +165,24 @@ class LZ4Codec:
         return out
 
     def _dispatch_batch(self, frames, chunk, ctx):
-        """Lay out one block batch, launch K5 and the compaction (no
-        sync on the card)."""
+        """Lay out one block batch, launch the encode (K5, or the sort
+        parser) and the compaction (no sync on the card)."""
         B = len(chunk)
         Bp = max(8, 1 << max(0, (B - 1).bit_length()))
-        D = np.zeros((Bp + 1, BLOCK), np.uint8)
-        dlens = np.full((Bp,), BLOCK, np.int32)
-        # min_ref is an ABSOLUTE position (K5's table spans the rows):
-        # row i's window starts at i * BLOCK
-        dminr = (np.arange(Bp, dtype=np.int32) + 1) * BLOCK
-        fi0, s0, _ = chunk[0]
-        if ctx and s0 > 0:
-            D[0] = np.frombuffer(frames[fi0], np.uint8, BLOCK, s0 - BLOCK)
-        sizes = np.zeros((Bp,), np.int32)
-        for i, (fi, s, sz) in enumerate(chunk):
-            D[i + 1, :sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
-            dlens[i] = BLOCK + sz
-            sizes[i] = sz
-            if ctx and s > 0:
-                dminr[i] = i * BLOCK  # previous row is same-frame
         dev = self.device
         t = lambda a: torch.from_numpy(a).to(dev)
-        out, olens = lz4_emit(t(D), t(dlens), t(dminr), out_cap(BLOCK),
-                              **self._level_params(self.level))
+        sizes = np.zeros((Bp,), np.int32)
+        for i, (_, _, sz) in enumerate(chunk):
+            sizes[i] = sz
+        if self.parser == "sort":
+            out, olens = self._encode_sort(frames, chunk, ctx, Bp)
+        else:
+            out, olens = self._encode_k5(frames, chunk, ctx, Bp)
         # blocks whose payload reaches the raw size are stored raw from the
         # host's bytes at assembly: their payloads stay out of the fetch
-        live = torch.where(olens < t(sizes), olens, torch.zeros_like(olens))
+        # (the sort parser's padding rows report negative lengths)
+        live = torch.where((olens >= 0) & (olens < t(sizes)), olens,
+                           torch.zeros_like(olens))
         cap_words = self._cap_words_for(Bp * BLOCK // 4)
         dummy = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
         zb = torch.zeros((Bp,), dtype=torch.int32, device=dev)
@@ -191,6 +192,46 @@ class LZ4Codec:
         return {"Bp": Bp, "sizes": sizes, "meta": meta,
                 "cap_words": cap_words, "streams": (words, live)}
 
+    def _encode_k5(self, frames, chunk, ctx, Bp):
+        """K5 over the shared-context layout: (out (Bp, cap) uint8,
+        olens (Bp,) int32)."""
+        D = np.zeros((Bp + 1, BLOCK), np.uint8)
+        dlens = np.full((Bp,), BLOCK, np.int32)
+        # min_ref is an ABSOLUTE position (K5's table spans the rows):
+        # row i's window starts at i * BLOCK
+        dminr = (np.arange(Bp, dtype=np.int32) + 1) * BLOCK
+        fi0, s0, _ = chunk[0]
+        if ctx and s0 > 0:
+            D[0] = np.frombuffer(frames[fi0], np.uint8, BLOCK, s0 - BLOCK)
+        for i, (fi, s, sz) in enumerate(chunk):
+            D[i + 1, :sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
+            dlens[i] = BLOCK + sz
+            if ctx and s > 0:
+                dminr[i] = i * BLOCK  # previous row is same-frame
+        t = lambda a: torch.from_numpy(a).to(self.device)
+        return lz4_emit(t(D), t(dlens), t(dminr), out_cap(BLOCK),
+                        **self._level_params(self.level))
+
+    def _encode_sort(self, frames, chunk, ctx, Bp):
+        """The sort parser over rows of ctx + 64 KiB, each block behind a
+        copy of its window (the first block of a frame has none, so its
+        min_ref is ctx): (out (Bp, cap) uint8, olens (Bp,) int32)."""
+        X = np.zeros((Bp, ctx + BLOCK), np.uint8)
+        lens = np.zeros((Bp,), np.int32)
+        min_ref = np.zeros((Bp,), np.int32)
+        for i, (fi, s, sz) in enumerate(chunk):
+            X[i, ctx: ctx + sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
+            lens[i] = ctx + sz
+            if ctx:
+                clen = min(BLOCK, s)  # the window this frame has
+                if clen:
+                    X[i, ctx - clen: ctx] = np.frombuffer(
+                        frames[fi], np.uint8, clen, s - clen)
+                min_ref[i] = ctx - clen
+        t = lambda a: torch.from_numpy(a).to(self.device)
+        return lz4_encode_blocks(t(X), t(lens), seg_size=self.seg_size,
+                                 ctx_len=ctx, min_ref=t(min_ref))
+
     def _finish_batch(self, B, staged) -> list[bytes | None]:
         """Fetch one batch's results -> per-block payload bytes (None =
         store raw)."""
@@ -198,7 +239,7 @@ class LZ4Codec:
         fetched = staged["meta"].cpu().numpy()
         olens = fetched[:Bp]
         base_w = fetched[Bp: 2 * Bp]
-        live = np.where(olens < sizes, olens, 0)
+        live = np.where((olens >= 0) & (olens < sizes), olens, 0)
         need = int(base_w[Bp - 1]) + (int(live[-1]) + 3) // 4
         cap_words = staged["cap_words"]
         if need > cap_words:

@@ -29,7 +29,13 @@ readers do; "lanes" (the lane decoders and K6) and "transcode" (K4's
 transcode arm and the host executor; device-resident frames take the
 fused route) load the sidecar, as the JAX reader does (_load_hints), and
 pass each frame's anchors to the codec.  LZ4 archives have one decoder,
-"fused".
+"fused".  `codec` (the reference's, :41) replaces the sniffed codec with
+any object that has decompress_frames(datas, d_sizes[, frame_hints]
+[, to_device=True]); the sidecar is loaded for it when it says
+supports_hints, and frames stay on the device only when it says
+supports_device_frames.  prefetch(offsets) (the reference's, :154-186)
+decodes the uncached frames covering a list of offsets in one codec
+call; it takes only the cache lock.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ class Reader:
     for tests)."""
 
     def __init__(self, source, *, device="cuda",
-                 cache_frames: int = DEFAULT_CACHE_FRAMES,
+                 cache_frames: int = DEFAULT_CACHE_FRAMES, codec=None,
                  readahead: int = 8, verify_checksums: bool = False,
                  device_cache: bool = False, decoder: str = "fused"):
         """device_cache=True keeps decompressed frames on the card (a
@@ -78,7 +84,11 @@ class Reader:
         if len(magic_bytes) < 4:
             raise FormatError("archive too small")
         magic = struct.unpack("<I", magic_bytes)[0]
-        if magic == LZ4F_MAGIC:
+        if codec is not None:
+            if not hasattr(codec, "decompress_frames"):
+                raise ParameterError("codec must provide decompress_frames")
+            self._codec = codec
+        elif magic == LZ4F_MAGIC:
             if decoder != "fused":
                 raise ParameterError(
                     f"decoder {decoder!r}: LZ4 archives decode with 'fused'")
@@ -92,8 +102,9 @@ class Reader:
         self._table: SeekTable = parse_seek_table(source.pread, self._fsize)
         # the Writer's decode anchors: the lane route anchors its walks at
         # them, the transcode route starts chunks mid-frame where they are
-        self._hints = self._load_hints() \
-            if decoder in ("lanes", "transcode") else None
+        wants = getattr(codec, "supports_hints", False) if codec is not None \
+            else decoder in ("lanes", "transcode")
+        self._hints = self._load_hints() if wants else None
         self._cache = FrameCache(cache_frames) if cache_frames > 0 else None
         self._lock = threading.Lock()          # the cursor
         self._cache_lock = threading.Lock()    # the cache
@@ -114,7 +125,8 @@ class Reader:
             self._table.checksums is not None
         # device-resident frames: opt-in via device_cache, and the default
         # for the no-cache path (bounded host memory)
-        self._device_frames = bool(device_cache) or cache_frames <= 0
+        self._device_frames = (bool(device_cache) or cache_frames <= 0) \
+            and getattr(self._codec, "supports_device_frames", False)
 
     # --- public API ---
 
@@ -169,6 +181,34 @@ class Reader:
         with self._lock:
             self._pos = pos
 
+    def prefetch(self, offsets) -> None:
+        """Decode the frames covering `offsets` that are not cached into
+        the cache, in one codec call (the batched analog of issuing N
+        preads; the reference library has none)."""
+        if self._closed:
+            raise ZseekError("reader is closed")
+        total = self._table.decompressed_size
+        need = []
+        for off in offsets:
+            if not 0 <= off < total:
+                continue
+            idx = self._table.frame_for_offset(off)
+            if idx in need:
+                continue
+            if self._cache is not None:
+                with self._cache_lock:
+                    if self._cache.find(idx) is not None:
+                        continue
+            need.append(idx)
+        if not need:
+            return
+        frames = self._decode(need, to_device=self._device_frames)
+        if self._cache is not None:
+            with self._cache_lock:
+                for i, fr in zip(need, frames):
+                    if self._cache.find(i) is None:
+                        self._cache.insert(i, fr)
+
     def close(self) -> ReaderStats:
         self._closed = True
         if self._pf_pool is not None:
@@ -198,10 +238,10 @@ class Reader:
         seek-table checksums when asked to."""
         datas = [self._read_frame_bytes(i) for i in idxs]
         d_sizes = [self._table.frame_d_size(i) for i in idxs]
-        kw = {} if self._hints is None else \
-            {"frame_hints": [self._frame_hints(i) for i in idxs]}
-        frames = self._codec.decompress_frames(datas, d_sizes,
-                                               to_device=to_device, **kw)
+        args = () if self._hints is None else \
+            ([self._frame_hints(i) for i in idxs],)
+        kw = {"to_device": True} if to_device else {}
+        frames = self._codec.decompress_frames(datas, d_sizes, *args, **kw)
         for i, fr in zip(idxs, frames):
             self._check_frame(i, fr)
         return frames

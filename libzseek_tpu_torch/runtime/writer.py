@@ -17,7 +17,8 @@ batches (every block of a frame group is a row of one batched chain on
 the card), then written to the sink in order.  The API contract (not
 concurrency-safe, like src/zseek.h:278) is unchanged.  A codec given by
 name is the port's ZstdCodec ("zstd", default level 3) or LZ4Codec
-("lz4", default level 0) on `device`.
+("lz4", default level 0) on `device`, given `workers` as the reference's
+_make_codec gives it (one device: that device; ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -32,15 +33,17 @@ from libzseek_tpu_torch.runtime.stats import WriterStats
 DEFAULT_MIN_FRAME_SIZE = 1 << 20
 
 
-def _make_codec(codec, level, device):
+def _make_codec(codec, level, device, workers: int = 1):
     if hasattr(codec, "compress_frames"):
         return codec
     if codec == "lz4":
         from libzseek_tpu_torch.runtime.codec import LZ4Codec
-        return LZ4Codec(level=0 if level is None else level, device=device)
+        return LZ4Codec(level=0 if level is None else level, device=device,
+                        workers=workers)
     if codec == "zstd":
         from libzseek_tpu_torch.runtime.zstd_codec import ZstdCodec
-        return ZstdCodec(level=3 if level is None else level, device=device)
+        return ZstdCodec(level=3 if level is None else level, device=device,
+                         workers=workers)
     raise ParameterError(f"unknown codec {codec!r}")
 
 
@@ -48,8 +51,8 @@ class Writer:
     def __init__(self, sink, codec="zstd", *, level: int | None = None,
                  device: str = "cuda",
                  min_frame_size: int = DEFAULT_MIN_FRAME_SIZE,
-                 batch_frames: int = 8, checksums: bool = False,
-                 owned_file=None):
+                 batch_frames: int = 8, workers: int = 1,
+                 checksums: bool = False, owned_file=None):
         if min_frame_size <= 0:
             raise ParameterError("min_frame_size must be positive")
         if not hasattr(sink, "write"):
@@ -58,7 +61,7 @@ class Writer:
         # file handle opened on the Writer's behalf (open_writer with a
         # path); closed by close() after the seek table lands
         self._owned_file = owned_file
-        self._codec = _make_codec(codec, level, device)
+        self._codec = _make_codec(codec, level, device, workers)
         self._min_frame_size = min_frame_size
         self._batch_frames = max(1, batch_frames)
         # per-frame seek-table checksums (low 32 bits of XXH64 of the

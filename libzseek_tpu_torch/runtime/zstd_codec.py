@@ -2,10 +2,12 @@
 and the read path.
 
 Counterpart of libzseek_tpu/runtime/zstd_codec.py ZstdCodec with its
-`parser` ("auto" = "linked", "linked", "hash") and `entropy` ("auto",
-"smem", "xla") keywords (:119-181).  The level picks K1's search arms
-(ops/zstd_encode.level_search_params) and the block size: 64 KiB from
-level 4 up, 128 KiB below (:140-148), for both parsers.  At 64 KiB K3 is
+`parser` ("auto" = "linked", "linked", "hash", "sort"), `entropy`
+("auto", "smem", "xla"), `max_batch_blocks`, `collect_hints` and
+`workers` keywords (:119-181).  The level picks K1's search arms
+(ops/zstd_encode.level_search_params), the sort parser's segment size
+and extension length (:136-137), and the block size: 64 KiB from level 4
+up, 128 KiB below (:140-148), for every parser.  At 64 KiB K3 is
 off and K2 emits every literal payload.  The device chain
 (parser="linked", entropy "auto" or "smem"):
 
@@ -21,12 +23,17 @@ off and K2 emits every literal payload.  The device chain
           tree serialization and frame assembly (_finish_chain, :511;
           _assemble, :1039; _assemble_frames, :216).
 
-The per-block path (parser="hash", or entropy="xla" with either parser):
+The per-block path (parser="hash" or "sort", or entropy="xla" with any
+parser):
 
   host:   batch layout (Bp, N), no context row, and the long-distance
           pre-pass (:354-394);
   device: K7 hash parse -> gate and recompaction (_fast_post, with the
-          literal plane when the XLA arm is asked for) (:375-382);
+          literal plane when the XLA arm is asked for) (:375-382), or the
+          sort parser (zstd_sequences over ops/match.py: a batched sort,
+          the gate, the greedy_select kernel, run merging; always with
+          the literal plane, so entropy="auto" takes the XLA arm, as in
+          the reference) (:302-305);
   host:   the small per-block results, Huffman tables per block (native
           huf_build_batch) and literal-mode decisions (_finish_blocks,
           _decide_modes, :641-791);
@@ -41,9 +48,12 @@ The per-block path (parser="hash", or entropy="xla" with either parser):
 The host assembly helpers are copies of the reference's (they sit in a
 module that imports JAX); the byte-identity tests hold them to it.  The
 reference's ZN_* environment knobs are not ported (their defaults are
-fixed), nor its `workers` round-robin, its sort parser (ROADMAP A9) and
-its adaptive vector-literal hint: every row K3 accepts goes through K3,
-with identical bits either way.
+fixed), nor its adaptive vector-literal hint: every row K3 accepts goes
+through K3, with identical bits either way.  `workers` behaves as the
+reference's does with one device; its round-robin over several CUDA
+devices is not ported (ROADMAP A3) and raises (utils/device.py).
+collect_hints=False returns no decode hints (the archive bytes are the
+same).
 
 Decoding (decompress_frames, the Reader's codec call) takes one of three
 routes of the reference's decode_frames (ops/zstd_decode.py), chosen by
@@ -85,10 +95,11 @@ from libzseek_tpu_torch.ops.zstd_encode import (apply_ldm_override,
                                                 extract_literals,
                                                 ldm_literal_plane,
                                                 ldm_literal_stats,
+                                                zstd_sequences,
                                                 zstd_sequences_fast,
                                                 zstd_sequences_fast_nolit,
                                                 zstd_sequences_linked)
-from libzseek_tpu_torch.utils.device import resolve_device
+from libzseek_tpu_torch.utils.device import check_workers, resolve_device
 
 # profiler ranges around the codec's stages (free when no profiler runs;
 # read by libzseek_tpu_torch/profile_write.py)
@@ -98,12 +109,12 @@ BLOCK = zf.BLOCK_MAX          # 128 KiB, the format's largest block
 BLOCK_HIGH = 1 << 16          # the block of levels >= 4
 MIN_BLOCK = 4096
 LDM_MIN_DIST = 1 << 17        # long-distance matches beyond the window
-MAX_BATCH_BLOCKS = 64         # blocks per device batch
+MAX_BATCH_BLOCKS = 64         # blocks per device batch, by default
 LIT_ANCHOR_INTERVAL = E.LIT_ANCHOR_INTERVAL
 SEQ_ANCHOR_INTERVAL = E.SEQ_ANCHOR_INTERVAL
 SMEM_SEQ_MAX = 4096   # beyond this many sequences in a block: the XLA arm
 SMEM_SEQ_MIN = 512    # lower bound on K2's sequence bucket
-PARSERS = ("linked", "hash")
+PARSERS = ("linked", "hash", "sort")
 ENTROPIES = ("auto", "smem", "xla")
 DECODERS = ("fused", "lanes", "transcode")
 
@@ -179,10 +190,9 @@ class ZstdCodec:
 
     def __init__(self, level: int = 3, device: str = "cuda",
                  block: int | None = None, parser: str = "auto",
-                 entropy: str = "auto", decoder: str = "fused"):
-        if parser == "sort":
-            raise ParameterError(
-                'parser="sort": the sort parser is not ported (ROADMAP A9)')
+                 entropy: str = "auto", decoder: str = "fused",
+                 max_batch_blocks: int = MAX_BATCH_BLOCKS,
+                 collect_hints: bool = True, workers: int | None = None):
         parser = "linked" if parser == "auto" else parser
         if parser not in PARSERS:
             raise ParameterError(f"unknown parser {parser!r}: one of "
@@ -202,12 +212,28 @@ class ZstdCodec:
             raise ParameterError(
                 f"block size {block}: must be a power of two in "
                 f"[{MIN_BLOCK}, {BLOCK}]")
+        if max_batch_blocks < 1:
+            raise ParameterError("max_batch_blocks must be positive")
+        rows = max(8, 1 << (max_batch_blocks - 1).bit_length()) + 1
+        if parser == "linked" and rows * block > 1 << 24:
+            # K1's table entries hold 24-bit positions over the batch
+            raise ParameterError(
+                f"max_batch_blocks {max_batch_blocks}: the linked parser "
+                f"takes at most {(1 << 24) // block - 1} blocks of {block} "
+                f"bytes a batch (rounded up to a power of two)")
         self.level = level
         self.device = resolve_device(device)
+        check_workers(workers, self.device)
         self.block = block
+        self.max_batch_blocks = max_batch_blocks
+        self.collect_hints = collect_hints
         # "linked": K1 across each frame's blocks, the device chain;
-        # "hash": K7 on every block alone, the per-block path
+        # "hash": K7 on every block alone, the per-block path; "sort": the
+        # exact sort pipeline on every block alone, the per-block path
         self.parser = parser
+        # the sort parser's candidate granularity and extension length
+        self.seg_size = 8 if level <= 1 else 4
+        self.max_len = 32 if level <= 1 else 48
         # "auto"/"smem": K2 (the chain, or the per-block path's K2 arm while
         # its blocks hold <= SMEM_SEQ_MAX sequences); "xla": the XLA arm
         self.entropy = entropy
@@ -299,6 +325,10 @@ class ZstdCodec:
                 X2d, t(lens), t(min_abs), level=self.level,
                 parse_lengths=None if lens_parse is None else t(lens_parse))
             X2d = X2d[1:]
+        elif self.parser == "sort":
+            with _span("zseek.parse"):
+                seqs = zstd_sequences(X2d, t(lens), seg_size=self.seg_size,
+                                      max_len=self.max_len)
         elif self.entropy == "xla":
             seqs = zstd_sequences_fast(X2d, t(lens))
         else:
@@ -887,7 +917,8 @@ class ZstdCodec:
             payload = lit_sec + seq_sec
             out.append(payload if len(payload) < int(lens[i]) else None)
             out_h.append(hints.BlockHints(lit_h, seq_h)
-                         if (lit_h or seq_h) else None)
+                         if self.collect_hints and (lit_h or seq_h)
+                         else None)
         return out, out_h
 
     # --- decompress ---
@@ -939,8 +970,8 @@ class _ZstdStream:
         spans = codec._frame_spans(frames)
         g = {"frames": frames, "spans": spans, "batches": deque(),
              "payloads": {}, "bhints": {}}
-        for lo in range(0, len(spans), MAX_BATCH_BLOCKS):
-            chunk = spans[lo: lo + MAX_BATCH_BLOCKS]
+        for lo in range(0, len(spans), codec.max_batch_blocks):
+            chunk = spans[lo: lo + codec.max_batch_blocks]
             st = codec._dispatch_parse(
                 [np.frombuffer(frames[fi], np.uint8, sz, s)
                  for fi, s, sz in chunk],

@@ -137,17 +137,18 @@ def test_validation_and_unported_parts():
     for block in (0, 1000, 2048, 3 << 14, 1 << 18):
         with pytest.raises(ParameterError):
             ZstdCodec(device="cpu", block=block)
-    # every level compresses now; the sort parser is still not ported
-    # (ROADMAP A9)
-    with pytest.raises(ParameterError, match="A9"):
-        ZstdCodec(level=4, device="cpu", parser="sort")
+    # every level compresses, with the sort parser too (its segment size
+    # and extension length follow the level)
+    c = ZstdCodec(level=4, device="cpu", parser="sort")
+    assert (c.parser, c.seg_size, c.max_len, c.block) == \
+        ("sort", 4, 48, 1 << 16)
     # "lz4" names the port's LZ4Codec at its default level 0; its sort
-    # parser is not ported (ROADMAP A9)
+    # parser is ported too
     from libzseek_tpu_torch import LZ4Codec
     from libzseek_tpu_torch.runtime.writer import Writer as PortWriter
     w = PortWriter(_Sink(), "lz4", device="cpu")
     assert isinstance(w._codec, LZ4Codec) and w._codec.level == 0
-    with pytest.raises(ParameterError, match="A9"):
-        LZ4Codec(device="cpu", parser="sort")
+    c = LZ4Codec(device="cpu", parser="sort")
+    assert (c.parser, c.seg_size) == ("sort", 4)
     with pytest.raises(ParameterError):
         PortWriter(_Sink(), "brotli", device="cpu")

@@ -3,10 +3,11 @@ for its device explicitly: "cuda" without a card raises.
 
 The test session itself imports jax and the JAX package
 (tests/conftest.py), so the import check runs in a fresh interpreter: it
-writes a zstd archive (with each parser) and an LZ4 archive with the
-port's Writer and reads them back with the port's Reader (the zstd one
-through the fused, lane and transcode decoders) and the port's own
-format and testing copies."""
+writes a zstd archive (with each parser) and an LZ4 archive (with each
+parser) with the port's Writer, the sort archives through the zseek_*
+shims, and reads them back with the port's Reader (the zstd one through
+the fused, lane and transcode decoders) and the port's own format and
+testing copies."""
 
 import os
 import subprocess
@@ -26,7 +27,8 @@ from libzseek_tpu_torch import convert, kernels, native
 from libzseek_tpu_torch.ops import (bits, common, decode, entropy,
                                     exec_blocks, fse, fse_plan, hash_parse,
                                     huffman, huffman_plan, lanes, lz4_decode,
-                                    lz4_emit, parse_linked, vector_entropy,
+                                    lz4_emit, lz4_encode, match,
+                                    parse_linked, vector_entropy,
                                     xla_entropy, zstd_decode, zstd_encode)
 from libzseek_tpu_torch.runtime import codec
 from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
@@ -77,6 +79,22 @@ if golden.have_lz4():
 r = port.Reader(archive, device="cpu", verify_checksums=True)
 assert isinstance(r._codec, port.LZ4Codec)
 assert r.pread_full(len(data), 0) == data
+for codec in (port.ZstdCodec(device="cpu", parser="sort"),
+              port.LZ4Codec(device="cpu", parser="sort")):
+    sink = io.BytesIO()
+    w = port.Writer(sink, codec, min_frame_size=16 * 1024)
+    for pos in range(0, len(data), 16 * 1024):
+        assert port.zseek_write(w, data[pos: pos + 16 * 1024])
+    assert port.zseek_writer_close(w).frames == 4
+    archive = sink.getvalue()
+    if golden.have_zstd() and codec.name == "zstd":
+        assert golden.zstd_decompress(archive) == data
+    if golden.have_lz4() and codec.name == "lz4":
+        assert golden.lz4f_decompress(archive) == data
+    r = port.zseek_reader_open(io.BytesIO(archive), device="cpu")
+    assert port.zseek_pread(r, 1000, 20000) == data[20000:21000]
+    r.prefetch([0, 50000])
+    assert port.zseek_reader_stats(r).frames == 4
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "libzseek_tpu") or
                 m.startswith(("jax.", "libzseek_tpu.")))
