@@ -78,10 +78,14 @@ Phases, each of which must pass (any failure exits non-zero):
      the calls the route makes for damaged frames (testing/damage.py)
      and on damaged copies of the 8 frames' rows, some of which must fail
      and some overlap the row before (their frames must take K6's serial
-     arm); the kernels are timed at those 8 frames; then
-     Reader(decoder="lanes") reads the 64 MiB archive as in phase 5
-     (anchored lanes and K6 must run; K6's serial frames counted), the
-     log-like archive of phase 7 is read back, and the long-window frame
+     arm); then Reader(decoder="lanes") reads the 64 MiB archive as in
+     phase 5 (anchored lanes and K6 must run; K6's serial frames
+     counted; the decoders' launches counted by arm) and the log-like
+     archive of phase 7; each decoder arm's recorded call with the most
+     symbols or sequences (over the 8 frames, the 64 MiB read and the
+     log-like read) is held against its plain version and timed, with
+     its bound from that call, and the decoder's line gives the arm with
+     the most; K6 is timed at the 8 frames; the long-window frame
      decodes through the pointer-doubling executor; each route's frame
      and batch counts are printed;
   9. levels >= 4 (64 KiB blocks, K1's dual table, lazy matching and
@@ -140,6 +144,7 @@ visible or the port is not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -1317,6 +1322,66 @@ def lane_work(fname, call):
     return nb, n if fname == "huf_lanes" else 10 * n
 
 
+# the lane decoders' arms, and the launch counters of the lane reads
+LANE_ARMS = {"huf_lanes": ("plain", "anchored"),
+             "seq_lanes": ("tagged", "anchored")}
+
+
+def lane_counts() -> dict:
+    """phase_read's counters of a lane read: each decoder's launches, in
+    all and by arm."""
+    from libzseek_tpu_torch.ops import lanes
+    return {"Huffman lanes": (lanes, "huf_launches"),
+            "Huffman lanes plain": (lanes, "huf_plain_launches"),
+            "Huffman lanes anchored": (lanes, "huf_anchored_launches"),
+            "sequence lanes": (lanes, "seq_launches"),
+            "sequence lanes tagged": (lanes, "seq_tagged_launches"),
+            "sequence lanes anchored": (lanes, "seq_anchored_launches")}
+
+
+def lane_arm(fname, call) -> str:
+    kw = call[2]
+    if fname == "huf_lanes":
+        return "plain" if kw["exact"] else "anchored"
+    return "tagged" if kw["tagged"] else "anchored"
+
+
+def call_work(call) -> int:
+    """A lane-decoder call's symbols or sequences."""
+    return int(call[2]["n"].sum())
+
+
+def max_calls(calls) -> dict:
+    """{arm: the call of that arm with the most symbols or sequences}."""
+    out = {}
+    for c in calls:
+        fname = c[0].__name__
+        a = lane_arm(fname, c)
+        if a not in out or call_work(c) > call_work(out[a]):
+            out[a] = c
+    return out
+
+
+@contextlib.contextmanager
+def record_lane_calls():
+    """Every call of the lane decoders' wrappers inside the block:
+    {wrapper: [(fn, args, kwargs, out)]}."""
+    from libzseek_tpu_torch.ops import lanes
+    calls = {}
+    saved = [(f, getattr(lanes, f)) for f in ("huf_lanes", "seq_lanes")]
+    for fname, real in saved:
+        def spy(*a, _real=real, _name=fname, **kw):
+            out = _real(*a, **kw)
+            calls.setdefault(_name, []).append((_real, a, kw, out))
+            return out
+        setattr(lanes, fname, spy)
+    try:
+        yield calls
+    finally:
+        for fname, real in saved:
+            setattr(lanes, fname, real)
+
+
 def phase_lanes(archive, table, data, kept, card, report) -> dict:
     """Phase 8: the lane decoders and K6 against their plain versions on
     small frames and on the phase-3 archive's first 8 frames (with and
@@ -1326,7 +1391,7 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
     import numpy as np
     import torch
     from libzseek_tpu_torch import Reader
-    from libzseek_tpu_torch.ops import exec_blocks, lanes
+    from libzseek_tpu_torch.ops import exec_blocks
     from libzseek_tpu_torch.ops import zstd_decode as ZD
     errs = {k[0]: [] for k in LANE_KERNELS}
     plain_lanes = {}
@@ -1342,8 +1407,8 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
         return calls
 
     small, raws = k4_small_frames()    # the long-window frame comes last
-    run("small frames", small[:-1], [len(r) for r in raws[:-1]], None,
-        raws[:-1])
+    small_calls = run("small frames", small[:-1],
+                      [len(r) for r in raws[:-1]], None, raws[:-1])
     r = Reader(archive, device="cuda", decoder="lanes")
     hints8 = [r._frame_hints(i) for i in range(8)]
     r.close()
@@ -1358,11 +1423,10 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
     # the main path: Reader(decoder="lanes") over the 64 MiB archive
     for k in ZD.routes:
         ZD.routes[k] = 0
-    counted = {"Huffman lanes": (lanes, "huf_launches"),
-               "sequence lanes": (lanes, "seq_launches")}
     serial0 = exec_blocks.serial_frames()
-    read = phase_read(archive, data, card, exec_blocks, "K6 exec_blocks",
-                      "lanes", counted)
+    with record_lane_calls() as main_calls:
+        read = phase_read(archive, data, card, exec_blocks,
+                          "K6 exec_blocks", "lanes", lane_counts())
     main_routes = dict(ZD.routes)
     main_routes["k6_serial_frames"] = exec_blocks.serial_frames() - serial0
     check(main_routes["anchored_frames"] > 0,
@@ -1370,36 +1434,75 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
     for k in ("Huffman lanes", "sequence lanes"):
         check(read["counts"][k] > 0, f"{k} never launched on the lane read")
 
-    for fname, name, attr, source, replaces in LANE_KERNELS:
-        cl = full[fname]
-        check(len(cl) >= 1, f"{name}: no call at the 8-frame batch")
-        nb, ops = map(sum, zip(*(lane_work(fname, c) for c in cl)))
-        ms = time_cuda(lambda: [c[0](*c[1], **c[2]) for c in cl])
-        ms_bare = time_cuda(lambda: [c[0](*c[1], **c[2])
-                                     for c in bare.get(fname, [])])
-        kind = ", ".join("anchored" if c[2].get("exact", c[2].get(
-            "tagged", True)) is False else "plain" for c in cl) \
-            if fname != "execute_blocks" else "one chain per frame"
-        entry(report, name, source, replaces, errs[fname], ms,
-              plain_lanes[f"{fname} (8 frames)"], nb, ops,
-              f"small frames and the archive's first 8 frames (64 blocks) "
-              f"with and without hints equal to plain; timed at the 8 "
-              f"frames with hints ({kind}, {len(cl)} call(s)); without "
-              f"hints card {ms_bare:.3f} ms, plain "
-              f"{plain_lanes.get(f'{fname} (8 frames, no hints)', 0):.1f} ms")
-        report[-1]["launches"] = read["counts"][name]
-        report[-1]["ms_without_hints"] = ms_bare
-        if fname == "execute_blocks":
-            report[-1]["cuda_kernels"] = K6_KERNELS
-            report[-1]["note"] += f"; {dmg_note}"
-
-    # the log-like archive of phase 7 and a long-window libzstd frame
+    # the log-like archive of phase 7 (the plain arms, > 8,190 sequences
+    # a block); its calls join the timing pool
     for k in ZD.routes:
         ZD.routes[k] = 0
-    with Reader(kept["log_archive"], device="cuda", decoder="lanes") as r:
+    with record_lane_calls() as log_calls, \
+            Reader(kept["log_archive"], device="cuda", decoder="lanes") as r:
         check(read_all(r) == kept["logs"],
               "the lane read of the log-like archive differs")
     log_routes = dict(ZD.routes)
+
+    pool = {f: [c for calls in (small_calls, bare, full, main_calls,
+                                log_calls) for c in calls.get(f, [])]
+            for f in ("huf_lanes", "seq_lanes")}
+    for fname, name, attr, source, replaces in LANE_KERNELS:
+        if fname == "execute_blocks":
+            cl = full[fname]
+            nb, ops = map(sum, zip(*(lane_work(fname, c) for c in cl)))
+            ms = time_cuda(lambda: [c[0](*c[1], **c[2]) for c in cl])
+            ms_bare = time_cuda(lambda: [c[0](*c[1], **c[2])
+                                         for c in bare.get(fname, [])])
+            entry(report, name, source, replaces, errs[fname], ms,
+                  plain_lanes[f"{fname} (8 frames)"], nb, ops,
+                  f"small frames and the archive's first 8 frames (64 "
+                  f"blocks) with and without hints equal to plain; timed "
+                  f"at the 8 frames with hints (one chain per frame, "
+                  f"{len(cl)} call(s)); without hints card {ms_bare:.3f} "
+                  f"ms, plain "
+                  f"{plain_lanes.get(f'{fname} (8 frames, no hints)', 0):.1f}"
+                  f" ms; {dmg_note}")
+            report[-1].update(launches=read["counts"][name],
+                              ms_without_hints=ms_bare,
+                              cuda_kernels=K6_KERNELS)
+            continue
+        # each arm at its recorded call with the most work; the entry at
+        # the call with the most work of all
+        arms = {}
+        for arm, c in max_calls(pool[fname]).items():
+            nb, ops = lane_work(fname, c)
+            t_plain, ref = time_host(lambda: c[0](
+                *c[1], **{k: v.cpu() if hasattr(v, "cpu") else v
+                          for k, v in c[2].items()}))
+            err = max_abs_err(list(c[3]), list(ref))
+            check(err == 0, f"{name}: the {arm} arm's largest call differs "
+                  f"from its plain version (max err {err})")
+            errs[fname].append(err)
+            arms[arm] = dict(ms=time_cuda(lambda: c[0](*c[1], **c[2])),
+                             plain_ms=t_plain, bound_ms=bound(nb, ops)[0],
+                             work=call_work(c), nb=nb, ops=ops)
+        top = max(arms, key=lambda a: arms[a]["work"])
+        unit = "symbols" if fname == "huf_lanes" else "sequences"
+        entry(report, name, source, replaces, errs[fname], arms[top]["ms"],
+              arms[top]["plain_ms"], arms[top]["nb"], arms[top]["ops"],
+              f"small frames, the archive's first 8 frames (64 blocks) "
+              f"with and without hints, the 64 MiB read's calls and the "
+              f"log-like read's largest equal to plain; timed at the call "
+              f"with the most {unit} ({top} arm, {arms[top]['work']}); "
+              + "; ".join(f"{a} arm's largest call {v['work']} {unit}: card "
+                          f"{v['ms']:.3f} ms, plain {v['plain_ms']:.1f} ms, "
+                          f"bound {v['bound_ms']:.6f} ms"
+                          for a, v in arms.items()))
+        report[-1].update(
+            launches=read["counts"][name],
+            launches_by_arm={a: read["counts"][f"{name} {a}"]
+                             for a in LANE_ARMS[fname]},
+            arms={a: {k: v[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "work")}
+                  for a, v in arms.items()})
+
+    # a long-window libzstd frame
     for k in ZD.routes:
         ZD.routes[k] = 0
     run("long-window frame", small[-1:], [len(raws[-1])], None, raws[-1:])
@@ -1409,6 +1512,9 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
     torch.cuda.synchronize()
     print(f"lane routes: 64 MiB read {main_routes}; log-like 8 MiB "
           f"{log_routes}; long-window frame {lw_routes}", flush=True)
+    print("lane launches by arm, 64 MiB level-3 read: "
+          + ", ".join(f"{k} {v}" for k, v in read["counts"].items()),
+          flush=True)
     return {"card": card, "read_mib_s": read["read_mib_s"],
             "pread_p50_us": read["pread_p50_us"],
             "pread_p99_us": read["pread_p99_us"],
@@ -1502,7 +1608,7 @@ def phase_levels(data, card, report, keep: dict) -> dict:
     from libzseek_tpu_torch import ZstdCodec
     from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
     from libzseek_tpu_torch.ops import (entropy, exec_blocks, hash_parse,
-                                        lanes, parse_linked, vector_entropy)
+                                        parse_linked, vector_entropy)
     from libzseek_tpu_torch.ops import zstd_decode as ZD
     from libzseek_tpu_torch.ops.zstd_encode import (GATE_FIXED_BITS,
                                                     block_entropy_h16,
@@ -1598,10 +1704,15 @@ def phase_levels(data, card, report, keep: dict) -> dict:
     for k in ZD.routes:
         ZD.routes[k] = 0
     lane = phase_read(archive, data, card, exec_blocks, "K6 exec_blocks",
-                      "lanes", {"Huffman lanes": (lanes, "huf_launches"),
-                                "sequence lanes": (lanes, "seq_launches")})
+                      "lanes", lane_counts())
     routes = dict(ZD.routes)
-    print(f"level-9 lane routes: {routes}", flush=True)
+    print(f"level-9 lane routes: {routes}; launches by arm: "
+          + ", ".join(f"{k} {v}" for k, v in lane["counts"].items()),
+          flush=True)
+    for name, f in (("Huffman lanes", "huf_lanes"),
+                    ("sequence lanes", "seq_lanes")):
+        by_name(report, name)["launches_by_arm_level9"] = {
+            a: lane["counts"][f"{name} {a}"] for a in LANE_ARMS[f]}
     return {"card": card, "write_mib_s": 64 / dt, "ratio": ratio,
             "launches": counts, "others_8mib": others,
             "read_fused": fused, "read_lanes": lane, "lane_routes": routes,
@@ -1910,6 +2021,12 @@ def phase_sort(data, card, report) -> dict:
     lz4_bound, _ = bound(*greedy_work(largs))
     has_z = int(zargs[3].sum())
     has_l = int(largs[3].sum())
+    per_row = {"zstd": zfn(*zargs)[0].sum(1).cpu().numpy(),   # selections
+               "LZ4": lfn(*largs)[0].sum(1).cpu().numpy()}
+    sel_note = "; ".join(
+        f"{k} selections a row min {int(v.min())}, median "
+        f"{int(np.median(v))}, max {int(v.max())}, total {int(v.sum())}"
+        for k, v in per_row.items())
     entry(report, "greedy_select", "libzseek_tpu_torch/csrc/greedy_select.cu",
           "libzseek_tpu/ops/match.py:213", errs + [e_z, e_l], ms, plain_ms,
           *greedy_work(zargs),
@@ -1918,7 +2035,7 @@ def phase_sort(data, card, report) -> dict:
           f"segments ({has_z} with a candidate after the gate); 128 LZ4 "
           f"rows x 32768 segments ({has_l} with a candidate) card "
           f"{lz4_ms:.3f} ms, plain {lz4_plain_ms:.1f} ms, bound "
-          f"{lz4_bound:.4f} ms")
+          f"{lz4_bound:.4f} ms; {sel_note}")
     g = report[-1]
     g.update(cuda_kernels=GREEDY_KERNELS, lz4_batch_ms=lz4_ms,
              lz4_plain_ms=lz4_plain_ms, lz4_bound_ms=lz4_bound)

@@ -43,6 +43,10 @@ FSE_TAB = 512        # entries of a packed FSE table (sym | nb << 8 | base << 16
 
 huf_launches = 0
 seq_launches = 0
+# the same launches by arm: pass A (plain) and A' (anchored); pass B
+# (tagged) and B' (anchored)
+huf_plain_launches = huf_anchored_launches = 0
+seq_tagged_launches = seq_anchored_launches = 0
 _count = threading.Lock()     # the Reader decodes from two threads
 
 
@@ -84,7 +88,7 @@ def huf_lanes(bank, sid, bits, n, tid, dtabs, cap: int, exact: bool):
         return _huf_plain(bank, sid, bits, n, tid, dtabs, cap, exact)
     if dev.type != "cuda":
         raise ParameterError(f"huf_lanes runs on cuda or cpu, not {dev}")
-    global huf_launches
+    global huf_launches, huf_plain_launches, huf_anchored_launches
     from libzseek_tpu_torch import kernels
     lib = kernels.library()
     syms = torch.zeros((L, cap), dtype=torch.uint8, device=dev)
@@ -99,6 +103,10 @@ def huf_lanes(bank, sid, bits, n, tid, dtabs, cap: int, exact: bool):
         kernels.check(err, "zk_huf_lanes")
         with _count:
             huf_launches += 1
+            if exact:
+                huf_plain_launches += 1
+            else:
+                huf_anchored_launches += 1
     return syms, ok
 
 
@@ -134,7 +142,7 @@ def seq_lanes(bank, sid, bits, n, states, rep1, tids, tls, tabs, cap: int,
                           cap, tagged)
     if dev.type != "cuda":
         raise ParameterError(f"seq_lanes runs on cuda or cpu, not {dev}")
-    global seq_launches
+    global seq_launches, seq_tagged_launches, seq_anchored_launches
     from libzseek_tpu_torch import kernels
     lib = kernels.library()
     ctab = torch.from_numpy(D.CTAB).to(dev)
@@ -155,6 +163,10 @@ def seq_lanes(bank, sid, bits, n, states, rep1, tids, tls, tabs, cap: int,
         kernels.check(err, "zk_fse_lanes")
         with _count:
             seq_launches += 1
+            if tagged:
+                seq_tagged_launches += 1
+            else:
+                seq_anchored_launches += 1
     return ll, ml, off, rep, ok
 
 

@@ -467,3 +467,87 @@ def k3_edge_rows(seed: int = 59):
     codes = ((vals << 4) | nbits).astype(np.int32)
     t = torch.from_numpy
     return t(x), t(np.ascontiguousarray(mask)), t(codes), t(lens), t(vec)
+
+
+def damage(stream: bytes, rng, flips: int = 3) -> bytes:
+    """`stream` with `flips` random bits flipped below its last byte (which
+    keeps its sentinel)."""
+    b = bytearray(stream)
+    if len(b) > 1:
+        for p in rng.integers(0, 8 * (len(b) - 1), flips).tolist():
+            b[p >> 3] ^= 1 << (p & 7)
+    return bytes(b)
+
+
+def kraft_weights(rng, tl: int) -> np.ndarray:
+    """(256,) zstd Huffman weights of a random complete prefix code whose
+    longest code is `tl` bits: leaves split at random until some leaf
+    reaches tl, symbols shuffled."""
+    lengths = [0]
+    while max(lengths) < tl or len(lengths) < 2:
+        cand = [i for i, l in enumerate(lengths) if l < tl]
+        if len(lengths) >= 255:
+            cand = [max(cand, key=lambda i: lengths[i])]
+        i = cand[int(rng.integers(0, len(cand)))]
+        lengths[i] += 1
+        lengths.append(lengths[i])
+    syms = rng.permutation(256)[: len(lengths)]
+    w = np.zeros(256, np.int32)
+    w[syms] = tl + 1 - np.array(lengths)
+    return w
+
+
+def huffman_stream(syms: np.ndarray, table: np.ndarray) -> bytes:
+    """Encode `syms` with the code of a packed 12-bit peek table (nb << 8 |
+    sym) as a zstd backward stream: the first symbol ends up on top."""
+    code = {}
+    for v in range(len(table) - 1, -1, -1):
+        nb, s = int(table[v]) >> 8, int(table[v]) & 255
+        code[s] = (v >> (12 - nb), nb)
+    acc, nbits = 0, 0
+    for s in syms[::-1].tolist():
+        c, nb = code[s]
+        acc |= c << nbits
+        nbits += nb
+    acc |= 1 << nbits
+    return acc.to_bytes(nbits // 8 + 1, "little")
+
+
+def huf_plain_edges(rng, n_syms: int = 8000):
+    """Pass A inputs for csrc/huf_lanes.cu's pieces: streams of n_syms
+    random symbols of hand-made 12-, 11- and 9-bit tables (every piece's
+    guessed start but the first mid-code), each also damaged and cut
+    short (n - 7), and over-long (n + 300: the tail below bit 0); a lane
+    at bit 0 and one below it, n = 0, n past its stream by 9,000
+    symbols, and a table with code lengths 0 (the serial walk).  Returns
+    (huf_lanes keyword arguments but dtabs, as numpy; dtabs (T, 4096)
+    int32 on the CPU)."""
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    huf = ZD._HufReg()
+    for tl in (12, 11, 9):
+        huf.add(kraft_weights(rng, tl))
+    W, TLS = huf.weights_arr()
+    dtabs = ZD.build_dtabs(torch.from_numpy(W), torch.from_numpy(TLS))
+    tab = dtabs.numpy()
+    lanes = [ZD._HufLane(huffman_stream(
+        tab[t][rng.integers(0, 4096, n_syms)] & 255, tab[t]), n_syms, t)
+        for t in range(3)]
+    lanes += [ZD._HufLane(damage(l.stream, rng, 5), l.n_out - 7, l.tid)
+              for l in lanes[:3]]
+    lanes += [ZD._HufLane(l.stream, l.n_out + 300, l.tid)
+              for l in lanes[:3]]
+    holes = tab[0].copy()
+    holes[::7] &= 255                     # code length 0
+    dtabs = torch.cat([dtabs, torch.from_numpy(holes)[None]])
+    # (lane whose stream it reads, bits or None for its sentinel, n, tid)
+    extra = [(0, None, n_syms, 3), (1, 0, 20, 1), (1, -9, 20, 2),
+             (2, None, 0, 2), (1, None, n_syms + 9000, 1)]
+    inp, _ = ZD.huf_lane_inputs(lanes + [lanes[e[0]] for e in extra])
+    L0 = len(lanes)
+    for i, (_, b, n, t) in enumerate(extra):
+        if b is not None:
+            inp["bits"][L0 + i] = b
+        inp["n"][L0 + i] = n
+        inp["tid"][L0 + i] = t
+    inp["cap"] = int(inp["n"].max())
+    return inp, dtabs

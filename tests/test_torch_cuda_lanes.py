@@ -21,8 +21,9 @@ from libzseek_tpu_torch.ops import exec_blocks as X
 from libzseek_tpu_torch.ops import lanes as L
 from libzseek_tpu_torch.ops import zstd_decode as ZD
 from libzseek_tpu_torch.testing.corpus import mixed_corpus
-from test_torch_cuda_inputs import (cuda_device, leftover_bits_frame,
-                                    own_frames, record_lane_calls,
+from test_torch_cuda_inputs import (cuda_device, huf_plain_edges,
+                                    leftover_bits_frame, own_frames,
+                                    record_lane_calls,
                                     replay_on_cpu, stock_frames)
 
 pytestmark = pytest.mark.cuda
@@ -46,7 +47,9 @@ def _archive(device):
 def test_lane_kernels_match_plain(cuda, monkeypatch):
     """Every kernel call of the lane route on the port's frames, stock
     libzstd's and an archive with its hints; damaged streams give the
-    same flags."""
+    same flags; the Huffman plain arm's pieces on long, damaged, short
+    and over-long streams, at and below bit 0 and with a table of code
+    length 0 (tests/test_torch_cuda_inputs.huf_plain_edges)."""
     frames, raws = own_frames(device="cuda")
     sf, sr = stock_frames()
     frames, raws = frames + sf[:-1], raws + sr[:-1]
@@ -87,6 +90,15 @@ def test_lane_kernels_match_plain(cuda, monkeypatch):
     for x, y in zip(*outs):
         np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
     assert not outs[1][1].all()
+    # the plain arm's pieces on long, damaged, short and over-long streams
+    inp, dtabs = huf_plain_edges(np.random.default_rng(5))
+    n0 = L.huf_plain_launches
+    outs = [L.huf_lanes(dtabs=dtabs.to(dev), **ZD._upload(inp, dev))
+            for dev in (cuda, torch.device("cpu"))]
+    assert L.huf_plain_launches == n0 + 1
+    for x, y in zip(*outs):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+    assert outs[1][1][:3].all() and not outs[1][1][3:].any()
 
 
 def test_k6_and_the_lane_route_on_the_card(cuda, monkeypatch):

@@ -22,8 +22,9 @@ from libzseek_tpu_torch.ops import exec_blocks as X
 from libzseek_tpu_torch.ops import zstd_decode as ZD
 from libzseek_tpu_torch.testing import golden
 from libzseek_tpu_torch.testing.corpus import mixed_corpus, text_corpus
-from test_torch_cuda_inputs import (cases, rle_frame,  # noqa: F401
-                                   stock_frames)
+from test_torch_cuda_inputs import (cases, damage,  # noqa: F401
+                                   huffman_stream, kraft_weights,
+                                   rle_frame, stock_frames)
 from test_torch_decode_inputs import section_modes  # noqa: F401
 from test_torch_inputs import words
 
@@ -115,50 +116,6 @@ def jax_huf_tables(hufreg) -> np.ndarray:
     for w in hufreg.weights:
         jr.add(w)
     return jr.packed()
-
-
-def damage(stream: bytes, rng, flips: int = 3) -> bytes:
-    """`stream` with `flips` random bits flipped below its last byte (which
-    keeps its sentinel)."""
-    b = bytearray(stream)
-    if len(b) > 1:
-        for p in rng.integers(0, 8 * (len(b) - 1), flips).tolist():
-            b[p >> 3] ^= 1 << (p & 7)
-    return bytes(b)
-
-
-def kraft_weights(rng, tl: int) -> np.ndarray:
-    """(256,) zstd Huffman weights of a random complete prefix code whose
-    longest code is `tl` bits: leaves split at random until some leaf
-    reaches tl, symbols shuffled."""
-    lengths = [0]
-    while max(lengths) < tl or len(lengths) < 2:
-        cand = [i for i, l in enumerate(lengths) if l < tl]
-        if len(lengths) >= 255:
-            cand = [max(cand, key=lambda i: lengths[i])]
-        i = cand[int(rng.integers(0, len(cand)))]
-        lengths[i] += 1
-        lengths.append(lengths[i])
-    syms = rng.permutation(256)[: len(lengths)]
-    w = np.zeros(256, np.int32)
-    w[syms] = tl + 1 - np.array(lengths)
-    return w
-
-
-def huffman_stream(syms: np.ndarray, table: np.ndarray) -> bytes:
-    """Encode `syms` with the code of a packed 12-bit peek table (nb << 8 |
-    sym) as a zstd backward stream: the first symbol ends up on top."""
-    code = {}
-    for v in range(len(table) - 1, -1, -1):
-        nb, s = int(table[v]) >> 8, int(table[v]) & 255
-        code[s] = (v >> (12 - nb), nb)
-    acc, nbits = 0, 0
-    for s in syms[::-1].tolist():
-        c, nb = code[s]
-        acc |= c << nbits
-        nbits += nb
-    acc |= 1 << nbits
-    return acc.to_bytes(nbits // 8 + 1, "little")
 
 
 def blocks_per_frame(frames, sizes):

@@ -2,7 +2,8 @@
 """Timings and clock-counter attributions of the port's K1 (linked parse),
 K2 (entropy emission), K3 (literal placement), K4 (fused decode, execute
 arm), K5 (LZ4 block encode), K6 (the lane route's block executor), K7
-(per-block hash parse) and LZ4 decoder on an H100, for PERF.md section 6.
+(per-block hash parse), LZ4 decoder, greedy_select, Huffman and sequence
+lane decoders and K4's transcode arm on an H100, for PERF.md section 6.
 
     python3 tools/torch_kernel_profile.py times DIR [LEVELS] [--check] [--only=K6,K7]
     python3 tools/torch_kernel_profile.py pair PARENT_DIR DIR [LEVELS] [--only=K6,K7]
@@ -37,7 +38,18 @@ call and, where DIR's K3 has a separate placement kernel, that kernel
 alone; each K2 and K3 input's rows are summarised (modes, literals,
 sequences); CUDA events, mean of 5; --check compares each output with
 the plain version first; --only keeps the entries whose names start with
-one of the given prefixes.  Each output's sha256 is printed.
+one of the given prefixes.  Each output's sha256 is printed.  With
+--only=greedy: greedy_select at the zstd and LZ4 sort writes' first
+batches (chip_smoke's capture_greedy; 64 and 128 rows of 32,768
+segments), with each batch's candidates, selections and longest run of
+segments without a selection.  With --only=huf, seq or K4T (or a longer
+prefix, e.g. "huf L9"): every call of the Huffman lanes, the sequence
+lanes and K4's transcode arm in one sequential Reader pass over the
+level-3, level-9 and log-like archives (decoder "lanes"; groups "huf L3
+anchored", "seq L9 tagged", ...) and over the level-3 archive (decoder
+"transcode": "K4T L3 transcode host literals"): per group its launches,
+work and summed bound, the calls replayed together, and its call with
+the most work alone ("... max"; --check holds only these to plain).
 
 pair: `times` in fresh processes from PARENT_DIR, DIR, DIR, PARENT_DIR
 (one card, in turns), then checks that both gave the same outputs.
@@ -53,7 +65,11 @@ each K7 batch), into K6's first, one-warp frame walk (per frame of
 each K6 call) and into K2's first, two-thread version (per row of each
 K2 input of `times`: thread 0's run table, and per literal its run walk,
 `x` load, code load and push; its raw copy; thread 32's sequence walk;
-the zeroing), builds that copy, and prints per chain (per frame, per
+the zeroing), into greedy_select's first, lane-0 walk (per row: its
+cycles a segment, beside each row's candidates and selections), into
+the lane decoders' first, one-thread walks and K4's tc_kernel (at each
+lane group's largest call: cycles, symbols or sequences, lanes, the
+slowest lane), builds that copy, and prints per chain (per frame, per
 row) the cycles of each part of the walk and its counts.  For the
 one-thread K1 it also times the walk with the dual table in device
 memory instead of shared memory.  Kernels that DIR holds in another
@@ -62,9 +78,10 @@ design are skipped, and so are those that --only leaves out.
 kernels: K4's execute arm (level 3, 64 blocks; level 9, 128 blocks), K5
 (128 rows), K7 (chip_smoke's 64 rows; the text batch), K6 (the 8
 frames with hints; the 8 repeats frames), K2 (64 rows; the hash write's
-text batch) and K3 (the first text batch, the whole call) under
-torch.profiler, five calls each: the mean milliseconds and launches a
-call of each CUDA kernel; --only as for `times`.
+text batch), K3 (the first text batch, the whole call), greedy_select
+(both batches) and each lane group's largest call under torch.profiler,
+five calls each: the mean milliseconds and launches a call of each CUDA
+kernel; --only as for `times`.
 
 archives: the sha256 of the 64 MiB of mixed_corpus (seed 11) that DIR's
 Writer writes as chip_smoke.py does (zstd at levels 3 and 9, LZ4 at
@@ -528,6 +545,61 @@ K2_SERIAL = ("two_threads", ["lit_walk", "run_walk", "x_load", "code_load",
      "  if (threadIdx.x == 0) g_prof[b & 63][10] += clock64() - Tz;\n"),
 ])
 
+# greedy_select, the first version's lane-0 walk (per row, rows r and
+# r + 64 share a slot): the walk's cycles, its segments and the rows
+GREEDY_LANE0 = ("lane0", ["walk", "segments", "rows"], [
+    ("    if (lane == 0) {\n      for (int i = 0; i < n; ++i) {\n",
+     "    if (lane == 0) {\n      long long T0 = clock64();\n"
+     "      for (int i = 0; i < n; ++i) {\n"),
+    ("        c = ok ? ei : c;\n      }\n    }\n",
+     "        c = ok ? ei : c;\n      }\n"
+     "      atomicAdd(&g_prof[row & 63][0], "
+     "(unsigned long long)(clock64() - T0));\n"
+     "      atomicAdd(&g_prof[row & 63][1], (unsigned long long)n);\n"
+     "    }\n"),
+    ("  if (lane == 0) c_final[row] = c;",
+     "  if (lane == 0) {\n    c_final[row] = c;\n"
+     "    atomicAdd(&g_prof[row & 63][2], 1ull);\n  }"),
+])
+# the lane decoders' first, one-thread walks (lane l counts in slot
+# l & 63): the walk's cycles, its symbols or sequences, the lanes, the
+# slowest lane's cycles
+_LANE_TAIL = ("  {\n    const unsigned long long dt = clock64() - T0;\n"
+              "    atomicAdd(&g_prof[l & 63][0], dt);\n"
+              "    atomicAdd(&g_prof[l & 63][1], (unsigned long long)cnt);\n"
+              "    atomicAdd(&g_prof[l & 63][2], 1ull);\n"
+              "    atomicMax(&g_prof[l & 63][3], dt);\n  }\n")
+HUF_THREAD = ("thread", ["walk", "symbols", "lanes", "max_walk"], [
+    ("  const int cnt = min(n[l], cap);\n  for (int t = 0; t < cnt; ++t) {",
+     "  const int cnt = min(n[l], cap);\n  long long T0 = clock64();\n"
+     "  for (int t = 0; t < cnt; ++t) {"),
+    ("  ok[l] = exact ? (pos == 0) : (pos >= 0);\n}",
+     _LANE_TAIL + "  ok[l] = exact ? (pos == 0) : (pos >= 0);\n}"),
+])
+SEQ_THREAD = ("thread", ["walk", "sequences", "lanes", "max_walk"], [
+    ("  const int cnt = min(n[l], cap);\n  int* lo = ll_out",
+     "  const int cnt = min(n[l], cap);\n  long long T0 = clock64();\n"
+     "  int* lo = ll_out"),
+    ("  rep_out[3 * l] = r1;\n", _LANE_TAIL + "  rep_out[3 * l] = r1;\n"),
+])
+# K4's transcode arm, tc_kernel's one thread a chain (chain c counts in
+# slot c & 63): cycles, sequences, chains, the slowest chain's cycles
+TC_THREAD = ("chain", ["walk", "sequences", "chains", "max_walk"], [
+    ("  if (c >= C) return;\n  long long rep1 = 1, rep2 = 4, rep3 = 8;\n",
+     "  if (c >= C) return;\n  long long rep1 = 1, rep2 = 4, rep3 = 8;\n"
+     "  long long T0 = clock64();\n  unsigned long long nseq_ = 0;\n"),
+    ("    const int n_seq = m[13];\n    int* st = stat + 4 * r;\n",
+     "    const int n_seq = m[13];\n    int* st = stat + 4 * r;\n"
+     "    nseq_ += n_seq > 0 ? n_seq : 0;\n"),
+    ("    st[3] = 0;\n  }\n}\n",
+     "    st[3] = 0;\n  }\n  {\n"
+     "    const unsigned long long dt = clock64() - T0;\n"
+     "    atomicAdd(&g_prof[c & 63][0], dt);\n"
+     "    atomicAdd(&g_prof[c & 63][1], nseq_);\n"
+     "    atomicAdd(&g_prof[c & 63][2], 1ull);\n"
+     "    atomicMax(&g_prof[c & 63][3], dt);\n  }\n}\n"),
+])
+
 MICRO = r'''
 #include <cstdio>
 #include <cuda_runtime.h>
@@ -782,6 +854,130 @@ def _k3_rows(args):
     return {"rows": int(vec.sum()), "literals": int(lits)}
 
 
+def _greedy_calls(cs, data):
+    """greedy_select's inputs {name: (args, kwargs)}: the zstd and LZ4
+    sort writes' first batches, captured from the codecs as chip_smoke's
+    phase 11 does (64 and 128 rows of 32,768 segments)."""
+    from libzseek_tpu_torch import LZ4Codec, ZstdCodec
+    frames = [data[f * 8 * MIB: f * 8 * MIB + MIB] for f in range(8)]
+    return {"zstd 64 rows": cs.capture_greedy(ZstdCodec(parser="sort"),
+                                              frames),
+            "LZ4 128 rows": cs.capture_greedy(LZ4Codec(parser="sort"),
+                                              frames)}
+
+
+def _greedy_rows(args, out):
+    """Per row of a greedy_select call: the segments with a candidate,
+    the selections, and the longest run of segments with no selection."""
+    import numpy as np
+    has = args[3].cpu().numpy()
+    sel = out[0].cpu().numpy()
+    rows = []
+    for h, s in zip(has, sel):
+        idx = np.flatnonzero(s)
+        gaps = np.diff(np.concatenate([[-1], idx, [s.size]])) - 1
+        rows.append({"candidates": int(h.sum()), "selections": int(s.sum()),
+                     "longest_gap": int(gaps.max())})
+    return rows
+
+
+def _rows_summary(rows):
+    tot = lambda k: sum(r[k] for r in rows)
+    return {"rows": len(rows), "candidates": tot("candidates"),
+            "selections": tot("selections"),
+            "max_selections": max(r["selections"] for r in rows),
+            "max_longest_gap": max(r["longest_gap"] for r in rows)}
+
+
+# the reads whose lane-decoder and transcode calls the lane groups
+# record: (name, archive, decoder); the archives as chip_smoke writes
+# them (level 3, level 9, the hash parser's log-like 8 MiB of phase 7)
+LANE_READS = (("L3", "level 3", "lanes"), ("L9", "level 9", "lanes"),
+              ("log", "log-like", "lanes"),
+              ("L3 transcode", "level 3", "transcode"))
+LANE_WRAPPERS = (("huf", "huf_lanes"), ("seq", "seq_lanes"),
+                 ("K4T", "transcode_blocks"))
+
+
+def _arm(short, a, kw):
+    if short == "huf":
+        return "plain" if kw["exact"] else "anchored"
+    if short == "seq":
+        return "tagged" if kw["tagged"] else "anchored"
+    return "host literals" if a[0] is None else "device literals"
+
+
+def _lane_reads(cs, data):
+    """Every call of the Huffman lanes, the sequence lanes and K4's
+    transcode arm in one sequential Reader pass over each LANE_READS
+    archive (the read checked against its input): {"huf L9 plain":
+    [(fn, args, kwargs, out)], ...}, grouped by read and arm."""
+    import numpy as np
+    from libzseek_tpu_torch import Reader
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.ops import lanes
+    from libzseek_tpu_torch.testing.corpus import log_corpus
+    logs = log_corpus(np.random.default_rng(13), 8 * MIB).tobytes()
+    archives = {"level 3": (cs.write_archive(data, "cuda")[0], data),
+                "level 9": (cs.write_archive(data, "cuda", "zstd", 9)[0],
+                            data),
+                "log-like": (cs.hash_write(logs, "cuda")[0], logs)}
+    mods = {"huf_lanes": lanes, "seq_lanes": lanes, "transcode_blocks": D}
+    groups = {}
+    for read, arch, decoder in LANE_READS:
+        archive, raw = archives[arch]
+        calls = []
+        saved = [(fname, getattr(mods[fname], fname))
+                 for _, fname in LANE_WRAPPERS]
+        for short, fname in LANE_WRAPPERS:
+            real = getattr(mods[fname], fname)
+
+            def spy(*a, _real=real, _short=short, **kw):
+                out = _real(*a, **kw)
+                calls.append((_short, (_real, a, kw, out)))
+                return out
+            setattr(mods[fname], fname, spy)
+        try:
+            with Reader(archive, device="cuda", decoder=decoder) as r:
+                got = cs.read_all(r)
+        finally:
+            for fname, real in saved:
+                setattr(mods[fname], fname, real)
+        if got != raw:
+            sys.exit(f"the {read} read differs from its input")
+        for short, call in calls:
+            arm = _arm(short, call[1], call[2])
+            groups.setdefault(f"{short} {read} {arm}", []).append(call)
+    return groups
+
+
+def _lane_work(cs, name, call):
+    """(bytes, operations, symbols or sequences) of one recorded call."""
+    fn, a, kw, out = call
+    if name.startswith("K4T"):
+        nb, ops = cs.transcode_work([(a, out)])
+        return nb, ops, ops
+    fname = "huf_lanes" if name.startswith("huf") else "seq_lanes"
+    nb, ops = cs.lane_work(fname, call)
+    return nb, ops, int(kw["n"].sum())
+
+
+def _lane_summary(cs, name, calls):
+    """A group's launches, bound (summed over its calls) and work, and
+    the index of its call with the most work."""
+    work = [_lane_work(cs, name, c) for c in calls]
+    return {"launches": len(calls),
+            "bound_ms": sum(cs.bound(nb, ops)[0] for nb, ops, _ in work),
+            "work": sum(w for _, _, w in work)}, \
+        max(range(len(work)), key=lambda i: work[i][2])
+
+
+def _lanes_wanted(only):
+    """Whether --only asks for any lane-read group."""
+    return not only or any(o.startswith(p) or p.startswith(o) for o in only
+                           for p in ("huf", "seq", "K4T"))
+
+
 def _keep(name, only):
     return not only or any(name.startswith(p) for p in only)
 
@@ -807,7 +1003,7 @@ def times(pkg_dir, levels, check, only=()):
         got = fn()
         torch.cuda.synchronize()
         res[f"{name} sha256"] = _digest(got)
-        if check:
+        if check and plain is not None:
             res[f"{name} equal"] = all(
                 torch.equal(a.cpu(), b) for a, b in zip(got, plain()))
         res[f"{name} ms"] = cs.time_cuda(fn)
@@ -864,6 +1060,29 @@ def times(pkg_dir, levels, check, only=()):
                 run(f"K3 {name} kernel",
                     lambda: [VE.place_literals(*prep, a[5] // 4)],
                     lambda: [VE.place_literals(*map(cpu, prep), a[5] // 4)])
+    if _keep("greedy", only):
+        from libzseek_tpu_torch.ops import match
+        outs = lambda o: [o[0], o[1], o[4], o[5]]   # e, off pass through
+        for name, (a, kw) in _greedy_calls(cs, data).items():
+            fn = lambda: outs(match.greedy_select(*a, **kw))
+            res[f"greedy {name} rows"] = _rows_summary(_greedy_rows(a, fn()))
+            run(f"greedy {name}", fn, lambda: outs(match.greedy_select(
+                *map(cpu, a), **kw)))
+    if _lanes_wanted(only):
+        for name, calls in _lane_reads(cs, data).items():
+            if not _keep(name, only):
+                continue
+            summ, imax = _lane_summary(cs, name, calls)
+            res[f"{name} calls"] = summ
+            run(name, lambda: [t for fn, a, kw, _ in calls
+                               for t in fn(*a, **kw)], None)
+            fn, a, kw, _ = calls[imax]
+            nb, ops, w = _lane_work(cs, name, calls[imax])
+            res[f"{name} max call"] = {"work": w,
+                                       "bound_ms": cs.bound(nb, ops)[0]}
+            run(f"{name} max", lambda: list(fn(*a, **kw)),
+                lambda: list(fn(*map(cpu, a),
+                                **{k: cpu(v) for k, v in kw.items()})))
     print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
     return res
 
@@ -938,6 +1157,16 @@ def kernels(pkg_dir, only=()):
         from libzseek_tpu_torch.ops import vector_entropy as VE
         a = _k3_calls(cs, data)["text 0"]
         runs.append(("K3 text 0 call", lambda: VE.vector_literals(*a)))
+    if _keep("greedy", only):
+        from libzseek_tpu_torch.ops import match
+        for name, (a, kw) in _greedy_calls(cs, data).items():
+            runs.append((f"greedy {name}", lambda a=a, kw=kw:
+                         match.greedy_select(*a, **kw)))
+    if _lanes_wanted(only):
+        for name, calls in _lane_reads(cs, data).items():
+            fn, a, kw, _ = calls[_lane_summary(cs, name, calls)[1]]
+            runs.append((f"{name} max", lambda fn=fn, a=a, kw=kw:
+                         fn(*a, **kw)))
     act = [torch.profiler.ProfilerActivity.CUDA]
     for name, fn in runs:
         if not _keep(name, only):
@@ -1063,6 +1292,13 @@ def counters(pkg_dir, only=()):
                             [K6_WARP_PER_FRAME], "k6")
     k2v, k2_fields = _patch(os.path.join(csrc, "entropy.cu"), [K2_SERIAL],
                             "k2")
+    grv, gr_fields = _patch(os.path.join(csrc, "greedy_select.cu"),
+                            [GREEDY_LANE0], "greedy")
+    hufv, _ = _patch(os.path.join(csrc, "huf_lanes.cu"), [HUF_THREAD],
+                     "huf")
+    seqv, _ = _patch(os.path.join(csrc, "fse_lanes.cu"), [SEQ_THREAD],
+                     "seq")
+    tcv, _ = _patch(os.path.join(csrc, "decode.cu"), [TC_THREAD], "tc")
     cs, data = _load(dst)
     from libzseek_tpu_torch import kernels
     from libzseek_tpu_torch.ops import decode, hash_parse, lz4_decode, lz4_emit
@@ -1084,7 +1320,43 @@ def counters(pkg_dir, only=()):
 
     print(json.dumps({"k1_version": k1, "lz4_version": lz, "k5_version": k5v,
                       "k4_version": k4v, "k7_version": k7v,
-                      "k6_version": k6v, "k2_version": k2v}), flush=True)
+                      "k6_version": k6v, "k2_version": k2v,
+                      "greedy_version": grv, "huf_version": hufv,
+                      "seq_version": seqv, "tc_version": tcv}), flush=True)
+    if grv and _keep("greedy", only):
+        from libzseek_tpu_torch.ops import match
+        for name, (a, kw) in _greedy_calls(cs, data).items():
+            fn = lambda: match.greedy_select(*a, **kw)
+            slots = run(fn, gr_fields, 64, "greedy")
+            rows = _greedy_rows(a, fn())
+            for i, r in enumerate(rows):   # rows i and i + 64 share slot i
+                sl = slots[i & 63]
+                r["cycles_per_segment"] = round(sl["walk"] / sl["segments"],
+                                                2)
+            print(json.dumps({f"greedy {name}": {
+                "ms": cs.time_cuda(fn, reps=3),
+                "summary": _rows_summary(rows), "per_row": rows}}),
+                flush=True)
+    lane_v = {"huf": hufv, "seq": seqv, "K4T": tcv}
+    if _lanes_wanted(only) and any(lane_v.values()):
+        for name, calls in _lane_reads(cs, data).items():
+            short = name.split()[0]
+            if not lane_v[short] or not _keep(name, only):
+                continue
+            fn, a, kw, _ = calls[_lane_summary(cs, name, calls)[1]]
+            go = lambda: fn(*a, **kw)
+            fields = {"huf": HUF_THREAD, "seq": SEQ_THREAD,
+                      "K4T": TC_THREAD}[short][1]
+            slots = run(go, fields, 64,
+                        {"huf": "huf", "seq": "seq", "K4T": "tc"}[short])
+            tot = {k: sum(sl[k] for sl in slots) for k in slots[0]}
+            work = tot[fields[1]]
+            print(json.dumps({f"{name} max": {
+                "ms": cs.time_cuda(go, reps=3), **tot,
+                "cycles_per_item": round(tot["walk"] / work, 2)
+                if work else None,
+                "max_walk": max(sl["max_walk"] for sl in slots)}}),
+                flush=True)
     if k2v and _keep("K2", only):
         from libzseek_tpu_torch.ops import entropy as E
         for name, (a, kw) in _k2_calls(cs, data).items():
