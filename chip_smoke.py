@@ -1362,6 +1362,48 @@ def max_calls(calls) -> dict:
     return out
 
 
+def lane_variant_errs(pools, log_calls) -> tuple[dict, str]:
+    """Every arm of both lane decoders against its plain version on the
+    variants (testing/damage.py lane_variants: damaged streams, shuffled
+    lanes, mixed tables, rows longer than the tagged arm's stage) of each
+    recorded call in `pools` and of the log-like read's largest tagged
+    call, its lanes cut to 2,000 sequences: ({wrapper: max_abs_err}, a
+    note).  Fails unless every arm met a damaged and a shuffled call and
+    all were equal."""
+    import torch
+    from libzseek_tpu_torch.testing.damage import lane_variants
+    cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+    calls = [c for pool in pools for f in ("huf_lanes", "seq_lanes")
+             for c in pool.get(f, [])]
+    big = max(log_calls.get("seq_lanes", []), key=call_work, default=None)
+    if big is not None:
+        calls.append((big[0], big[1], dict(big[2], n=big[2]["n"].clamp(
+            max=2000)), None))
+    errs = {"huf_lanes": 0, "seq_lanes": 0}
+    seen = set()
+    for i, (fn, a, kw, _) in enumerate(calls):
+        fname = fn.__name__
+        arm = lane_arm(fname, (fn, a, kw, None))
+        for name, v in lane_variants({k: cpu(x) for k, x in kw.items()},
+                                     100 + i).items():
+            got = fn(*a, **{k: (x.cuda() if isinstance(x, torch.Tensor)
+                                else x) for k, x in v.items()})
+            ref = fn(*a, **v)
+            errs[fname] = max(errs[fname], max_abs_err(list(got), list(ref)))
+            seen.add((fname, arm, name))
+    check(not any(errs.values()),
+          f"a lane decoder differs from plain on variants of its calls "
+          f"({errs})")
+    for fname, arms in LANE_ARMS.items():
+        for arm in arms:
+            for name in ("damaged", "shuffled"):
+                check((fname, arm, name) in seen,
+                      f"{fname} {arm} arm met no {name} call")
+    kinds = sorted({n for _, _, n in seen})
+    return errs, (f"{len(calls)} calls' variants ({', '.join(kinds)}) "
+                  f"equal to plain, every arm")
+
+
 @contextlib.contextmanager
 def record_lane_calls():
     """Every call of the lane decoders' wrappers inside the block:
@@ -1447,6 +1489,11 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
     pool = {f: [c for calls in (small_calls, bare, full, main_calls,
                                 log_calls) for c in calls.get(f, [])]
             for f in ("huf_lanes", "seq_lanes")}
+    var_errs, var_note = lane_variant_errs((small_calls, bare, full),
+                                           log_calls)
+    for fname, e in var_errs.items():
+        errs[fname].append(e)
+    print(f"lane decoders on variants: {var_note}", flush=True)
     for fname, name, attr, source, replaces in LANE_KERNELS:
         if fname == "execute_blocks":
             cl = full[fname]
@@ -1488,7 +1535,8 @@ def phase_lanes(archive, table, data, kept, card, report) -> dict:
               arms[top]["plain_ms"], arms[top]["nb"], arms[top]["ops"],
               f"small frames, the archive's first 8 frames (64 blocks) "
               f"with and without hints, the 64 MiB read's calls and the "
-              f"log-like read's largest equal to plain; timed at the call "
+              f"log-like read's largest equal to plain; {var_note}; timed "
+              f"at the call "
               f"with the most {unit} ({top} arm, {arms[top]['work']}); "
               + "; ".join(f"{a} arm's largest call {v['work']} {unit}: card "
                           f"{v['ms']:.3f} ms, plain {v['plain_ms']:.1f} ms, "

@@ -8,11 +8,11 @@
 // checkpoints (format/hints.py).  As torch ops each step would be dozens
 // of tiny launches and a host sync, so the walk is one kernel.
 //
-// One thread per lane walks the 3-state tANS stream backward: table
-// entries (sym | nb << 8 | base << 16) from tabs (T, 512), extra bits OF
-// then ML then LL (up to 31 offset bits through read_wide, ofv = (1 <<
-// min(ofc, 30)) + extra in int32), the repcode step, then the state
-// updates LL, ML, OF except after the lane's last sequence.
+// A lane walks the 3-state tANS stream backward: table entries (sym | nb
+// << 8 | base << 16) of tabs (T, 512), extra bits OF then ML then LL (up
+// to 31 offset bits, ofv = (1 << min(ofc, 30)) + extra in int32), the
+// repcode step, then the state updates LL, ML, OF except after the
+// lane's last sequence (t = n - 1).
 //   tagged = 1 (pass B): the initial states are read from the top of the
 //     stream (log 0, an RLE table: state 0) and the repcodes start as the
 //     tags -(k << 20); the full three-rep rule runs on them; ok = exact
@@ -21,8 +21,44 @@
 //     off = ofv - 3 or rep1 (the encoder emits no other repcode); ok =
 //     pos >= 0.
 //
-// Bound: per sequence a chain of three table loads and six stream reads,
-// latency-bound per lane; the anchored pass supplies the lanes.
+// Bound: the FSE states carry from one sequence to the next, so a lane
+// is a serial chain: table entries, then the bits they size, then the
+// next states.  Read a load at a time from L2 (an entry through __ldg,
+// then its code's ctab row, then two loads a bit field) a sequence takes
+// ~1,500-2,000 cycles.  So:
+// - Table entries are staged in shared memory with ctab's extra-bit
+//   count and baseline folded in (uint2: the raw entry, base | bits << 24
+//   | WIDE), so a sequence's tables are three shared loads and nothing
+//   after them.  WIDE marks an entry a window cannot serve (below).
+// - Once a sequence's entries are loaded, all six bit counts are known,
+//   so the six fields come from distances found by addition, out of the
+//   128 stream bits below pos held in registers as two 64-bit values
+//   (reloaded every sequence from five words at the next position, which
+//   is known before this sequence's fields are extracted): the extra
+//   bits from the top 64, the states from the 64 below their start,
+//   each field one 64-bit shift and a mask.
+// - The step is branch-free but for one test: a step whose entries are
+//   WIDE (an offset code above 31 or a state read above NARROW_NB bits,
+//   from a damaged or RLE table), whose states lie outside [0, 512) on a
+//   staged lane, or whose position lies past the row's end (a damaged
+//   checkpoint) reloads its entries from tabs and reads its fields
+//   through read_at (lane_bits.cuh).
+// - The tagged arm (one lane a stream, ~1-16k sequences) runs a block a
+//   lane: its 128 threads stage the lane's tables and the stream words
+//   the walk can reach (rows of up to SEQ_STAGE bytes; a longer row is
+//   read from global memory), and thread 0 walks.  The anchored arm
+//   (chunks of <= 128 sequences, a stream's chunks contiguous) runs a
+//   thread a lane, 64 lanes a block: the block stages the tables of its
+//   first and last lanes, and each lane prefetches its stretch of the
+//   stream (and the lines of its tables where they are not staged) into
+//   L1 before it walks.
+// - Staging loads STAGE_UNROLL values a thread before it stores any, so
+//   the loads overlap.
+// Every value equals a walk through read_at / read_wide alone, for every
+// input: the window holds the stream's bits with zeros below bit 0 and
+// past the row's end, which is what read_at returns for a read of <= 25
+// bits starting below 8 * SB (and read_wide for <= 31).  The numpy
+// mirror is testing/seq_mirror.py.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,134 +76,368 @@ constexpr int C_LL_BITS = 0;
 constexpr int C_LL_BASE = N_LL;
 constexpr int C_ML_BITS = 2 * N_LL;
 constexpr int C_ML_BASE = 2 * N_LL + N_ML;
+constexpr int N_CTAB = 2 * N_LL + 2 * N_ML;
 
-__device__ __forceinline__ int entry(const int* tabs, long long last,
-                                     long long base, int state) {
-  long long k = base + state;
-  k = k < 0 ? 0 : (k > last ? last : k);
-  return __ldg(tabs + k);
+constexpr int TAGGED_THREADS = 128;     // a block a tagged lane
+constexpr int ANCHOR_THREADS = 64;      // anchored lanes a block
+constexpr int SEQ_STAGE = 96 * 1024;    // stream bytes a tagged block stages
+constexpr int PAD = 4;                  // zero words around the staged ones
+constexpr int WIN_BITS = 96;            // bits a step may read below pos
+constexpr int NARROW_NB = 11;           // the widest state read it serves
+constexpr uint32_t WIDE = 1u << 31;     // entry flag: the window cannot serve
+constexpr int STAGE_UNROLL = 8;
+constexpr int ANCHOR_SPAN = 128 * WIN_BITS + 256;   // bits a chunk may read
+
+// the folded half of table k's entry e (LL k = 0, OF k = 1, ML k = 2):
+// ctab's baseline | extra-bit count << 24 (OF: its code is its count),
+// WIDE where a windowed step could not read it
+__device__ __forceinline__ uint32_t fold(const int* ct, int k, int e) {
+  const int c = e & 255;
+  bool wide = ((e >> 8) & 255) > NARROW_NB;
+  uint32_t y = 0;
+  if (k == 1) {
+    wide |= c > 31;
+  } else if (k == 0) {
+    const int cc = min(c, N_LL - 1);
+    y = (uint32_t)ct[C_LL_BASE + cc] | ((uint32_t)ct[C_LL_BITS + cc] << 24);
+  } else {
+    const int cc = min(c, N_ML - 1);
+    y = (uint32_t)ct[C_ML_BASE + cc] | ((uint32_t)ct[C_ML_BITS + cc] << 24);
+  }
+  return wide ? (y | WIDE) : y;
 }
 
-__global__ void fse_lanes_kernel(
-    const uint8_t* __restrict__ bank, int SB, int NS,
-    const int* __restrict__ sid, const int* __restrict__ bits,
-    const int* __restrict__ n, const int* __restrict__ states,
-    const int* __restrict__ rep1, const int* __restrict__ tids,
-    const int* __restrict__ tls, const int* __restrict__ tabs, int T,
-    const int* __restrict__ ctab, int L, int cap, int tagged,
-    int* __restrict__ ll_out, int* __restrict__ ml_out,
-    int* __restrict__ off_out, int* __restrict__ rep_out,
-    uint8_t* __restrict__ ok) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
+// a lane's three tables: staged entries (sh[k * 512 + state]) or none
+struct Tables {
+  const uint2* sh;
+  const int* tabs;
+  const int* ct;
+  long long last;
+  long long b[3];
+
+  // the exact entry (clamped index into tabs where not staged)
+  __device__ __forceinline__ uint2 get(int k, int s) const {
+    if (sh != nullptr && (unsigned)s < (unsigned)FSE_TAB)
+      return sh[k * FSE_TAB + s];
+    long long i = b[k] + s;
+    i = i < 0 ? 0 : (i > last ? last : i);
+    const int e = __ldg(tabs + i);
+    return make_uint2((uint32_t)e, fold(ct, k, e));
+  }
+};
+
+// stage table triple tid3 into sh (3 * 512 uint2) by the block's threads
+__device__ __forceinline__ void stage_tables(uint2* sh, const int* tabs,
+                                             long long last, const int* ct,
+                                             const int* tid3) {
+  for (int i0 = threadIdx.x; i0 < 3 * FSE_TAB;
+       i0 += blockDim.x * STAGE_UNROLL) {
+    int e[STAGE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < STAGE_UNROLL; ++u) {
+      const int i = i0 + u * blockDim.x;
+      e[u] = 0;
+      if (i < 3 * FSE_TAB) {
+        const int k = i / FSE_TAB;
+        long long j = (long long)tid3[k] * FSE_TAB + (i - k * FSE_TAB);
+        j = j < 0 ? 0 : (j > last ? last : j);
+        e[u] = __ldg(tabs + j);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < STAGE_UNROLL; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i < 3 * FSE_TAB)
+        sh[i] = make_uint2((uint32_t)e[u], fold(ct, i / FSE_TAB, e[u]));
+    }
+  }
+}
+
+// stream words: staged in shared memory (words [0, n) at w[PAD ...],
+// PAD zero words on either side), or read from the row in global memory
+// (zeros outside the row's nw words)
+struct SmemWords {
+  const uint32_t* w;
+  int n;
+  __device__ __forceinline__ uint32_t at(int i) const {
+    return w[min(max(i, -PAD), n + PAD - 1) + PAD];
+  }
+};
+
+struct GmemWords {
+  const uint32_t* w;
+  int nw;
+  __device__ __forceinline__ uint32_t at(int i) const {
+    return (unsigned)i < (unsigned)nw ? __ldg(w + i) : 0u;
+  }
+};
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+// the 128 bits below position p, as two 64-bit values: X = bits
+// [p - 64, p), Y = bits [p - 128, p - 64), from the five words from
+// floor32(p - 128)
+template <class Words>
+__device__ __forceinline__ void window(const Words& src, int p,
+                                       unsigned long long& X,
+                                       unsigned long long& Y) {
+  const int q = p - 2 * 64;
+  const int j = q >> 5;      // floor
+  const int sh = q & 31;
+  const uint32_t w0 = src.at(j), w1 = src.at(j + 1), w2 = src.at(j + 2),
+                 w3 = src.at(j + 3), w4 = src.at(j + 4);
+  Y = ((unsigned long long)__funnelshift_r(w1, w2, sh) << 32) |
+      __funnelshift_r(w0, w1, sh);
+  X = ((unsigned long long)__funnelshift_r(w3, w4, sh) << 32) |
+      __funnelshift_r(w2, w3, sh);
+}
+
+// the nb <= 31 bits that end d <= 64 bits below the top of V, given V1
+// = V >> 1 (so that d = 0 shifts by 63, not 64)
+__device__ __forceinline__ uint32_t top(unsigned long long V1, int d,
+                                        int nb) {
+  return (uint32_t)(V1 >> (63 - d)) & ~(0xFFFFFFFFu << nb);
+}
+
+// one lane's walk from (pos, states, reps); writes its rows of ll, ml,
+// off, its final reps and its verdict.  STAGED: the lane's tables are
+// T.sh (else every entry comes from tabs).
+template <int TAGGED, bool STAGED, class Words>
+__device__ __forceinline__ void walk(
+    const Words& src, const Tables& T, const uint8_t* row, int SB, int pos,
+    int s_ll, int s_of, int s_ml, int r1, int r2, int r3, int n_l, int cap,
+    int* lo, int* mo, int* oo, int* rep, uint8_t* ok) {
   using lanebits::read_at;
   using lanebits::read_wide;
-  const int s = min(max(sid[l], 0), NS - 1);
-  const uint8_t* row = bank + (size_t)s * SB;
-  const long long last = (long long)T * FSE_TAB - 1;
-  const long long b_ll = (long long)tids[3 * l] * FSE_TAB;
-  const long long b_of = (long long)tids[3 * l + 1] * FSE_TAB;
-  const long long b_ml = (long long)tids[3 * l + 2] * FSE_TAB;
-  int pos = bits[l];
-  int s_ll, s_of, s_ml, r1, r2, r3;
-  if (tagged) {
-    const int tl_ll = tls[3 * l], tl_of = tls[3 * l + 1],
-              tl_ml = tls[3 * l + 2];
-    s_ll = (int)read_at(row, SB, pos - tl_ll, tl_ll);
-    pos -= tl_ll;
-    s_of = (int)read_at(row, SB, pos - tl_of, tl_of);
-    pos -= tl_of;
-    s_ml = (int)read_at(row, SB, pos - tl_ml, tl_ml);
-    pos -= tl_ml;
-    r1 = -REP_TAG;
-    r2 = -2 * REP_TAG;
-    r3 = -3 * REP_TAG;
-  } else {
-    s_ll = states[3 * l];
-    s_of = states[3 * l + 1];
-    s_ml = states[3 * l + 2];
-    r1 = rep1[l];
-    r2 = 0;
-    r3 = 0;
-  }
-  const int cnt = min(n[l], cap);
-  int* lo = ll_out + (size_t)l * cap;
-  int* mo = ml_out + (size_t)l * cap;
-  int* oo = off_out + (size_t)l * cap;
+  const int cnt = min(n_l, cap);
+  const int end_bits = 8 * SB;
+  unsigned long long X, Y;
+  window(src, pos, X, Y);
   for (int t = 0; t < cnt; ++t) {
-    const int e_ll = entry(tabs, last, b_ll, s_ll);
-    const int e_of = entry(tabs, last, b_of, s_of);
-    const int e_ml = entry(tabs, last, b_ml, s_ml);
-    const int ofc = e_of & 255;
-    const int mlc = min(e_ml & 255, N_ML - 1);
-    const int llc = min(e_ll & 255, N_LL - 1);
-    const uint32_t of_extra = read_wide(row, SB, pos - ofc, ofc);
-    pos -= ofc;
-    const int ofv = (int)((1u << min(ofc, 30)) + of_extra);
-    const int mlb = __ldg(ctab + C_ML_BITS + mlc);
-    const int ml = __ldg(ctab + C_ML_BASE + mlc) +
-                   (int)read_at(row, SB, pos - mlb, mlb);
-    pos -= mlb;
-    const int llb = __ldg(ctab + C_LL_BITS + llc);
-    const int ll = __ldg(ctab + C_LL_BASE + llc) +
-                   (int)read_at(row, SB, pos - llb, llb);
-    pos -= llb;
+    uint2 a, b, c;
+    bool in = true;
+    if (STAGED) {
+      a = T.sh[s_ll & (FSE_TAB - 1)];
+      b = T.sh[FSE_TAB + (s_of & (FSE_TAB - 1))];
+      c = T.sh[2 * FSE_TAB + (s_ml & (FSE_TAB - 1))];
+      in = (unsigned)(s_ll | s_of | s_ml) < (unsigned)FSE_TAB;
+    } else {
+      a = T.get(0, s_ll);
+      b = T.get(1, s_of);
+      c = T.get(2, s_ml);
+    }
+    const bool fast =
+        in && !((a.y | b.y | c.y) & WIDE) && pos <= end_bits;
+    if (!fast) {    // the exact entries (clamped indices into tabs)
+      a = T.get(0, s_ll);
+      b = T.get(1, s_of);
+      c = T.get(2, s_ml);
+    }
+    const int um = t < n_l - 1 ? 0xFF : 0;    // the states update
+    const int ofc = (int)(b.x & 255u);
+    const int mlb = (int)((c.y >> 24) & 31u);
+    const int llb = (int)((a.y >> 24) & 31u);
+    const int nll = (int)(a.x >> 8) & um;
+    const int nml = (int)(c.x >> 8) & um;
+    const int nof = (int)(b.x >> 8) & um;
+    // distances below pos (the extra bits) and below p3 (the states)
+    const int d1 = ofc, d2 = d1 + mlb, d3 = d2 + llb;
+    const int e1 = nll, e2 = e1 + nml, e3 = e2 + nof;
+    const int p3 = pos - d3;
+    uint32_t xo, xm, xl, yl, ym, yo;
+    if (fast) {
+      // d3 <= 63 and e3 <= 33: the states lie in Z = bits [p3 - 64, p3)
+      const unsigned long long X1 = X >> 1;
+      xo = top(X1, d1, ofc);
+      xm = top(X1, d2, mlb);
+      xl = top(X1, d3, llb);
+      const unsigned long long Z1 = ((X << d3) | ((Y >> 1) >> (63 - d3))) >> 1;
+      yl = top(Z1, e1, nll);
+      ym = top(Z1, e2, nml);
+      yo = top(Z1, e3, nof);
+    } else {
+      xo = read_wide(row, SB, pos - d1, ofc);
+      xm = read_at(row, SB, pos - d2, mlb);
+      xl = read_at(row, SB, p3, llb);
+      yl = read_at(row, SB, p3 - e1, nll);
+      ym = read_at(row, SB, p3 - e2, nml);
+      yo = read_at(row, SB, p3 - e3, nof);
+    }
+    pos = p3 - e3;
+    window(src, pos, X, Y);
+    const int ofv = (int)((1u << min(ofc, 30)) + xo);
+    const int ml = (int)(c.y & 0xFFFFFFu) + (int)xm;
+    const int ll = (int)(a.y & 0xFFFFFFu) + (int)xl;
     int off;
-    if (tagged) {
+    if (TAGGED) {
       const int idx = (int)((uint32_t)ofv + (ll == 0 ? 1u : 0u));
-      int n_r2, n_r3;
-      if (ofv > 3) {
-        off = ofv - 3;
-        n_r2 = r1;
-        n_r3 = r2;
-      } else if (idx == 1) {
-        off = r1;
-        n_r2 = r2;
-        n_r3 = r3;
-      } else if (idx == 2) {
-        off = r2;
-        n_r2 = r1;
-        n_r3 = r3;
-      } else if (idx == 3) {
-        off = r3;
-        n_r2 = r1;
-        n_r3 = r2;
-      } else {
-        off = r1 - 1;
-        n_r2 = r1;
-        n_r3 = r2;
-      }
+      const bool big = ofv > 3;
+      off = big ? ofv - 3
+                : (idx == 1 ? r1 : (idx == 2 ? r2 : (idx == 3 ? r3 : r1 - 1)));
+      const int n_r2 = big ? r1 : (idx == 1 ? r2 : r1);
+      const int n_r3 = big || (idx != 1 && idx != 2) ? r2 : r3;
       r2 = n_r2;
       r3 = n_r3;
     } else {
       off = ofv > 3 ? ofv - 3 : r1;
     }
     r1 = off;
-    if (t < n[l] - 1) {
-      const int nb_ll = (e_ll >> 8) & 255;
-      const int ns_ll = (e_ll >> 16) + (int)read_at(row, SB, pos - nb_ll,
-                                                    nb_ll);
-      pos -= nb_ll;
-      const int nb_ml = (e_ml >> 8) & 255;
-      const int ns_ml = (e_ml >> 16) + (int)read_at(row, SB, pos - nb_ml,
-                                                    nb_ml);
-      pos -= nb_ml;
-      const int nb_of = (e_of >> 8) & 255;
-      const int ns_of = (e_of >> 16) + (int)read_at(row, SB, pos - nb_of,
-                                                    nb_of);
-      pos -= nb_of;
-      s_ll = ns_ll;
-      s_ml = ns_ml;
-      s_of = ns_of;
+    if (um) {
+      s_ll = ((int)a.x >> 16) + (int)yl;
+      s_ml = ((int)c.x >> 16) + (int)ym;
+      s_of = ((int)b.x >> 16) + (int)yo;
     }
     lo[t] = ll;
     mo[t] = ml;
     oo[t] = off;
   }
-  rep_out[3 * l] = r1;
-  rep_out[3 * l + 1] = r2;
-  rep_out[3 * l + 2] = r3;
-  ok[l] = tagged ? (pos == 0) : (pos >= 0);
+  rep[0] = r1;
+  rep[1] = r2;
+  rep[2] = r3;
+  *ok = TAGGED ? (pos == 0) : (pos >= 0);
+}
+
+// pass B: a block a lane; the tables and the reachable stream words (of a
+// row of up to SEQ_STAGE bytes) staged, thread 0 walks
+__global__ void __launch_bounds__(TAGGED_THREADS) seq_tagged_kernel(
+    const uint8_t* __restrict__ bank, int SB, int NS,
+    const int* __restrict__ sid, const int* __restrict__ bits,
+    const int* __restrict__ n, const int* __restrict__ tids,
+    const int* __restrict__ tls, const int* __restrict__ tabs, int T,
+    const int* __restrict__ ctab, int cap, int* __restrict__ ll_out,
+    int* __restrict__ ml_out, int* __restrict__ off_out,
+    int* __restrict__ rep_out, uint8_t* __restrict__ ok) {
+  __shared__ uint2 sh[3 * FSE_TAB];
+  __shared__ int ct[N_CTAB];
+  extern __shared__ uint32_t stage[];
+  const int l = blockIdx.x;
+  const int s = min(max(sid[l], 0), NS - 1);
+  const uint8_t* row = bank + (size_t)s * SB;
+  const uint32_t* rw = reinterpret_cast<const uint32_t*>(row);
+  const int nw = SB >> 2;
+  const long long last = (long long)T * FSE_TAB - 1;
+  // the walk starts at pos0 and never climbs, so its windows end by word
+  // pos0 / 32: the words above stay unstaged
+  const int pos0 = bits[l] - tls[3 * l] - tls[3 * l + 1] - tls[3 * l + 2];
+  const bool staged = SB <= SEQ_STAGE;
+  const int nst = staged ? min(nw, max(pos0, 0) / 32 + 4) : 0;
+  for (int i = threadIdx.x; i < N_CTAB; i += blockDim.x) ct[i] = ctab[i];
+  if (staged) {
+    if (threadIdx.x < PAD) {
+      stage[threadIdx.x] = 0u;
+      stage[PAD + nst + threadIdx.x] = 0u;
+    }
+    for (int i0 = threadIdx.x; i0 < nst;
+         i0 += TAGGED_THREADS * STAGE_UNROLL) {
+      uint32_t v[STAGE_UNROLL];
+#pragma unroll
+      for (int u = 0; u < STAGE_UNROLL; ++u) {
+        const int i = i0 + u * TAGGED_THREADS;
+        v[u] = i < nst ? __ldg(rw + i) : 0u;
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE_UNROLL; ++u) {
+        const int i = i0 + u * TAGGED_THREADS;
+        if (i < nst) stage[PAD + i] = v[u];
+      }
+    }
+  }
+  __syncthreads();
+  stage_tables(sh, tabs, last, ct, tids + 3 * l);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  using lanebits::read_at;
+  int pos = bits[l];
+  const int tl_ll = tls[3 * l], tl_of = tls[3 * l + 1], tl_ml = tls[3 * l + 2];
+  const int s_ll = (int)read_at(row, SB, pos - tl_ll, tl_ll);
+  pos -= tl_ll;
+  const int s_of = (int)read_at(row, SB, pos - tl_of, tl_of);
+  pos -= tl_of;
+  const int s_ml = (int)read_at(row, SB, pos - tl_ml, tl_ml);
+  pos -= tl_ml;
+  Tables tb{sh, tabs, ct, last,
+            {(long long)tids[3 * l] * FSE_TAB,
+             (long long)tids[3 * l + 1] * FSE_TAB,
+             (long long)tids[3 * l + 2] * FSE_TAB}};
+  const size_t o = (size_t)l * cap;
+  if (staged)
+    walk<1, true>(SmemWords{stage, nst}, tb, row, SB, pos, s_ll, s_of, s_ml,
+                  -REP_TAG, -2 * REP_TAG, -3 * REP_TAG, n[l], cap,
+                  ll_out + o, ml_out + o, off_out + o, rep_out + 3 * l,
+                  ok + l);
+  else
+    walk<1, true>(GmemWords{rw, nw}, tb, row, SB, pos, s_ll, s_of, s_ml,
+                  -REP_TAG, -2 * REP_TAG, -3 * REP_TAG, n[l], cap,
+                  ll_out + o, ml_out + o, off_out + o, rep_out + 3 * l,
+                  ok + l);
+}
+
+// pass B': a thread a lane, ANCHOR_THREADS lanes a block; the tables of
+// the block's first and last lanes staged
+__global__ void __launch_bounds__(ANCHOR_THREADS) seq_anchored_kernel(
+    const uint8_t* __restrict__ bank, int SB, int NS,
+    const int* __restrict__ sid, const int* __restrict__ bits,
+    const int* __restrict__ n, const int* __restrict__ states,
+    const int* __restrict__ rep1, const int* __restrict__ tids,
+    const int* __restrict__ tabs, int T, const int* __restrict__ ctab,
+    int L, int cap, int* __restrict__ ll_out, int* __restrict__ ml_out,
+    int* __restrict__ off_out, int* __restrict__ rep_out,
+    uint8_t* __restrict__ ok) {
+  __shared__ uint2 sh[2][3 * FSE_TAB];
+  __shared__ int ct[N_CTAB];
+  const int first = blockIdx.x * ANCHOR_THREADS;
+  const int lastl = min(first + ANCHOR_THREADS, L) - 1;
+  const long long last = (long long)T * FSE_TAB - 1;
+  const int l = first + threadIdx.x;
+  const int s = min(max(sid[min(l, lastl)], 0), NS - 1);
+  const uint8_t* row = bank + (size_t)s * SB;
+  const uint32_t* rw = reinterpret_cast<const uint32_t*>(row);
+  const int nw = SB >> 2;
+  const int pos = bits[min(l, lastl)];
+  // the lane's stretch of the stream into L1 while the tables stage
+  if (l <= lastl && pos <= 8 * SB) {
+    const int hi = min((pos >> 5) + 1, nw - 1);
+    const int lo = max((pos - ANCHOR_SPAN) >> 5, 0);
+    for (int i = hi; i >= lo; i -= 32) prefetch_l1(rw + i);
+  }
+  for (int i = threadIdx.x; i < N_CTAB; i += blockDim.x) ct[i] = ctab[i];
+  __syncthreads();
+  const int* t0 = tids + 3 * first;
+  const int* t1 = tids + 3 * lastl;
+  const bool two = t0[0] != t1[0] || t0[1] != t1[1] || t0[2] != t1[2];
+  stage_tables(sh[0], tabs, last, ct, t0);
+  if (two) stage_tables(sh[1], tabs, last, ct, t1);
+  __syncthreads();
+  if (l > lastl) return;
+  const int* tl3 = tids + 3 * l;
+  const uint2* mine = nullptr;
+  if (tl3[0] == t0[0] && tl3[1] == t0[1] && tl3[2] == t0[2])
+    mine = sh[0];
+  else if (two && tl3[0] == t1[0] && tl3[1] == t1[1] && tl3[2] == t1[2])
+    mine = sh[1];
+  Tables tb{mine, tabs, ct, last,
+            {(long long)tl3[0] * FSE_TAB, (long long)tl3[1] * FSE_TAB,
+             (long long)tl3[2] * FSE_TAB}};
+  const size_t o = (size_t)l * cap;
+  const GmemWords src{rw, nw};
+  if (mine != nullptr) {
+    walk<0, true>(src, tb, row, SB, pos, states[3 * l], states[3 * l + 1],
+                  states[3 * l + 2], rep1[l], 0, 0, n[l], cap, ll_out + o,
+                  ml_out + o, off_out + o, rep_out + 3 * l, ok + l);
+  } else {
+    // the lines of its tables into L1 first
+    for (int k = 0; k < 3; ++k) {
+      long long j = tb.b[k];
+      j = j < 0 ? 0 : (j > last ? last : j);
+      for (int i = 0; i < FSE_TAB; i += 32)
+        prefetch_l1(tabs + min(j + i, last));
+    }
+    walk<0, false>(src, tb, row, SB, pos, states[3 * l], states[3 * l + 1],
+                   states[3 * l + 2], rep1[l], 0, 0, n[l], cap, ll_out + o,
+                   ml_out + o, off_out + o, rep_out + 3 * l, ok + l);
+  }
 }
 
 }  // namespace
@@ -180,12 +450,29 @@ extern "C" int zk_fse_lanes(const void* bank, const void* sid,
                             int NS, int T, int L, int cap, int tagged,
                             void* ll, void* ml, void* off, void* rep,
                             void* ok, void* stream) {
-  const int threads = 128;
-  fse_lanes_kernel<<<(L + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  if (L <= 0) return (int)cudaGetLastError();
+  if (tagged) {
+    // the kernel's most, set once: the attribute is the kernel's, shared
+    // by every host thread, so no launch lowers it under another's
+    constexpr int SMEM_MAX = SEQ_STAGE + 2 * PAD * 4;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        seq_tagged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
+    if (attr != cudaSuccess) return (int)attr;
+    const int smem = SB <= SEQ_STAGE ? SB + 2 * PAD * 4 : 0;
+    seq_tagged_kernel<<<L, TAGGED_THREADS, smem, st>>>(
+        (const uint8_t*)bank, SB, NS, (const int*)sid, (const int*)bits,
+        (const int*)n, (const int*)tids, (const int*)tls, (const int*)tabs, T,
+        (const int*)ctab, cap, (int*)ll, (int*)ml, (int*)off, (int*)rep,
+        (uint8_t*)ok);
+    return (int)cudaGetLastError();
+  }
+  seq_anchored_kernel<<<(L + ANCHOR_THREADS - 1) / ANCHOR_THREADS,
+                        ANCHOR_THREADS, 0, st>>>(
       (const uint8_t*)bank, SB, NS, (const int*)sid, (const int*)bits,
       (const int*)n, (const int*)states, (const int*)rep1, (const int*)tids,
-      (const int*)tls, (const int*)tabs, T, (const int*)ctab, L, cap, tagged,
-      (int*)ll, (int*)ml, (int*)off, (int*)rep, (uint8_t*)ok);
+      (const int*)tabs, T, (const int*)ctab, L, cap, (int*)ll, (int*)ml,
+      (int*)off, (int*)rep, (uint8_t*)ok);
   return (int)cudaGetLastError();
 }

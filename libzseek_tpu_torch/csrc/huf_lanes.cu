@@ -17,8 +17,21 @@
 // walks at once.
 //
 // Pass A' (anchored, exact = 0): thousands of chunk lanes of <= 512
-// symbols, one thread a lane (huf_lanes_kernel); the tables are read
-// through L1 (__ldg), since a block's lanes may use different tables.
+// symbols, a thread a lane (huf_anchored_kernel).  Read a load at a time
+// (a peek as two __ldg of stream words, then its entry) a symbol takes
+// ~500 cycles, two thirds of them the peek (each lane's cold lines from
+// L2, and a warp waits for its slowest lane).  The route
+// emits a stream's chunks contiguously and a block's streams share one
+// table, so a block of ANCHOR_THREADS lanes stages the tables of its
+// first and last lanes as uint16 (sym | nb << 8) in shared memory while
+// each lane prefetches its stretch of the stream into L1.  Then every
+// lane reloads four stream words once every GROUP symbols, at the same
+// step as the warp's other lanes, and peeks the GROUP symbols out of
+// them in registers, storing four symbols to a word where it owns the
+// word.  A lane whose table is not staged (or holds an nb outside [0,
+// GROUP_NB], which a group's window cannot serve), or that starts past
+// its row's end, walks a symbol a step through read_at and __ldg: the
+// same symbols and verdict, slower.
 //
 // Pass A (plain, exact = 1): one stream a lane, ~8-32k symbols each, so
 // one thread a stream would leave the card idle (~500 cycles a symbol
@@ -54,35 +67,6 @@
 namespace {
 
 constexpr int HUF_PEEK = 12;
-
-__global__ void huf_lanes_kernel(const uint8_t* __restrict__ bank, int SB,
-                                 int NS, const int* __restrict__ sid,
-                                 const int* __restrict__ bits,
-                                 const int* __restrict__ n,
-                                 const int* __restrict__ tid,
-                                 const int* __restrict__ dtabs, int T, int L,
-                                 int cap, int exact,
-                                 uint8_t* __restrict__ out,
-                                 uint8_t* __restrict__ ok) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const int s = min(max(sid[l], 0), NS - 1);
-  const uint8_t* row = bank + (size_t)s * SB;
-  const long long last = (long long)T * (1 << HUF_PEEK) - 1;
-  const long long tbase = (long long)tid[l] << HUF_PEEK;
-  uint8_t* o = out + (size_t)l * cap;
-  int pos = bits[l];
-  const int cnt = min(n[l], cap);
-  for (int t = 0; t < cnt; ++t) {
-    const int v = (int)lanebits::read_at(row, SB, pos - HUF_PEEK, HUF_PEEK);
-    long long k = tbase + v;
-    k = k < 0 ? 0 : (k > last ? last : k);
-    const int e = __ldg(dtabs + k);
-    o[t] = (uint8_t)(e & 255);
-    pos -= e >> 8;
-  }
-  ok[l] = exact ? (pos == 0) : (pos >= 0);
-}
 
 // --- pass A: a block a stream, pieces that self-synchronise ---
 
@@ -275,6 +259,133 @@ huf_plain_kernel(const uint8_t* __restrict__ bank, int SB, int NS,
   if (j == 0) ok[l] = fin == 0;
 }
 
+// --- pass A': a thread a chunk, the block's tables staged ---
+
+constexpr int ANCHOR_THREADS = 128;   // chunk lanes a block
+constexpr int GROUP = 8;              // symbols a window serves
+constexpr int GROUP_NB = 12;          // the longest code a staged table holds
+constexpr int GROUP_BITS = GROUP * GROUP_NB;   // 96: bits a group may read
+constexpr int STAGE_UNROLL = 8;
+
+// stage table t (clamped indices) as uint16 (sym | nb << 8) by the block's
+// threads; true where an entry's nb lies outside [0, GROUP_NB]
+__device__ __forceinline__ bool stage_table(uint16_t* tab, const int* dtabs,
+                                            long long last, int t) {
+  const long long tb = (long long)t << HUF_PEEK;
+  bool bad = false;
+  for (int v0 = threadIdx.x; v0 < (1 << HUF_PEEK);
+       v0 += ANCHOR_THREADS * STAGE_UNROLL) {
+    int e[STAGE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < STAGE_UNROLL; ++u) {
+      long long j = tb + v0 + u * ANCHOR_THREADS;
+      j = j < 0 ? 0 : (j > last ? last : j);
+      e[u] = __ldg(dtabs + j);
+    }
+#pragma unroll
+    for (int u = 0; u < STAGE_UNROLL; ++u) {
+      const int nb = e[u] >> 8;
+      bad |= nb < 0 || nb > GROUP_NB;
+      tab[v0 + u * ANCHOR_THREADS] =
+          (uint16_t)(((nb & 255) << 8) | (e[u] & 255));
+    }
+  }
+  return bad;
+}
+
+__device__ __forceinline__ uint32_t word_at(const uint32_t* w, int nw,
+                                            int i) {
+  return (unsigned)i < (unsigned)nw ? __ldg(w + i) : 0u;
+}
+
+__global__ void __launch_bounds__(ANCHOR_THREADS)
+huf_anchored_kernel(const uint8_t* __restrict__ bank, int SB, int NS,
+                    const int* __restrict__ sid, const int* __restrict__ bits,
+                    const int* __restrict__ n, const int* __restrict__ tid,
+                    const int* __restrict__ dtabs, int T, int L, int cap,
+                    uint8_t* __restrict__ out, uint8_t* __restrict__ ok) {
+  __shared__ uint16_t tab[2][1 << HUF_PEEK];
+  const int first = blockIdx.x * ANCHOR_THREADS;
+  const int lastl = min(first + ANCHOR_THREADS, L) - 1;
+  const int l = first + threadIdx.x;
+  const int s = min(max(sid[min(l, lastl)], 0), NS - 1);
+  const uint8_t* row = bank + (size_t)s * SB;
+  const uint32_t* rw = reinterpret_cast<const uint32_t*>(row);
+  const int nw = SB >> 2;
+  int pos = bits[min(l, lastl)];
+  const int cnt = min(n[min(l, lastl)], cap);
+  // the lane's stretch of the stream into L1 while the tables stage
+  if (l <= lastl && pos <= 8 * SB) {
+    const int hi = min((pos >> 5) + 1, nw - 1);
+    const int lo = max((pos - GROUP_NB * cnt - 128) >> 5, 0);
+    for (int i = hi; i >= lo; i -= 32)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(rw + i));
+  }
+  const int t0 = tid[first], t1 = tid[lastl];
+  const bool two = t1 != t0;
+  const long long last = (long long)T * (1 << HUF_PEEK) - 1;
+  const bool bad0 = stage_table(tab[0], dtabs, last, t0);
+  const bool bad1 = two && stage_table(tab[1], dtabs, last, t1);
+  const bool use0 = !__syncthreads_or(bad0);
+  const bool use1 = two && !__syncthreads_or(bad1);
+  if (l > lastl) return;
+  const int me = tid[l];
+  const uint16_t* tb = me == t0 && use0 ? tab[0]
+                                        : (me == t1 && use1 ? tab[1] : nullptr);
+  const size_t g0 = (size_t)l * cap;      // out's flat byte index
+  if (tb == nullptr || pos > 8 * SB) {
+    // a symbol a step through read_at and __ldg
+    const long long tbase = (long long)me << HUF_PEEK;
+    for (int t = 0; t < cnt; ++t) {
+      const int v = (int)lanebits::read_at(row, SB, pos - HUF_PEEK, HUF_PEEK);
+      long long k = tbase + v;
+      k = k < 0 ? 0 : (k > last ? last : k);
+      const int e = __ldg(dtabs + k);
+      out[g0 + t] = (uint8_t)(e & 255);
+      pos -= e >> 8;
+    }
+  } else {
+    // GROUP symbols from the four words from floor32(pos - 97), the
+    // stream's bits with zeros below bit 0 and past the row (read_at's
+    // peeks, since pos <= 8 * SB and positions only fall)
+    uint32_t word = 0;
+    size_t wstart = g0;   // the first byte the word holds
+    for (int t0g = 0; t0g < cnt; t0g += GROUP) {
+      const int wi = (pos - GROUP_BITS - 1) >> 5;
+      const int wb = wi << 5;
+      const uint32_t w0 = word_at(rw, nw, wi), w1 = word_at(rw, nw, wi + 1),
+                     w2 = word_at(rw, nw, wi + 2),
+                     w3 = word_at(rw, nw, wi + 3);
+      const int m = min(GROUP, cnt - t0g);
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        if (k < m) {
+          const int o = pos - HUF_PEEK - wb;
+          const int i = o >> 5;
+          const uint32_t lo = i == 0 ? w0 : (i == 1 ? w1 : (i == 2 ? w2 : w3));
+          const uint32_t hi = i == 0 ? w1 : (i == 1 ? w2 : (i == 2 ? w3 : 0u));
+          const int e = tb[__funnelshift_r(lo, hi, o) & 0xFFF];
+          pos -= e >> 8;
+          const int t = t0g + k;
+          const size_t g = g0 + t;
+          word |= (uint32_t)(e & 255) << (8 * (g & 3));
+          if ((g & 3) == 3 || t == cnt - 1) {
+            if ((g & 3) == 3 && g - 3 >= g0) {
+              *reinterpret_cast<uint32_t*>(out + (g - 3)) = word;
+            } else {
+              for (size_t q = wstart; q <= g; ++q)
+                out[q] = (uint8_t)(word >> (8 * (q & 3)));
+            }
+            word = 0;
+            wstart = g + 1;
+          }
+        }
+      }
+    }
+  }
+  ok[l] = pos >= 0;
+}
+
 }  // namespace
 
 extern "C" int zk_huf_lanes(const void* bank, const void* sid,
@@ -282,6 +393,7 @@ extern "C" int zk_huf_lanes(const void* bank, const void* sid,
                             const void* dtabs, int SB, int NS, int T, int L,
                             int cap, int exact, void* out, void* ok,
                             void* stream) {
+  if (L <= 0) return (int)cudaGetLastError();
   if (exact) {
     huf_plain_kernel<<<L, PIECES, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)bank, SB, NS, (const int*)sid, (const int*)bits,
@@ -289,11 +401,10 @@ extern "C" int zk_huf_lanes(const void* bank, const void* sid,
         (uint8_t*)out, (uint8_t*)ok);
     return (int)cudaGetLastError();
   }
-  const int threads = 128;
-  huf_lanes_kernel<<<(L + threads - 1) / threads, threads, 0,
-                     (cudaStream_t)stream>>>(
+  huf_anchored_kernel<<<(L + ANCHOR_THREADS - 1) / ANCHOR_THREADS,
+                        ANCHOR_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)bank, SB, NS, (const int*)sid, (const int*)bits,
-      (const int*)n, (const int*)tid, (const int*)dtabs, T, L, cap, exact,
+      (const int*)n, (const int*)tid, (const int*)dtabs, T, L, cap,
       (uint8_t*)out, (uint8_t*)ok);
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,14 @@ fse_decode_anchored (:620) become `seq_lanes`.  Each loop step of the
 reference is a dozen gathers and selects over all lanes, and its
 condition an `any(t < n)`: as torch ops on the card that is thousands of
 tiny launches and a host sync per step, so each function is a CUDA kernel
-(csrc/huf_lanes.cu, csrc/fse_lanes.cu, sharing csrc/lane_bits.cuh), one
-thread per lane.  The plain versions below walk all lanes at once,
-vectorised over lanes like the reference's loops, and run only for
-tensors on the CPU.
+(csrc/huf_lanes.cu, csrc/fse_lanes.cu, sharing csrc/lane_bits.cuh): the
+anchored arms a thread a lane, the tables staged in shared memory and
+the stream read through a register window; the tagged sequence arm a
+block a lane, its stream staged too; the plain Huffman arm a block a
+stream, cut into self-synchronising pieces.  Their numpy mirrors are
+testing/huf_mirror.py and testing/seq_mirror.py.  The plain versions
+below walk all lanes at once, vectorised over lanes like the reference's
+loops, and run only for tensors on the CPU.
 
 A lane reads one stream of a bank: (NS, SB) uint8, SB a multiple of 4,
 each row a stream's bytes zero-padded (the reference's _win32 windows,
@@ -19,11 +23,10 @@ the LE32 window at byte min(s0 >> 3, SB - 1) with s0 = max(start, 0),
 bits below position 0 read as (w << min(-start, 31)) & mask, and a mask
 of all ones for 32 bits or more (XLA's shift of 1 by >= 32 is 0).
 
-Bound: the walks are chains of dependent loads (one table read and one
-window read per symbol), so a lane is bound by their latency; the card
-hides it only with enough lanes.  The anchored passes give thousands
-(one per 512 literals or 128 sequences), the plain passes one per
-Huffman stream or per block.
+Bound: the walks are chains of dependent loads (a table entry, then the
+bits it sizes), so a lane is bound by their latency; the card hides it
+only with enough lanes.  The anchored passes give thousands (one per 512
+literals or 128 sequences), the tagged pass one per block.
 """
 
 from __future__ import annotations
@@ -48,6 +51,19 @@ seq_launches = 0
 huf_plain_launches = huf_anchored_launches = 0
 seq_tagged_launches = seq_anchored_launches = 0
 _count = threading.Lock()     # the Reader decodes from two threads
+
+
+_ctabs: dict = {}      # device -> D.CTAB there, copied once
+
+
+def _device_ctab(dev) -> torch.Tensor:
+    t = _ctabs.get(dev)
+    if t is None:
+        with _count:
+            t = _ctabs.get(dev)
+            if t is None:
+                t = _ctabs[dev] = torch.from_numpy(D.CTAB).to(dev)
+    return t
 
 
 def _check(name, t, dtype, shape, dev):
@@ -145,7 +161,7 @@ def seq_lanes(bank, sid, bits, n, states, rep1, tids, tls, tabs, cap: int,
     global seq_launches, seq_tagged_launches, seq_anchored_launches
     from libzseek_tpu_torch import kernels
     lib = kernels.library()
-    ctab = torch.from_numpy(D.CTAB).to(dev)
+    ctab = _device_ctab(dev)
     ll = torch.zeros((L, cap), dtype=torch.int32, device=dev)
     ml = torch.zeros((L, cap), dtype=torch.int32, device=dev)
     off = torch.zeros((L, cap), dtype=torch.int32, device=dev)

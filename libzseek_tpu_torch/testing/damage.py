@@ -1,5 +1,5 @@
-"""Damaged zstd frames for the decoders' failure paths (the port's tests
-and chip_smoke.py).
+"""Damaged zstd frames for the decoders' failure paths, and variants of
+the lane decoders' calls (the port's tests and chip_smoke.py).
 
 The port's own: each copy has one bit flipped near the end of one
 compressed block, where the sequence section's backward bitstream
@@ -98,4 +98,49 @@ def damaged_exec_rows(args, seed: int, n: int):
         else:
             a[4][r, 2] = max(0, int(meta[r, 2]) - int(rng.integers(1, 4096)))
         out.append(a)
+    return out
+
+
+# the per-lane arguments of ops/lanes.huf_lanes and seq_lanes
+LANE_ARGS = ("sid", "bits", "n", "tid", "states", "rep1", "tids", "tls")
+
+
+def lane_variants(kw: dict, seed: int, wide: int = 128 * 1024) -> dict:
+    """Copies of one lane-decoder call's keyword arguments (CPU tensors;
+    ops/lanes.huf_lanes or seq_lanes), by name: "damaged" (two bits
+    flipped in each row of the bank, below its lanes' highest start),
+    "shuffled" (the lanes in another order), "mixed tables" (the
+    shuffled lanes, a third of them on other tables of the call), and
+    "wide" (the bank's rows zero-padded to `wide` bytes, where that bank
+    stays under 16 MiB)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    bank = kw["bank"]
+    NS, SB = bank.shape
+    out = {}
+    dmg = bank.clone()
+    sid = kw["sid"].clamp(0, NS - 1).numpy()
+    top = np.zeros(NS, np.int64)
+    np.maximum.at(top, sid, np.clip(kw["bits"].numpy(), 1, 8 * SB))
+    for r in range(NS):
+        for _ in range(2):
+            b = int(rng.integers(max(int(top[r]), 1)))
+            dmg[r, b >> 3] ^= 1 << (b & 7)
+    out["damaged"] = dict(kw, bank=dmg)
+    perm = torch.from_numpy(rng.permutation(len(sid)))
+    shuf = {k: (v[perm].contiguous() if k in LANE_ARGS else v)
+            for k, v in kw.items()}
+    out["shuffled"] = shuf
+    mixed = {k: (v.clone() if k in LANE_ARGS else v)
+             for k, v in shuf.items()}
+    k = len(sid) // 3
+    key, tabs = ("tid", "dtabs") if "tid" in kw else ("tids", "tabs")
+    T = kw[tabs].shape[0]
+    mixed[key][:k] = torch.from_numpy(
+        rng.integers(0, T, tuple(mixed[key][:k].shape)).astype(np.int32))
+    out["mixed tables"] = mixed
+    if SB < wide and NS * wide <= 16 << 20:
+        w = torch.zeros((NS, wide), dtype=torch.uint8)
+        w[:, :SB] = bank
+        out["wide"] = dict(kw, bank=w)
     return out

@@ -1,6 +1,8 @@
-"""numpy mirror of the Huffman lanes' plain arm in csrc/huf_lanes.cu (one
-block a stream, split into pieces at guessed bit offsets), used only by
-tests.
+"""numpy mirror of the Huffman lanes in csrc/huf_lanes.cu, used only by
+tests: the plain arm (one block a stream, split into pieces at guessed bit
+offsets) and the anchored arm (a thread a chunk, the block's tables
+staged, eight symbols out of four stream words; `huf_anchored_mirror` at
+the end).
 
 The plain arm decodes one Huffman stream a lane backward from its
 sentinel bit `bits` for cnt = min(n, cap) symbols: at position q the
@@ -193,4 +195,87 @@ def huf_plain_mirror(bank, sid, bits, n, tid, dtabs, cap, stats=None):
         ok[l] = q == 0
         if stats is not None:
             stats.append(st)
+    return syms, ok
+
+
+# --- the anchored arm: a thread a chunk lane, the block's tables staged ---
+
+ANCHOR_THREADS = 128   # chunk lanes a block
+GROUP = 8              # symbols a window serves
+GROUP_NB = 12          # the longest code a staged table holds
+GROUP_BITS = GROUP * GROUP_NB
+
+
+def staged_table(dtabs, tid) -> np.ndarray | None:
+    """Table tid as the anchored arm stages it (sym | nb << 8 in uint16),
+    or None where an entry's nb lies outside [0, GROUP_NB]."""
+    tab = stream_table(dtabs, tid)
+    tab = ((tab + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)   # int32 entries
+    nb = tab >> 8
+    if ((nb < 0) | (nb > GROUP_NB)).any():
+        return None
+    return (nb << 8) | (tab & 255)
+
+
+def group_walk(row: np.ndarray, pos: int, cnt: int, tab, stats) -> tuple:
+    """A staged lane: GROUP symbols at a time out of the four words from
+    floor32(pos - GROUP_BITS - 1) (zeros below bit 0 and past the row):
+    (symbols, final position)."""
+    n = row.shape[0] // 4
+    w = row[: 4 * n].view("<u4").astype(np.int64)
+    word = lambda i: int(w[i]) if 0 <= i < n else 0
+    out = []
+    for t0 in range(0, cnt, GROUP):
+        wi = (pos - GROUP_BITS - 1) >> 5
+        win = [word(wi + k) for k in range(4)] + [0]
+        stats["windows"] += 1
+        for _ in range(min(GROUP, cnt - t0)):
+            o = pos - HUF_PEEK - (wi << 5)
+            i = o >> 5
+            v = (((win[i + 1] << 32) | win[i]) >> (o & 31)) & 0xFFF
+            e = int(tab[v])
+            out.append(e & 255)
+            pos -= e >> 8
+    return out, pos
+
+
+def huf_anchored_mirror(bank, sid, bits, n, tid, dtabs, cap, stats=None):
+    """huf_lanes(..., exact=False) as the kernel walks it: (syms (L, cap)
+    uint8, zero past n; ok (L,) bool: the walk stayed at or above bit 0).
+    stats, where given, gets the lanes, the lanes on a staged table, the
+    symbols and the windows loaded."""
+    bank = np.asarray(bank, np.uint8)
+    NS, SB = bank.shape
+    L = len(sid)
+    syms = np.zeros((L, cap), np.uint8)
+    ok = np.zeros(L, bool)
+    st = {"lanes": L, "staged_lanes": 0, "symbols": 0, "windows": 0}
+    flat = np.asarray(dtabs, np.int64).reshape(-1)
+    flat = ((flat + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+    last = flat.size - 1
+    for first in range(0, L, ANCHOR_THREADS):
+        lastl = min(first + ANCHOR_THREADS, L) - 1
+        sets = {}
+        for t in (int(tid[first]), int(tid[lastl])):
+            sets.setdefault(t, staged_table(dtabs, t))
+        for l in range(first, lastl + 1):
+            row = bank[min(max(int(sid[l]), 0), NS - 1)]
+            tab = sets.get(int(tid[l]))
+            pos = int(bits[l])
+            cnt = min(int(n[l]), cap)
+            if tab is None or pos > 8 * SB:
+                # a symbol a step through read_at's peek
+                tbase = int(tid[l]) << HUF_PEEK
+                for t in range(cnt):
+                    e = int(flat[min(max(tbase + peek(row, pos), 0), last)])
+                    syms[l, t] = e & 255
+                    pos -= e >> 8
+            else:
+                st["staged_lanes"] += 1
+                out, pos = group_walk(row, pos, cnt, tab, st)
+                syms[l, : len(out)] = out
+            st["symbols"] += max(cnt, 0)
+            ok[l] = pos >= 0
+    if stats is not None:
+        stats.update(st)
     return syms, ok

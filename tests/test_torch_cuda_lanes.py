@@ -21,6 +21,7 @@ from libzseek_tpu_torch.ops import exec_blocks as X
 from libzseek_tpu_torch.ops import lanes as L
 from libzseek_tpu_torch.ops import zstd_decode as ZD
 from libzseek_tpu_torch.testing.corpus import mixed_corpus
+from libzseek_tpu_torch.testing.damage import lane_variants
 from test_torch_cuda_inputs import (cuda_device, huf_plain_edges,
                                     leftover_bits_frame, own_frames,
                                     record_lane_calls,
@@ -44,10 +45,39 @@ def _archive(device):
     return sink.getvalue(), data
 
 
+def _variants_match_plain(calls, cuda):
+    """Each recorded lane-decoder call's variants (testing/damage.py
+    lane_variants: damaged streams, shuffled lanes, mixed tables, rows
+    longer than the tagged arm's stage) on the card equal the plain
+    version's; every arm meets each variant."""
+    seen = set()
+    cpu = lambda v: v.cpu() if isinstance(v, torch.Tensor) else v
+    for i, (fn, a, kw, _) in enumerate(calls):
+        if fn.__name__ not in ("huf_lanes", "seq_lanes"):
+            continue
+        arm = (fn.__name__, kw.get("exact", kw.get("tagged")))
+        for name, v in lane_variants({k: cpu(x) for k, x in kw.items()},
+                                     i).items():
+            got = fn(**{k: (x.to(cuda) if isinstance(x, torch.Tensor)
+                            else x) for k, x in v.items()})
+            ref = fn(**v)
+            for x, y in zip(got, ref):
+                np.testing.assert_array_equal(x.cpu().numpy(), y.numpy())
+            seen.add((arm, name))
+    arms = {a for a, _ in seen}
+    assert len(arms) == 4 and all((a, n) in seen for a in arms
+                                  for n in ("damaged", "shuffled",
+                                            "mixed tables")), seen
+    assert any(n == "wide" and a[0] == "seq_lanes" and a[1]
+               for a, n in seen), seen
+
+
 def test_lane_kernels_match_plain(cuda, monkeypatch):
     """Every kernel call of the lane route on the port's frames, stock
     libzstd's and an archive with its hints; damaged streams give the
-    same flags; the Huffman plain arm's pieces on long, damaged, short
+    same flags; every arm of both decoders on damaged streams, shuffled
+    lanes, mixed tables and (the tagged arm) rows longer than its stage;
+    the Huffman plain arm's pieces on long, damaged, short
     and over-long streams, at and below bit 0 and with a table of code
     length 0 (tests/test_torch_cuda_inputs.huf_plain_edges)."""
     frames, raws = own_frames(device="cuda")
@@ -59,6 +89,7 @@ def test_lane_kernels_match_plain(cuda, monkeypatch):
     assert {c[0].__name__ for c in calls} == {"huf_lanes", "seq_lanes",
                                               "execute_blocks"}
     replay_on_cpu(calls)
+    plain_calls = calls
     archive, data = _archive("cuda")
     r = port.Reader(archive, device="cpu", decoder="lanes")
     n = r.seek_table.num_frames
@@ -70,6 +101,7 @@ def test_lane_kernels_match_plain(cuda, monkeypatch):
     assert not any(c[2].get("exact", True) is True for c in calls
                    if c[0].__name__ == "huf_lanes")     # anchored only
     replay_on_cpu(calls)
+    _variants_match_plain(plain_calls + calls, cuda)
     # damaged Huffman and sequence lanes
     rng = np.random.default_rng(3)
     huf, fse = ZD._HufReg(), ZD._FseReg()

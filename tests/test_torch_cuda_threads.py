@@ -18,9 +18,13 @@ import pytest
 import torch
 
 from libzseek_tpu_torch import ZstdCodec
+from libzseek_tpu_torch.ops import lanes as L
 from libzseek_tpu_torch.ops import lz4_decode as LD
-from libzseek_tpu_torch.testing.corpus import text_corpus
-from test_torch_cuda_inputs import cuda_device, rows_of_blocks, seq_block
+from libzseek_tpu_torch.ops import zstd_decode as ZD
+from libzseek_tpu_torch.testing import golden
+from libzseek_tpu_torch.testing.corpus import log_corpus, text_corpus
+from test_torch_cuda_inputs import (cuda_device, rows_of_blocks, seq_block,
+                                    words)
 
 pytestmark = pytest.mark.cuda
 
@@ -73,7 +77,10 @@ def test_lz4_decoder_from_two_threads():
 
 def test_zstd_decoder_from_two_threads():
     """The fused route (K4) with 128 KiB text frames, whose literals
-    fill the most staged shared memory, beside 2 KiB frames."""
+    fill the most staged shared memory, beside 2 KiB frames; then the
+    lane route, whose tagged sequence arm stages each stream: libzstd
+    level-9 frames of vocabulary text (~35 KB streams in 64 KiB rows)
+    beside 2 KiB frames of log-like lines."""
     cuda_device()
     rng = np.random.default_rng(17)
     codec = ZstdCodec(device="cuda")
@@ -87,3 +94,17 @@ def test_zstd_decoder_from_two_threads():
             assert codec.decompress_frames(frames, sizes) == raws
         jobs.append(job)
     _in_two_threads(jobs, 40)
+    jobs = []
+    for n, size, text, level in ((2, 256 * 1024, words, 9),
+                                 (8, 2048, log_corpus, 3)):
+        raws = [text(rng, size).tobytes() for _ in range(n)]
+        frames = [golden.zstd_compress(r, level=level) for r in raws]
+        sizes = [len(r) for r in raws]
+
+        def lane_job(frames=frames, sizes=sizes, raws=raws):
+            assert ZD.decode_frames_lanes(frames, sizes,
+                                          device="cuda") == raws
+        jobs.append(lane_job)
+    tagged = L.seq_tagged_launches
+    _in_two_threads(jobs, 10)
+    assert L.seq_tagged_launches >= tagged + 20

@@ -49,7 +49,9 @@ level-3, level-9 and log-like archives (decoder "lanes"; groups "huf L3
 anchored", "seq L9 tagged", ...) and over the level-3 archive (decoder
 "transcode": "K4T L3 transcode host literals"): per group its launches,
 work and summed bound, the calls replayed together, and its call with
-the most work alone ("... max"; --check holds only these to plain).
+the most work alone ("... max"; --check holds only these to plain); and
+for each decoder arm, which group's largest call has the most work of
+all ("seq tagged largest", ...).
 
 pair: `times` in fresh processes from PARENT_DIR, DIR, DIR, PARENT_DIR
 (one card, in turns), then checks that both gave the same outputs.
@@ -69,8 +71,12 @@ the zeroing), into greedy_select's first, lane-0 walk (per row: its
 cycles a segment, beside each row's candidates and selections), into
 the lane decoders' first, one-thread walks and K4's tc_kernel (at each
 lane group's largest call: cycles, symbols or sequences, lanes, the
-slowest lane), builds that copy, and prints per chain (per frame, per
-row) the cycles of each part of the walk and its counts.  For the
+slowest lane; the first walks also split into their parts: the
+Huffman walk's stream read and table load, the sequence walk's table
+loads, ctab loads, extra-bit reads and state reads), into the redesigned
+lane walks (cycles, the steps read through read_at, the lanes on
+unstaged tables or streams), builds that copy, and prints per chain (per
+frame, per row) the cycles of each part of the walk and its counts.  For the
 one-thread K1 it also times the walk with the dual table in device
 memory instead of shared memory.  Kernels that DIR holds in another
 design are skipped, and so are those that --only leaves out.
@@ -563,25 +569,144 @@ GREEDY_LANE0 = ("lane0", ["walk", "segments", "rows"], [
 ])
 # the lane decoders' first, one-thread walks (lane l counts in slot
 # l & 63): the walk's cycles, its symbols or sequences, the lanes, the
-# slowest lane's cycles
+# slowest lane's cycles, then the walk's parts (each timed to a MOV that
+# uses its value): the Huffman walk's stream read and table load; the
+# sequence walk's three table loads, four ctab loads, its three extra-bit
+# reads and its three state reads
 _LANE_TAIL = ("  {\n    const unsigned long long dt = clock64() - T0;\n"
               "    atomicAdd(&g_prof[l & 63][0], dt);\n"
               "    atomicAdd(&g_prof[l & 63][1], (unsigned long long)cnt);\n"
               "    atomicAdd(&g_prof[l & 63][2], 1ull);\n"
-              "    atomicMax(&g_prof[l & 63][3], dt);\n  }\n")
-HUF_THREAD = ("thread", ["walk", "symbols", "lanes", "max_walk"], [
+              "    atomicMax(&g_prof[l & 63][3], dt);\n"
+              "    for (int i_ = 0; i_ < 4; ++i_)\n"
+              "      atomicAdd(&g_prof[l & 63][4 + i_], P_[i_]);\n  }\n")
+_MOV = '    asm volatile("mov.b32 %0, %0;" : "+r"({}));\n'
+HUF_THREAD = ("thread", ["walk", "symbols", "lanes", "max_walk", "read",
+                         "table"], [
     ("  const int cnt = min(n[l], cap);\n  for (int t = 0; t < cnt; ++t) {",
      "  const int cnt = min(n[l], cap);\n  long long T0 = clock64();\n"
+     "  unsigned long long P_[4] = {0, 0, 0, 0};\n"
      "  for (int t = 0; t < cnt; ++t) {"),
+    ("    const int v = (int)lanebits::read_at(row, SB, pos - HUF_PEEK, "
+     "HUF_PEEK);\n    long long k = tbase + v;\n"
+     "    k = k < 0 ? 0 : (k > last ? last : k);\n"
+     "    const int e = __ldg(dtabs + k);\n",
+     "    const long long c0_ = clock64();\n"
+     "    int v = (int)lanebits::read_at(row, SB, pos - HUF_PEEK, "
+     "HUF_PEEK);\n" + _MOV.format("v") +
+     "    const long long c1_ = clock64();\n    long long k = tbase + v;\n"
+     "    k = k < 0 ? 0 : (k > last ? last : k);\n"
+     "    int e = __ldg(dtabs + k);\n" + _MOV.format("e") +
+     "    P_[1] += clock64() - c1_;\n    P_[0] += c1_ - c0_;\n"),
     ("  ok[l] = exact ? (pos == 0) : (pos >= 0);\n}",
      _LANE_TAIL + "  ok[l] = exact ? (pos == 0) : (pos >= 0);\n}"),
 ])
-SEQ_THREAD = ("thread", ["walk", "sequences", "lanes", "max_walk"], [
+SEQ_THREAD = ("thread", ["walk", "sequences", "lanes", "max_walk", "tables",
+                         "ctab", "extra_reads", "state_reads"], [
     ("  const int cnt = min(n[l], cap);\n  int* lo = ll_out",
      "  const int cnt = min(n[l], cap);\n  long long T0 = clock64();\n"
-     "  int* lo = ll_out"),
+     "  unsigned long long P_[4] = {0, 0, 0, 0};\n  int* lo = ll_out"),
+    ("    const int e_ll = entry(tabs, last, b_ll, s_ll);\n"
+     "    const int e_of = entry(tabs, last, b_of, s_of);\n"
+     "    const int e_ml = entry(tabs, last, b_ml, s_ml);\n"
+     "    const int ofc = e_of & 255;\n"
+     "    const int mlc = min(e_ml & 255, N_ML - 1);\n"
+     "    const int llc = min(e_ll & 255, N_LL - 1);\n"
+     "    const uint32_t of_extra = read_wide(row, SB, pos - ofc, ofc);\n"
+     "    pos -= ofc;\n"
+     "    const int ofv = (int)((1u << min(ofc, 30)) + of_extra);\n"
+     "    const int mlb = __ldg(ctab + C_ML_BITS + mlc);\n"
+     "    const int ml = __ldg(ctab + C_ML_BASE + mlc) +\n"
+     "                   (int)read_at(row, SB, pos - mlb, mlb);\n"
+     "    pos -= mlb;\n"
+     "    const int llb = __ldg(ctab + C_LL_BITS + llc);\n"
+     "    const int ll = __ldg(ctab + C_LL_BASE + llc) +\n"
+     "                   (int)read_at(row, SB, pos - llb, llb);\n"
+     "    pos -= llb;\n",
+     "    const long long c0_ = clock64();\n"
+     "    int e_ll = entry(tabs, last, b_ll, s_ll);\n"
+     "    int e_of = entry(tabs, last, b_of, s_of);\n"
+     "    int e_ml = entry(tabs, last, b_ml, s_ml);\n"
+     + _MOV.format("e_ll") + _MOV.format("e_of") + _MOV.format("e_ml") +
+     "    const long long c1_ = clock64();\n"
+     "    const int ofc = e_of & 255;\n"
+     "    const int mlc = min(e_ml & 255, N_ML - 1);\n"
+     "    const int llc = min(e_ll & 255, N_LL - 1);\n"
+     "    int mlb = __ldg(ctab + C_ML_BITS + mlc);\n"
+     "    int mlbase_ = __ldg(ctab + C_ML_BASE + mlc);\n"
+     "    int llb = __ldg(ctab + C_LL_BITS + llc);\n"
+     "    int llbase_ = __ldg(ctab + C_LL_BASE + llc);\n"
+     + _MOV.format("mlb") + _MOV.format("mlbase_") + _MOV.format("llb")
+     + _MOV.format("llbase_") +
+     "    const long long c2_ = clock64();\n"
+     "    uint32_t of_extra = read_wide(row, SB, pos - ofc, ofc);\n"
+     "    pos -= ofc;\n"
+     "    int mlx_ = (int)read_at(row, SB, pos - mlb, mlb);\n"
+     "    pos -= mlb;\n"
+     "    int llx_ = (int)read_at(row, SB, pos - llb, llb);\n"
+     "    pos -= llb;\n"
+     + _MOV.format("of_extra") + _MOV.format("mlx_") + _MOV.format("llx_") +
+     "    const long long c3_ = clock64();\n"
+     "    P_[0] += c1_ - c0_;\n    P_[1] += c2_ - c1_;\n"
+     "    P_[2] += c3_ - c2_;\n"
+     "    const int ofv = (int)((1u << min(ofc, 30)) + of_extra);\n"
+     "    const int ml = mlbase_ + mlx_;\n"
+     "    const int ll = llbase_ + llx_;\n"),
+    ("    if (t < n[l] - 1) {\n      const int nb_ll = (e_ll >> 8) & 255;\n",
+     "    if (t < n[l] - 1) {\n      const long long c4_ = clock64();\n"
+     "      const int nb_ll = (e_ll >> 8) & 255;\n"),
+    ("      s_ll = ns_ll;\n      s_ml = ns_ml;\n      s_of = ns_of;\n    }\n",
+     "      s_ll = ns_ll;\n      s_ml = ns_ml;\n      s_of = ns_of;\n"
+     + _MOV.format("s_ll").replace("    asm", "      asm")
+     + _MOV.format("s_ml").replace("    asm", "      asm")
+     + _MOV.format("s_of").replace("    asm", "      asm") +
+     "      P_[3] += clock64() - c4_;\n    }\n"),
     ("  rep_out[3 * l] = r1;\n", _LANE_TAIL + "  rep_out[3 * l] = r1;\n"),
 ])
+# the staged, windowed lane walks (lane l counts in slot l & 63, the
+# tagged arm's lane being its block): cycles, sequences or symbols,
+# lanes, the slowest lane's cycles; the sequence walk's steps read through
+# read_at (slow_steps), its lanes whose tables were not staged
+# (global_tables) and its tagged lanes whose stream was not staged
+# (global_streams); the Huffman walk's lanes that walked a symbol a step
+# through read_at (not staged, or bits past the row)
+_WALK_TAIL = ("    const unsigned long long dt = clock64() - T0;\n"
+              "    atomicAdd(&g_prof[l_ & 63][0], dt);\n"
+              "    atomicAdd(&g_prof[l_ & 63][1], "
+              "(unsigned long long)(cnt > 0 ? cnt : 0));\n"
+              "    atomicAdd(&g_prof[l_ & 63][2], 1ull);\n"
+              "    atomicMax(&g_prof[l_ & 63][3], dt);\n")
+SEQ_WINDOW = ("window", ["walk", "sequences", "lanes", "max_walk",
+                         "slow_steps", "global_tables", "global_streams"], [
+    ("  const int cnt = min(n_l, cap);\n",
+     "  const int cnt = min(n_l, cap);\n  long long T0 = clock64();\n"
+     "  unsigned long long slow_ = 0;\n"
+     "  const int l_ = TAGGED ? blockIdx.x : blockIdx.x * blockDim.x + "
+     "threadIdx.x;\n"),
+    ("    if (!fast) {    // the exact entries (clamped indices into tabs)\n",
+     "    slow_ += !fast;\n"
+     "    if (!fast) {    // the exact entries (clamped indices into tabs)\n"),
+    ("  rep[0] = r1;\n  rep[1] = r2;\n",
+     "  {\n" + _WALK_TAIL +
+     "    atomicAdd(&g_prof[l_ & 63][4], slow_);\n"
+     "    if (!STAGED) atomicAdd(&g_prof[l_ & 63][5], 1ull);\n"
+     "  }\n  rep[0] = r1;\n  rep[1] = r2;\n"),
+    ("  if (threadIdx.x != 0) return;\n",
+     "  if (threadIdx.x != 0) return;\n"
+     "  if (!staged) atomicAdd(&g_prof[l & 63][6], 1ull);\n"),
+])
+HUF_WINDOW = ("window", ["walk", "symbols", "lanes", "max_walk",
+                         "unstaged_lanes"], [
+    ("  const size_t g0 = (size_t)l * cap;      // out's flat byte index\n",
+     "  const size_t g0 = (size_t)l * cap;      // out's flat byte index\n"
+     "  long long T0 = clock64();\n  const int l_ = l;\n"
+     "  const bool ser_ = tb == nullptr || pos > 8 * SB;\n"),
+    ("  ok[l] = pos >= 0;\n}\n",
+     "  {\n" + _WALK_TAIL +
+     "    if (ser_) atomicAdd(&g_prof[l_ & 63][4], 1ull);\n  }\n"
+     "  ok[l] = pos >= 0;\n}\n"),
+])
+
 # K4's transcode arm, tc_kernel's one thread a chain (chain c counts in
 # slot c & 63): cycles, sequences, chains, the slowest chain's cycles
 TC_THREAD = ("chain", ["walk", "sequences", "chains", "max_walk"], [
@@ -1083,6 +1208,18 @@ def times(pkg_dir, levels, check, only=()):
             run(f"{name} max", lambda: list(fn(*a, **kw)),
                 lambda: list(fn(*map(cpu, a),
                                 **{k: cpu(v) for k, v in kw.items()})))
+        # each decoder arm's call with the most work over the reads
+        for arm in ("huf plain", "huf anchored", "seq tagged",
+                    "seq anchored"):
+            short, kind = arm.split()
+            groups = [k[: -len(" max call")] for k in res
+                      if k.startswith(short) and k.endswith(
+                          f" {kind} max call")]
+            if groups:
+                g = max(groups, key=lambda k: res[f"{k} max call"]["work"])
+                res[f"{arm} largest"] = {"group": g,
+                                         **res[f"{g} max call"],
+                                         "ms": res.get(f"{g} max ms")}
     print(json.dumps({os.path.abspath(pkg_dir): res}), flush=True)
     return res
 
@@ -1113,8 +1250,12 @@ def pair(parent, change, levels, only=()):
                 side: (res[a][k] + res[b][k]) / 2
                 for side, a, b in (("parent", 0, 3), ("change", 1, 2))
                 if k in res[a]}
-    print(json.dumps({"outputs equal": same, "mean ms": summary}),
-          flush=True)
+    largest = {k: {side: res[a][k] for side, a in (("parent", 0),
+                                                   ("change", 1))
+                   if k in res[a]}
+               for k in res[0] if k.endswith(" largest")}
+    print(json.dumps({"outputs equal": same, "mean ms": summary,
+                      "largest calls": largest}), flush=True)
     if not all(same.values()):
         sys.exit("pair: the parent's and the change's outputs differ")
 
@@ -1294,11 +1435,12 @@ def counters(pkg_dir, only=()):
                             "k2")
     grv, gr_fields = _patch(os.path.join(csrc, "greedy_select.cu"),
                             [GREEDY_LANE0], "greedy")
-    hufv, _ = _patch(os.path.join(csrc, "huf_lanes.cu"), [HUF_THREAD],
-                     "huf")
-    seqv, _ = _patch(os.path.join(csrc, "fse_lanes.cu"), [SEQ_THREAD],
-                     "seq")
-    tcv, _ = _patch(os.path.join(csrc, "decode.cu"), [TC_THREAD], "tc")
+    hufv, huf_fields = _patch(os.path.join(csrc, "huf_lanes.cu"),
+                              [HUF_THREAD, HUF_WINDOW], "huf")
+    seqv, seq_fields = _patch(os.path.join(csrc, "fse_lanes.cu"),
+                              [SEQ_THREAD, SEQ_WINDOW], "seq")
+    tcv, tc_fields = _patch(os.path.join(csrc, "decode.cu"), [TC_THREAD],
+                            "tc")
     cs, data = _load(dst)
     from libzseek_tpu_torch import kernels
     from libzseek_tpu_torch.ops import decode, hash_parse, lz4_decode, lz4_emit
@@ -1345,8 +1487,8 @@ def counters(pkg_dir, only=()):
                 continue
             fn, a, kw, _ = calls[_lane_summary(cs, name, calls)[1]]
             go = lambda: fn(*a, **kw)
-            fields = {"huf": HUF_THREAD, "seq": SEQ_THREAD,
-                      "K4T": TC_THREAD}[short][1]
+            fields = {"huf": huf_fields, "seq": seq_fields,
+                      "K4T": tc_fields}[short]
             slots = run(go, fields, 64,
                         {"huf": "huf", "seq": "seq", "K4T": "tc"}[short])
             tot = {k: sum(sl[k] for sl in slots) for k in slots[0]}
@@ -1355,6 +1497,8 @@ def counters(pkg_dir, only=()):
                 "ms": cs.time_cuda(go, reps=3), **tot,
                 "cycles_per_item": round(tot["walk"] / work, 2)
                 if work else None,
+                **{f"{k}_per_item": round(tot[k] / work, 2)
+                   for k in fields[4:] if work},
                 "max_walk": max(sl["max_walk"] for sl in slots)}}),
                 flush=True)
     if k2v and _keep("K2", only):
