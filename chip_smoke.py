@@ -114,8 +114,14 @@ Phases, each of which must pass (any failure exits non-zero):
      Reader(decoder="transcode") reads the 64 MiB archive as in phase 5
      (the arm must launch, no batch may leave the route), the
      long-window frame and the level-9 archive go through it without a
-     fallback, and the fused, lane and transcode reads of the 64 MiB run
-     in turn, three rounds, each read's MiB/s printed;
+     fallback, and the log-like archive of phase 7; every call of the
+     level-9 and log-like reads is replayed on plain, each read's
+     launches are timed and its call with the most sequences timed
+     alone, and variants of the level-9 read's largest call (damaged
+     streams, a walk stopped mid-row, a row at its frame's start, a
+     stream above the row walk's stage) equal plain; the fused, lane and
+     transcode reads of the 64 MiB run in turn, three rounds, each
+     read's MiB/s printed;
  11. the sort parser and the public API: greedy_select (the kernel of
      the sort parser, csrc/greedy_select.cu) against its plain version,
      exact, on small cases (one 16 KiB row per quarter, seg_size 4 and
@@ -512,6 +518,7 @@ K3_KERNELS = ["vec_tables_kernel", "vec_place_kernel", "vec_fixup_kernel"]
 K4_KERNELS = ["huf_kernel", "rec_kernel", "frame_kernel", "check_kernel",
               "final_kernel", "expand_kernel", "pd_round_kernel",
               "pd_finish_kernel"]
+K4T_KERNELS = ["huf_kernel", "tc_walk_kernel", "tc_chain_kernel"]
 K5_KERNELS = ["lz4_emit_kernel"]
 K7_KERNELS = ["hash_parse_kernel"]
 K6_KERNELS = ["row_kernel", "frame_kernel", "scatter_kernel",
@@ -1770,11 +1777,11 @@ def phase_levels(data, card, report, keep: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 10: the transcode decode route
 
-def transcode_calls(frames, sizes, hints, host_literals: bool):
-    """decode_frames_transcode on the card with every call of K4's
-    transcode wrapper recorded: (its result, [(args, outputs)])."""
+@contextlib.contextmanager
+def record_transcode():
+    """Every call of K4's transcode wrapper while the block runs (the
+    Reader's threads too): [(args, outputs)]."""
     from libzseek_tpu_torch.ops import decode as D
-    from libzseek_tpu_torch.ops import zstd_decode as ZD
     calls = []
     real = D.transcode_blocks
 
@@ -1784,12 +1791,76 @@ def transcode_calls(frames, sizes, hints, host_literals: bool):
         return out
     D.transcode_blocks = spy
     try:
+        yield calls
+    finally:
+        D.transcode_blocks = real
+
+
+def transcode_calls(frames, sizes, hints, host_literals: bool):
+    """decode_frames_transcode on the card with every call of K4's
+    transcode wrapper recorded: (its result, [(args, outputs)])."""
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    with record_transcode() as calls:
         res = ZD.decode_frames_transcode(frames, sizes, hints,
                                          device="cuda",
                                          host_literals=host_literals)
-    finally:
-        D.transcode_blocks = real
     return res, calls
+
+
+def transcode_replay(calls) -> tuple[int, list]:
+    """Recorded transcode calls replayed on the plain version: (max_abs_err
+    over their tokens, literal words and stat, each call's plain ms)."""
+    import torch
+    from libzseek_tpu_torch.ops import decode as D
+    ms, err = [], 0
+    for a, out in calls:
+        t, ref = time_host(lambda: D.transcode_blocks(
+            *[v.cpu() if isinstance(v, torch.Tensor) else v for v in a]))
+        ms.append(t)
+        err = max(err, max_abs_err(list(out), list(ref)))
+    return err, ms
+
+
+def transcode_variant_errs(a) -> tuple[int, str]:
+    """K4's transcode arm on variants of one recorded call
+    (testing/damage.transcode_variants: damaged streams, a walk stopped
+    mid-row, a WIDE entry, a row at its frame's start, a stream above the
+    row walk's stage) against its plain version: (max_abs_err, note)."""
+    import torch
+    from libzseek_tpu_torch.ops import decode as D
+    from libzseek_tpu_torch.testing.damage import transcode_variants
+    cpu = [v.cpu() if isinstance(v, torch.Tensor) else v for v in a]
+    err, failed = 0, 0
+    variants = transcode_variants(cpu, 17, n_damaged=2)
+    for v in variants.values():
+        got = D.transcode_blocks(*[x.cuda() if isinstance(x, torch.Tensor)
+                                   else x for x in v])
+        ref = D.transcode_blocks(*v)
+        err = max(err, max_abs_err(list(got), list(ref)))
+        failed += not bool(ref[2][:, 1].all())
+    return err, (f"{len(variants)} variants ({', '.join(variants)}), "
+                 f"{failed} with a failing row")
+
+
+def transcode_sum(calls, plain_ms) -> dict:
+    """A read's recorded transcode calls (and each one's plain ms):
+    launches, card ms (each call timed alone), plain and bound ms summed,
+    and the call with the most sequences: its index, sequences, rows,
+    card, plain and bound ms."""
+    import numpy as np
+    from libzseek_tpu_torch.ops import decode as D
+    per = []
+    for (a, out), p_ms in zip(calls, plain_ms):
+        m = a[4].cpu().numpy()
+        per.append((int(np.maximum(m[:, 13], 0).sum()), len(m),
+                    time_cuda(lambda: D.transcode_blocks(*a)), p_ms,
+                    bound(*transcode_work([(a, out)]))[0]))
+    i = max(range(len(per)), key=lambda k: per[k][0])
+    return {"launches": len(calls), "ms_sum": sum(p[2] for p in per),
+            "plain_ms_sum": sum(p[3] for p in per),
+            "bound_ms_sum": sum(p[4] for p in per),
+            "largest": dict(zip(("sequences", "rows", "ms", "plain_ms",
+                                 "bound_ms"), per[i]), index=i)}
 
 
 def transcode_work(calls) -> tuple[int, int]:
@@ -1840,22 +1911,21 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
     from libzseek_tpu_torch.testing import golden
     errs, plain, card_ms, recorded = [], {}, {}, {}
 
+    def replay(tag, calls):
+        err, ms = transcode_replay(calls)
+        check(err == 0, f"K4 transcode ({tag}) differs from its plain "
+              f"version (max err {err})")
+        errs.append(err)
+        plain[tag] = sum(ms)
+        recorded[tag] = calls
+        return ms
+
     def run(tag, frames, sizes, hints, host_literals):
         res, calls = transcode_calls(frames, sizes, hints, host_literals)
         want = [golden.zstd_frame_decompress(f, n)
                 for f, n in zip(frames, sizes)]
         check(res == want, f"transcode route ({tag}) differs from libzstd")
-        ms, err = 0.0, 0
-        for a, out in calls:
-            t, ref = time_host(lambda: D.transcode_blocks(
-                *[v.cpu() if isinstance(v, torch.Tensor) else v for v in a]))
-            ms += t
-            err = max(err, max_abs_err(list(out), list(ref)))
-        check(err == 0, f"K4 transcode ({tag}) differs from its plain "
-              f"version (max err {err})")
-        errs.append(err)
-        plain[tag] = ms
-        recorded[tag] = calls
+        replay(tag, calls)
         return res
 
     small, raws = k4_small_frames()    # the long-window frame comes last
@@ -1898,7 +1968,8 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
                       ms_device_literals=card_ms["device literals"],
                       plain_ms_device_literals=plain[
                           "8 frames, device literals"],
-                      bound_ms_device_literals=bound(nb_d, ops_d)[0])
+                      bound_ms_device_literals=bound(nb_d, ops_d)[0],
+                      cuda_kernels=K4T_KERNELS)
 
     # the long-window frame and the level-9 archive (64 KiB blocks)
     for k in ZD.routes:
@@ -1910,13 +1981,46 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
           f"the long-window frame took {lw_routes}")
     for k in ZD.routes:
         ZD.routes[k] = 0
-    with Reader(kept["level9_archive"], device="cuda",
-                decoder="transcode") as r:
+    with record_transcode() as l9_calls, \
+            Reader(kept["level9_archive"], device="cuda",
+                   decoder="transcode") as r:
         check(read_all(r) == data, "the level-9 transcode read differs")
     l9_routes = dict(ZD.routes)
     check(l9_routes["transcode_fallback_batches"] == 0
           and l9_routes["transcode_rule_batches"] == 0,
           f"the level-9 transcode read left its route: {l9_routes}")
+    # the log-like archive of phase 7, where the route takes it
+    for k in ZD.routes:
+        ZD.routes[k] = 0
+    with record_transcode() as log_calls, \
+            Reader(kept["log_archive"], device="cuda",
+                   decoder="transcode") as r:
+        check(read_all(r) == kept["logs"],
+              "the log-like transcode read differs")
+    log_routes = dict(ZD.routes)
+    # every call of both reads against plain, each read's launches summed
+    # and its call with the most sequences timed alone; variants of the
+    # level-9 read's largest call
+    reads = {}
+    for tag, calls in (("level-9 read", l9_calls),
+                       ("log-like read", log_calls)):
+        if calls:
+            reads[tag] = transcode_sum(calls, replay(tag, calls))
+    check("level-9 read" in reads, "the level-9 read made no transcode call")
+    l9_big = l9_calls[reads["level-9 read"]["largest"]["index"]][0]
+    e_var, var_note = transcode_variant_errs(l9_big)
+    check(e_var == 0, f"K4 transcode on variants differs from plain "
+          f"(max err {e_var})")
+    errs.append(e_var)
+    for tag, v in reads.items():
+        big = v["largest"]
+        print(f"K4 transcode, {tag}: {v['launches']} launches, card "
+              f"{v['ms_sum']:.3f} ms summed (bound {v['bound_ms_sum']:.6f}); "
+              f"largest call ({big['sequences']} sequences, {big['rows']} "
+              f"rows) card {big['ms']:.3f} ms, plain {big['plain_ms']:.1f} "
+              f"ms, bound {big['bound_ms']:.6f} ms", flush=True)
+    print(f"K4 transcode on variants of the level-9 read's largest call: "
+          f"equal to plain ({var_note})", flush=True)
 
     # the three zstd decode routes, read in turn, three rounds
     paired = {"fused": [], "lanes": [], "transcode": []}
@@ -1929,8 +2033,11 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
             paired[dec].append(len(data) / MIB / (time.perf_counter() - t0))
             r.close()
             check(got == data, f"the {dec} read differs from the input")
+    by_name(report, "K4 transcode").update(
+        reads=reads, variants=var_note, max_abs_err=max(errs))
     print(f"transcode routes: 64 MiB read {main_routes}; long-window frame "
-          f"{lw_routes}; level-9 archive {l9_routes}", flush=True)
+          f"{lw_routes}; level-9 archive {l9_routes}; log-like archive "
+          f"{log_routes}", flush=True)
     print("paired 64 MiB reads, MiB/s in turn (fused, lanes, transcode) x 3: "
           + "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in vs)
                       for k, vs in paired.items()), flush=True)
@@ -1939,6 +2046,7 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
             "pread_p99_us": read["pread_p99_us"],
             "launches": read["counts"], "routes_main": main_routes,
             "routes_long_window": lw_routes, "routes_level9": l9_routes,
+            "routes_log": log_routes, "transcode_reads": reads,
             "paired_read_mib_s": paired, "plain_ms": plain,
             "card_ms": card_ms}
 

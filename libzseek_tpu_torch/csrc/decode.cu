@@ -89,25 +89,52 @@
 //     host holds them raw), and with no literal payload at all (lp null:
 //     every row's literals on the host, the codec's default) it does not
 //     run;
-//   * kernel 2 (tc_kernel), one THREAD per chain: nothing is executed, so
-//     only the repcodes carry from row to row; a chain is the rows from
-//     one DMODE_FRAME_START to the next (the host marks a frame's first
-//     row and each chunk start, zstd_decode.py :1033-1043).
+//   * then every row's sequence section in two kernels, phased as the
+//     execute arm's records are: nothing is executed, so only the three
+//     repcodes carry from row to row, along a chain (the rows from one
+//     DMODE_FRAME_START to the next; the host marks a frame's first row
+//     and each chunk start, zstd_decode.py :1033-1043).
+//     tc_walk_kernel, one CUDA block a row, every row at once: the row's
+//     three FSE tables are staged in shared memory with ctab's baseline
+//     and extra-bit count folded in (and a WIDE flag), and the stream
+//     words its walk can reach (rows of up to SEQ_STAGE bytes); thread 0
+//     walks the stream with the sequence lanes' windowed step (lane_bits
+//     .cuh: a sequence's six fields by 64-bit shifts out of the 128 bits
+//     below it) and its repcodes SYMBOLIC, as rec_kernel does.  It writes
+//     each token's w0 and, for a concrete offset, w1 after checking it;
+//     a symbolic offset goes to a per-row list (offset, sequence, limit)
+//     with w1's ml bits only.  The row's stat (advance, ok so far) and
+//     its repcode transform, taken where the walk stopped, come with it.
+//     tc_chain_kernel, one CUDA block a chain: thread 0 composes the
+//     chain's transforms into each row's input repcodes (reset at
+//     DMODE_FRAME_START), then the block resolves the symbolic offsets,
+//     checks them, ORs them into w1 and clears a failing row's ok with
+//     one atomicAnd.
 // A row's position comes from meta[2] (its offset in its frame, which
 // the host predicts), not from a running sum: chunks start mid-frame and
 // literal-only blocks never reach the card.  stat[row] = [advance, ok,
 // 0, 0]: the advance counts the trailing literals; ok = 0 for a Huffman
 // stream not consumed exactly, an offset outside [1, min(op + ll,
 // 2^28 - 1)] (op frame-absolute: any offset in the frame that the
-// token's 28 bits hold) or a sequence stream not consumed exactly.  As
-// in the reference, a failing row still emits all its tokens and the
-// chain walks on: the host checks stat before it executes anything.
+// token's 28 bits hold), an offset code > 31 (the walk stops there) or
+// a sequence stream not consumed exactly.  As in the reference, a
+// failing row still emits its tokens up to where its walk stops and the
+// chain walks on with the repcodes it reached; an out-of-range offset
+// does not stop the walk, and the literal count is not checked: the
+// host checks stat before it executes anything.  Rows outside every
+// chain keep the literal pass's stat (or the caller's zeros).
 // Bound: bytes (the sequence streams in, 8 bytes of token a sequence
-// out); the walk is a serial chain of dependent loads per thread.
+// out).  The first version walked each chain on one thread from global
+// memory (8 threads in one warp for 8 frames; such a walk takes
+// ~1,500-2,000 cycles a sequence, as the sequence lanes' first version
+// did); this one runs every row at once, each at the windowed step's
+// ~330 cycles a sequence (the sequence lanes' tagged arm), so a launch
+// takes about its longest row.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lane_bits.cuh"
 #include "pointer_doubling.cuh"
 
 namespace {
@@ -130,6 +157,8 @@ constexpr int CHECK_SPLIT = 4;          // CUDA blocks a row
 constexpr int EXPAND_SPLIT = 8;
 constexpr int EXPAND_THREADS = 256;
 constexpr int NO_FAIL = 0x7FFFFFFF;
+constexpr int TC_THREADS = 128;         // transcode: threads a row or chain
+constexpr int TC_STAGE = SEQ_STAGE;     // stream bytes a row walk stages
 
 // ctab layout (ops/decode.py CTAB): LL bits | LL base | ML bits | ML base
 constexpr int N_LL = 36;
@@ -146,6 +175,7 @@ constexpr int FT_SIZE = 1536;           // a row's LL | OF | ML tables
 // thread lowering it under another's larger launch fails that launch.
 constexpr int HUF_SMEM_MAX = (DT_SIZE + HUF_STAGE / 4) * 4;
 constexpr int SEQ_SMEM_MAX = (FT_SIZE + N_CTAB + 2 + SEQ_STAGE / 4) * 4;
+constexpr int TC_SMEM_MAX = TC_STAGE + 2 * lanebits::PAD * 4;
 
 // a row's summary (int32, RI_W a row): written by rec_kernel (NWALK ..
 // LPOS, REC), frame_kernel (BASE, FSZ, FOFF), check_kernel (FAIL) and
@@ -358,6 +388,131 @@ __device__ __forceinline__ long long resolve(long long v,
   const long long u = v - SYM;
   const long long j = (u + (1LL << SYM_SH) - 1) >> SYM_SH;
   return in[j] - ((j << SYM_SH) - u);
+}
+
+// Transcode mode's row walk (tc_walk_kernel's thread 0): where its tokens
+// go, and what it leaves for the chain kernel
+struct TcOut {
+  uint2* tok;         // the row's tokens (w0, w1)
+  long long* sym;     // its symbolic offsets: (offset, t << 32 | limit)
+  long long base;     // meta[2], the row's offset in its frame
+};
+
+struct TcWalk {
+  // the repcode transform where the walk stopped (the identity before it)
+  long long r1 = SYM, r2 = SYM + (1LL << SYM_SH), r3 = SYM + (2LL << SYM_SH);
+  long long op = 0, lpos = 0;  // output bytes, literals of the sequences
+  int ns = 0;                  // symbolic offsets listed
+  bool ok = true;              // consumed exactly, concrete offsets in range
+};
+
+// the exact entry of table k at state s and its folded half, from the
+// row's tables in global memory (unclamped: the first version's reads)
+__device__ __forceinline__ uint2 tc_entry(const int* ftg, const int* ct,
+                                          int k, int s) {
+  const int e = ftg[k * lanebits::FSE_TAB + s];
+  return make_uint2((uint32_t)e, lanebits::fold(ct, k, e));
+}
+
+// One row's sequence stream with its repcodes symbolic: the windowed
+// step of the sequence lanes (lane_bits.cuh) over `src`, the row's stream
+// words (staged or global), and its tables staged in `tab`.  A step whose
+// entries are WIDE (an offset code above 31, a state read above
+// NARROW_NB bits), whose states lie outside [0, 512) or whose position
+// lies past the row's last bit reloads its entries from ftg and reads its
+// fields through read_at on G, as seq_open / seq_next do, so every value
+// equals theirs; an offset code above 31 stops the walk there.
+template <class Words>
+__device__ __forceinline__ TcWalk tc_walk(const Words& src, const GRow G,
+                                          const uint2* tab, const int* ftg,
+                                          const int* ct, const int* m,
+                                          const TcOut& o) {
+  using lanebits::FSE_TAB;
+  const int n_seq = m[13];
+  const int tlp = m[14];
+  const int tl_ll = tlp & 255, tl_of = (tlp >> 8) & 255,
+            tl_ml = (tlp >> 16) & 255;
+  int pos = m[12];
+  int s_ll = rd(G, pos - tl_ll, tl_ll);
+  pos -= tl_ll;
+  int s_of = rd(G, pos - tl_of, tl_of);
+  pos -= tl_of;
+  int s_ml = rd(G, pos - tl_ml, tl_ml);
+  pos -= tl_ml;
+  // past the row's words read_at repeats its last one; the window reads
+  // zeros there, so a step starting above the row takes read_at
+  const int end_bits = 32 * G.W;
+  TcWalk w;
+  unsigned long long X, Y;
+  lanebits::window(src, pos, X, Y);
+  int t = 0;
+  for (; t < n_seq; ++t) {
+    uint2 a = tab[s_ll & (FSE_TAB - 1)];
+    uint2 b = tab[FSE_TAB + (s_of & (FSE_TAB - 1))];
+    uint2 c = tab[2 * FSE_TAB + (s_ml & (FSE_TAB - 1))];
+    const bool fast = (unsigned)(s_ll | s_of | s_ml) < (unsigned)FSE_TAB &&
+                      !((a.y | b.y | c.y) & lanebits::WIDE) &&
+                      pos <= end_bits;
+    if (!fast) {
+      a = tc_entry(ftg, ct, 0, s_ll);
+      b = tc_entry(ftg, ct, 1, s_of);
+      c = tc_entry(ftg, ct, 2, s_ml);
+      if ((b.x & 255u) > 31u) break;   // an offset code > 31 stops the walk
+    }
+    const int um = t < n_seq - 1 ? 0xFF : 0;    // the states update
+    const int ofc = (int)(b.x & 255u);
+    const int mlb = (int)((c.y >> 24) & 31u);
+    const int llb = (int)((a.y >> 24) & 31u);
+    const int nll = (int)(a.x >> 8) & um;
+    const int nml = (int)(c.x >> 8) & um;
+    const int nof = (int)(b.x >> 8) & um;
+    const int d1 = ofc, d2 = d1 + mlb, d3 = d2 + llb;
+    const int e1 = nll, e2 = e1 + nml, e3 = e2 + nof;
+    const int p3 = pos - d3;
+    uint32_t xo, xm, xl, yl, ym, yo;
+    if (fast) {     // d3 <= 63 and e3 <= 33
+      lanebits::window_fields(X, Y, ofc, mlb, llb, nll, nml, nof, xo, xm,
+                              xl, yl, ym, yo);
+    } else {
+      xo = rd_wide(G, pos - d1, ofc);
+      xm = (uint32_t)rd(G, pos - d2, mlb);
+      xl = (uint32_t)rd(G, p3, llb);
+      yl = (uint32_t)rd(G, p3 - e1, nll);
+      ym = (uint32_t)rd(G, p3 - e2, nml);
+      yo = (uint32_t)rd(G, p3 - e3, nof);
+    }
+    pos = p3 - e3;
+    lanebits::window(src, pos, X, Y);
+    const long long ofv = (1LL << min(ofc, 30)) + (long long)xo;
+    const int ml = (int)(c.y & 0xFFFFFFu) + (int)xm;
+    const int ll = (int)(a.y & 0xFFFFFFu) + (int)xl;
+    const long long off = rep_apply(ofv, ll, w.r1, w.r2, w.r3);
+    if (um) {
+      s_ll = ((int)a.x >> 16) + (int)yl;
+      s_ml = ((int)c.x >> 16) + (int)ym;
+      s_of = ((int)b.x >> 16) + (int)yo;
+    }
+    const long long lim =
+        min(o.base + w.op + ll, (long long)MAX_TOKEN_OFFSET);
+    uint32_t w1 = (uint32_t)(ml >> 14) << 28;
+    if (off < SYM / 2) {   // concrete: checked here
+      w.ok = w.ok && off >= 1 && off <= lim;
+      w1 |= (uint32_t)off;
+    } else {               // symbolic: the chain kernel resolves it
+      o.sym[2 * w.ns] = off;
+      o.sym[2 * w.ns + 1] = ((long long)t << 32) | (uint32_t)(int)lim;
+      ++w.ns;
+    }
+    o.tok[t] = make_uint2((uint32_t)ll | ((uint32_t)(ml & 0x3FFF) << 18),
+                          w1);
+    w.op += ll + ml;
+    w.lpos += ll;
+  }
+  // stopped (the row's later tokens zero, as the plain version leaves
+  // them), or the stream not consumed exactly
+  for (int u = t; u < n_seq; ++u) o.tok[u] = make_uint2(0u, 0u);
+  if (t < n_seq || pos != 0) w.ok = false;
+  return w;
 }
 
 // lit_prefix null (execute mode): a Huffman row's literals go to its
@@ -678,63 +833,133 @@ __global__ void __launch_bounds__(EXPAND_THREADS) expand_kernel(
   }
 }
 
-// Transcode mode: one thread walks a chain of rows (see the header).
-// lits_on_card 0: huf_kernel did not run (every row's literals stay on the
-// host), so a row starts from ok = 1 unless it asks for card literals.
-__global__ void tc_kernel(int lits_on_card,
-                          const uint32_t* __restrict__ sq, int SQW,
-                          const int* __restrict__ ftabs,
-                          const int* __restrict__ meta,
-                          const int* __restrict__ chain, int C,
-                          const int* __restrict__ ctab,
-                          const int* __restrict__ tok_prefix,
-                          uint32_t* __restrict__ toks, int* stat) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  long long rep1 = 1, rep2 = 4, rep3 = 8;
-  for (int r = chain[c]; r < chain[c + 1]; ++r) {
-    const int* m = meta + (size_t)r * META_W;
-    const int mode = m[0];
-    const int regen = m[3];
-    const int n_seq = m[13];
-    int* st = stat + 4 * r;
-    if (mode & DMODE_FRAME_START) {
-      rep1 = 1;
-      rep2 = 4;
-      rep3 = 8;
-    }
-    bool ok = lits_on_card
-                  ? st[1] != 0   // the literal section's verdict (kernel 1)
-                  : (mode & DMODE_LIT_HOST) ||
-                        !(mode & (DMODE_HUF4 | DMODE_HUF1 | DMODE_DIRECT));
-    const long long base = m[2];
-    long long op = base, lpos = 0;
-    if ((mode & DMODE_SEQ) && n_seq > 0) {
-      SeqStream<GRow> z = seq_open(GRow{sq + (size_t)r * SQW, SQW},
-                                   ftabs + (size_t)r * FT_SIZE, m);
-      uint32_t* tk = toks + tok_prefix[r];
-      for (int t = 0; t < n_seq; ++t) {
-        int ll, ml;
-        long long ofv;
-        if (!seq_next(z, ctab, t == n_seq - 1, ll, ml, ofv)) {
-          ok = false;
-          break;
-        }
-        const long long off = rep_apply(ofv, ll, rep1, rep2, rep3);
-        if (off < 1 || off > min(op + ll, (long long)MAX_TOKEN_OFFSET))
-          ok = false;
-        tk[2 * t] = (uint32_t)ll | ((uint32_t)(ml & 0x3FFF) << 18);
-        tk[2 * t + 1] = (uint32_t)off | ((uint32_t)(ml >> 14) << 28);
-        op += ll + ml;
-        lpos += ll;
+// Transcode mode, phase 1: a block a row (see the header).  rowx (B, 4)
+// int64: the row's repcode transform (three slots, symbolic or concrete),
+// then its count of symbolic offsets; syms: the row's list at
+// tok_prefix[r] / 2 pairs, (offset, sequence << 32 | limit).
+// lits_on_card 0: huf_kernel did not run (every row's literals stay on
+// the host), so a row starts from ok = 1 unless it asks for card
+// literals.
+__global__ void __launch_bounds__(TC_THREADS) tc_walk_kernel(
+    int lits_on_card, const uint32_t* __restrict__ sq, int SQW,
+    const int* __restrict__ ftabs, const int* __restrict__ meta,
+    const int* __restrict__ chain, int C, const int* __restrict__ ctab,
+    const int* __restrict__ tok_prefix, uint32_t* __restrict__ toks,
+    int* stat, long long* __restrict__ rowx, long long* __restrict__ syms) {
+  __shared__ uint2 tab[3 * lanebits::FSE_TAB];
+  __shared__ int ct[N_CTAB];
+  extern __shared__ uint32_t tstage[];   // PAD zeros, words, PAD zeros
+  const int r = blockIdx.x;
+  if (r < chain[0] || r >= chain[C]) return;   // outside every chain
+  const int* m = meta + (size_t)r * META_W;
+  const int mode = m[0], regen = m[3], n_seq = m[13];
+  const bool has = (mode & DMODE_SEQ) && n_seq > 0;
+  const int* ftg = ftabs + (size_t)r * FT_SIZE;
+  const uint32_t* row = sq + (size_t)r * SQW;
+  // the walk starts below meta[12] and never climbs, so its windows end
+  // by word meta[12] / 32: the words above stay unstaged
+  const int reach = min(SQW, max(m[12], 0) / 32 + 2);
+  const bool staged = reach <= TC_STAGE / 4;
+  if (has) {
+    for (int i = threadIdx.x; i < N_CTAB; i += blockDim.x) ct[i] = ctab[i];
+    if (staged) {
+      if (threadIdx.x < lanebits::PAD) {
+        tstage[threadIdx.x] = 0u;
+        tstage[lanebits::PAD + reach + threadIdx.x] = 0u;
       }
-      if (z.pos != 0) ok = false;   // exact consumption
+      for (int i0 = threadIdx.x; i0 < reach;
+           i0 += TC_THREADS * lanebits::STAGE_UNROLL) {
+        uint32_t v[lanebits::STAGE_UNROLL];
+#pragma unroll
+        for (int u = 0; u < lanebits::STAGE_UNROLL; ++u) {
+          const int i = i0 + u * TC_THREADS;
+          v[u] = i < reach ? __ldg(row + i) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < lanebits::STAGE_UNROLL; ++u) {
+          const int i = i0 + u * TC_THREADS;
+          if (i < reach) tstage[lanebits::PAD + i] = v[u];
+        }
+      }
     }
-    op += max((long long)regen - lpos, 0LL);
-    st[0] = (int)(op - base);
-    st[1] = ok ? 1 : 0;
-    st[2] = 0;
-    st[3] = 0;
+    __syncthreads();
+    const int tid3[3] = {0, 1, 2};
+    lanebits::stage_tables(tab, ftg, FT_SIZE - 1, ct, tid3);
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  int* st = stat + 4 * r;
+  const bool lit_ok =
+      lits_on_card ? st[1] != 0   // the literal section's verdict (kernel 1)
+                   : (mode & DMODE_LIT_HOST) ||
+                         !(mode & (DMODE_HUF4 | DMODE_HUF1 | DMODE_DIRECT));
+  TcWalk w;
+  if (has) {
+    const int t0 = tok_prefix[r];
+    const TcOut o{(uint2*)(toks + t0), syms + t0, (long long)m[2]};
+    const GRow G{row, SQW};
+    w = staged
+        ? tc_walk(lanebits::SmemWords{tstage, reach}, G, tab, ftg, ct, m, o)
+        : tc_walk(lanebits::GmemWords{row, SQW}, G, tab, ftg, ct, m, o);
+  }
+  st[0] = (int)(w.op + max((long long)regen - w.lpos, 0LL));
+  st[1] = lit_ok && w.ok ? 1 : 0;
+  st[2] = 0;
+  st[3] = 0;
+  long long* x = rowx + 4 * (size_t)r;
+  x[0] = w.r1;
+  x[1] = w.r2;
+  x[2] = w.r3;
+  x[3] = w.ns;
+}
+
+// Transcode mode, phases 2 and 3: a block a chain.  Thread 0 composes the
+// rows' transforms in order into their input repcodes (rowx's slots,
+// overwritten); then every symbolic offset of the chain's rows is
+// resolved against its row's, checked and ORed into its w1.
+__global__ void __launch_bounds__(TC_THREADS) tc_chain_kernel(
+    const int* __restrict__ meta, const int* __restrict__ chain,
+    const int* __restrict__ tok_prefix, uint32_t* __restrict__ toks,
+    int* stat, long long* __restrict__ rowx,
+    const long long* __restrict__ syms) {
+  const int c = blockIdx.x;
+  const int r0 = chain[c], r1 = chain[c + 1];
+  if (threadIdx.x == 0) {
+    long long s0 = 1, s1 = 4, s2 = 8;
+    for (int r = r0; r < r1; ++r) {
+      if (meta[(size_t)r * META_W] & DMODE_FRAME_START) {
+        s0 = 1;
+        s1 = 4;
+        s2 = 8;
+      }
+      long long* x = rowx + 4 * (size_t)r;
+      const long long in[3] = {s0, s1, s2};
+      s0 = resolve(x[0], in);
+      s1 = resolve(x[1], in);
+      s2 = resolve(x[2], in);
+      x[0] = in[0];
+      x[1] = in[1];
+      x[2] = in[2];
+    }
+  }
+  __syncthreads();
+  for (int r = r0; r < r1; ++r) {
+    const long long* x = rowx + 4 * (size_t)r;
+    const int n = (int)x[3];
+    if (n == 0) continue;
+    const long long in[3] = {x[0], x[1], x[2]};
+    const int t0 = tok_prefix[r];
+    const long long* e = syms + t0;
+    bool bad = false;
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      const long long off = resolve(e[2 * k], in);
+      const long long info = e[2 * k + 1];
+      const int t = (int)(info >> 32);
+      const int lim = (int)(uint32_t)info;
+      bad |= off < 1 || off > lim;
+      toks[t0 + 2 * t + 1] |= (uint32_t)off;
+    }
+    if (bad) atomicAnd(stat + 4 * r + 1, 0);
   }
 }
 
@@ -804,13 +1029,24 @@ extern "C" int zk_decode(const void* lp, const void* sq, const void* dtabs,
                           (int*)changed, rounds, (uint8_t*)out, s);
 }
 
+// lits (lit_words int32) are zeroed here, and stat too where no literal
+// pass runs (rows outside every chain keep zeros); scratch (the
+// wrapper's): rowx (B, 4) int64; syms (tok_words) int64, a row's
+// symbolic offsets at tok_prefix[r] (two words each, at most one a
+// sequence)
 extern "C" int zk_transcode(const void* lp, const void* sq, const void* dtabs,
                             const void* ftabs, const void* meta,
                             const void* chain, const void* ctab,
                             const void* lit_prefix, const void* tok_prefix,
-                            int B, int C, int LPW, int SQW, void* lits,
-                            void* toks, void* stat, void* stream) {
+                            int B, int C, int LPW, int SQW, int lit_words,
+                            void* lits, void* toks, void* stat, void* rowx,
+                            void* syms, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t z = cudaSuccess;
+  if (lit_words > 0) z = cudaMemsetAsync(lits, 0, (size_t)lit_words * 4, s);
+  if (z == cudaSuccess && !lp && B > 0)
+    z = cudaMemsetAsync(stat, 0, (size_t)B * 16, s);
+  if (z != cudaSuccess) return (int)z;
   if (lp) {   // null: no row's literals are on the card
     const int hsm = (DT_SIZE + min(LPW, HUF_STAGE / 4)) * 4;
     cudaError_t e = cudaFuncSetAttribute(
@@ -824,9 +1060,23 @@ extern "C" int zk_transcode(const void* lp, const void* sq, const void* dtabs,
     if (err != 0) return err;
   }
   if (C == 0) return 0;
-  tc_kernel<<<(C + 31) / 32, 32, 0, s>>>(
-      lp != nullptr, (const uint32_t*)sq, SQW, (const int*)ftabs, (const int*)meta,
-      (const int*)chain, C, (const int*)ctab, (const int*)tok_prefix,
-      (uint32_t*)toks, (int*)stat);
+  // the kernel's most, set once: the attribute is the kernel's, shared by
+  // every host thread, so no launch lowers it under another's
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      tc_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      TC_SMEM_MAX);
+  if (attr != cudaSuccess) return (int)attr;
+  const int tsm = (min(SQW, TC_STAGE / 4) + 2 * lanebits::PAD) * 4;
+  tc_walk_kernel<<<B, TC_THREADS, tsm, s>>>(
+      lp != nullptr, (const uint32_t*)sq, SQW, (const int*)ftabs,
+      (const int*)meta, (const int*)chain, C, (const int*)ctab,
+      (const int*)tok_prefix, (uint32_t*)toks, (int*)stat,
+      (long long*)rowx, (long long*)syms);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  tc_chain_kernel<<<C, TC_THREADS, 0, s>>>(
+      (const int*)meta, (const int*)chain, (const int*)tok_prefix,
+      (uint32_t*)toks, (int*)stat, (long long*)rowx,
+      (const long long*)syms);
   return (int)cudaGetLastError();
 }

@@ -44,7 +44,7 @@ SIGNATURES = {
     "zk_entropy_emit": [_P] * 8 + [_I] * 8 + [_P] * 8,
     "zk_vector_literals": [_P] * 5 + [_I] * 4 + [_P] * 5,
     "zk_decode": [_P] * 8 + [_I] * 7 + [_P] * 12,
-    "zk_transcode": [_P] * 9 + [_I] * 4 + [_P] * 4,
+    "zk_transcode": [_P] * 9 + [_I] * 5 + [_P] * 6,
     "zk_lz4_emit": [_P] * 3 + [_I] * 6 + [_P] * 4,
     "zk_lz4_decode": [_P] * 3 + [_I] * 6 + [_P] * 6 + [_I, _P],
     "zk_hash_parse": [_P] * 2 + [_I] * 4 + [_P] * 5,

@@ -81,6 +81,19 @@ SYM_SH = 20
 launches = 0             # execute mode (decode_blocks)
 transcode_launches = 0   # transcode mode (transcode_blocks)
 _count = threading.Lock()     # the codec decodes from two reader threads
+_ctabs: dict = {}        # device -> CTAB there, copied once
+
+
+def device_ctab(dev) -> torch.Tensor:
+    """CTAB on `dev`, copied there once (a copy from pageable host memory
+    waits for the stream): K4's arms and the sequence lanes read it."""
+    t = _ctabs.get(dev)
+    if t is None:
+        with _count:
+            t = _ctabs.get(dev)
+            if t is None:
+                t = _ctabs[dev] = torch.from_numpy(CTAB).to(dev)
+    return t
 
 
 def _check_rows(lp_words, sq_words, dtabs, ftabs, meta, *more) -> None:
@@ -148,7 +161,7 @@ def _decode_cuda(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     if out_size >= 1 << 31 or n_seqs >= 1 << 31:
         raise ParameterError("K4: output and records must stay below 2^31")
     lib = kernels.library()
-    ctab = torch.from_numpy(CTAB).to(dev)
+    ctab = device_ctab(dev)
     rounds = max(1, int(out_size).bit_length())
     n = max(n_seqs, 1)
     out = torch.zeros(out_size, dtype=torch.uint8, device=dev)
@@ -221,30 +234,37 @@ def transcode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain,
     if dev.type != "cuda":
         raise ParameterError(f"K4 runs on cuda or cpu tensors, not {dev}")
     global transcode_launches
-    lits = torch.zeros(max(lit_words, 1), dtype=torch.int32, device=dev)
-    toks = torch.empty(max(tok_words, 1), dtype=torch.int32, device=dev)
-    # rows outside every chain keep the literal pass's stat, or zeros
-    stat = (torch.empty if lp_words is not None else torch.zeros)(
-        (B, 4), dtype=torch.int32, device=dev)
+    # one buffer [stat | tokens | literal words] (the literals and, with
+    # no literal pass, the stat zeroed by the library), and the scratch:
+    # each row's repcode transform and symbolic count (B, 4), then its
+    # symbolic offsets, two words at most a sequence
+    out = torch.empty(4 * B + tok_words + lit_words, dtype=torch.int32,
+                      device=dev)
+    stat = out[: 4 * B].view(B, 4)
+    toks = out[4 * B: 4 * B + tok_words]
+    lits = out[4 * B + tok_words:]
     if B:
         from libzseek_tpu_torch import kernels
         lib = kernels.library()
-        ctab = torch.from_numpy(CTAB).to(dev)
+        scratch = torch.empty(4 * B + max(tok_words, 1), dtype=torch.int64,
+                              device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = lambda t: t.data_ptr() if t is not None else None
         err = lib.zk_transcode(ptr(lp_words), sq_words.data_ptr(),
                                ptr(dtabs), ftabs.data_ptr(),
                                meta.data_ptr(), chain.data_ptr(),
-                               ctab.data_ptr(), lit_prefix.data_ptr(),
+                               device_ctab(dev).data_ptr(),
+                               lit_prefix.data_ptr(),
                                tok_prefix.data_ptr(), B, C,
                                lp_words.shape[1] if lp_words is not None
-                               else 0, SQW,
+                               else 0, SQW, lit_words,
                                lits.data_ptr(), toks.data_ptr(),
-                               stat.data_ptr(), stream)
+                               stat.data_ptr(), scratch.data_ptr(),
+                               scratch.data_ptr() + 32 * B, stream)
         kernels.check(err, "zk_transcode")
         with _count:
             transcode_launches += 1
-    return lits[:lit_words], toks[:tok_words], stat
+    return lits, toks, stat
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +373,22 @@ def _decode_plain(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     return torch.from_numpy(out), torch.from_numpy(stat)
 
 
+def _rep_step(rep: list, ofv: int, ll: int) -> int:
+    """The repcodes (RFC 8878 §3.1.1.5), concrete or symbolic: rep updated
+    in place for offset value ofv; returns the offset, rep[0]."""
+    r1, r2, r3 = rep
+    idx = ofv + (1 if ll == 0 else 0)
+    if ofv > 3:
+        rep[:] = ofv - 3, r1, r2
+    elif idx == 2:
+        rep[:] = r2, r1, r3
+    elif idx == 3:
+        rep[:] = r3, r1, r2
+    elif idx == 4:
+        rep[:] = r1 - 1, r1, r2
+    return rep[0]
+
+
 class _SeqWalk:
     """The FSE sequence stream of one row, walked backward from bit
     meta[12] (csrc/decode.cu seq_open / seq_step): iterating yields each
@@ -389,16 +425,7 @@ class _SeqWalk:
             llb = int(c[llc])
             ll = int(c[_N_LL + llc]) + row.read(pos - llb, llb)
             pos -= llb
-            r1, r2, r3 = rep      # repcodes (RFC 8878 §3.1.1.5)
-            idx = ofv + (1 if ll == 0 else 0)
-            if ofv > 3:
-                rep[:] = ofv - 3, r1, r2
-            elif idx == 2:
-                rep[:] = r2, r1, r3
-            elif idx == 3:
-                rep[:] = r3, r1, r2
-            elif idx == 4:
-                rep[:] = r1 - 1, r1, r2
+            _rep_step(rep, ofv, ll)
             if t < n_seq - 1:     # state updates: LL, ML, OF
                 nb = (e_ll >> 8) & 255
                 s_ll = (e_ll >> 16) + row.read(pos - nb, nb)
@@ -441,20 +468,15 @@ def _i32(v: int) -> int:
     return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
 
 
-def _transcode_plain(lp_words, sq_words, dtabs, ftabs, meta, chain,
-                     lit_prefix, tok_prefix, lit_words, tok_words):
-    lp = lp_words.numpy() if lp_words is not None else None
-    sq = sq_words.numpy()
-    mt = meta.numpy()
-    ch = chain.numpy()
-    lpre = lit_prefix.numpy()
-    tpre = tok_prefix.numpy()
+def _transcode_literals(lp, dtabs, mt, lpre, lit_words):
+    """Transcode mode's literal pass (huf_kernel), row by row: (the
+    literal bytes, each row's verdict, stat with the pass's verdicts, or
+    zeros where it does not run)."""
     B = mt.shape[0]
     lits = np.zeros(4 * lit_words, np.uint8)
-    toks = np.zeros(tok_words, np.int64)
     stat = np.zeros((B, 4), np.int32)
     lit_ok = np.ones(B, bool)
-    for r in range(B):          # phase 1: literal sections, row by row
+    for r in range(B):
         m = mt[r]
         mode, regen = int(m[0]), int(m[3])
         dst = 4 * int(lpre[r])
@@ -476,6 +498,20 @@ def _transcode_plain(lp_words, sq_words, dtabs, ftabs, meta, chain,
                     np.uint8)[:nb]
     if lp is not None:          # the literal pass's verdict
         stat[:, 1] = lit_ok
+    return lits, lit_ok, stat
+
+
+def _transcode_plain(lp_words, sq_words, dtabs, ftabs, meta, chain,
+                     lit_prefix, tok_prefix, lit_words, tok_words):
+    lp = lp_words.numpy() if lp_words is not None else None
+    sq = sq_words.numpy()
+    mt = meta.numpy()
+    ch = chain.numpy()
+    tpre = tok_prefix.numpy()
+    toks = np.zeros(tok_words, np.int64)
+    # phase 1: literal sections, row by row
+    lits, lit_ok, stat = _transcode_literals(lp, dtabs, mt,
+                                             lit_prefix.numpy(), lit_words)
     for c in range(len(ch) - 1):  # phase 2: each chain's rows in order
         rep = [1, 4, 8]
         for r in range(int(ch[c]), int(ch[c + 1])):
@@ -687,3 +723,138 @@ def decode_mirror(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     cp = srcs >= 0
     out[cp] = out[srcs[cp]]
     return torch.from_numpy(out), torch.from_numpy(stat)
+
+
+TC_STAGE = 96 * 1024      # csrc/decode.cu: stream bytes a row walk stages
+
+
+def tc_row_walk(sq_row, ft, m, base: int, stats: dict | None = None):
+    """Transcode mode's phase 1 for one row (csrc/decode.cu tc_walk): its
+    sequence stream walked once with the windowed step of the sequence
+    lanes (testing/seq_mirror.py window_fields), its tables staged with
+    ctab folded in, its repcodes symbolic from SYM_IN.  A step whose
+    entries are WIDE, whose states lie outside [0, 512) or whose position
+    lies past the row's last bit reads its entries from ft and its fields
+    through _Row.read; an offset code > 31 stops the walk.  Returns
+    (tokens [(w0, w1)]: w1 holds only ml's bits for a symbolic offset;
+    symbolic [(offset, sequence, limit)]; {ok, op, lpos, rep}), ok the
+    exact consumption, no stop and every concrete offset in [1,
+    limit]."""
+    from libzseek_tpu_torch.testing import seq_mirror as SM
+    st = stats if stats is not None else {}
+    for k in ("steps", "slow_steps", "wide_steps", "stops",
+              "unstaged_rows", "symbolic"):
+        st.setdefault(k, 0)
+    trace = st.get("trace")     # a list: each step's states appended
+    W = len(sq_row)
+    row = _Row(sq_row)
+    n_seq, tlp, pos = int(m[13]), int(m[14]), int(m[12])
+    reach = min(W, max(pos, 0) // 32 + 2)
+    raw = np.ascontiguousarray(sq_row, "<i4").view(np.uint8)
+    staged = reach <= TC_STAGE // 4
+    st["unstaged_rows"] += not staged
+    word = SM._words(raw, reach if staged else W)
+    tab = SM.stage(np.asarray(ft, np.int64), (0, 1, 2))
+    s = []
+    for tl in (tlp & 255, (tlp >> 8) & 255, (tlp >> 16) & 255):
+        s.append(row.read(pos - tl, tl))
+        pos -= tl
+    s_ll, s_of, s_ml = s
+    rep = list(SYM_IN)
+    toks, syms = [], []
+    ok, op, lpos, t = True, 0, 0, 0
+    for t in range(n_seq):
+        states = (s_ll, s_of, s_ml)
+        if trace is not None:
+            trace.append(states)
+        fast = all(0 <= x < SM.FSE_TAB for x in states)
+        if fast:
+            ents = [tab[k][x] for k, x in enumerate(states)]
+            fast = not any(y & SM.WIDE for _, y in ents) and pos <= 32 * W
+        st["steps"] += 1
+        if not fast:
+            st["slow_steps"] += 1
+            ents = [(e, SM.fold(k, e)) for k, e in enumerate(
+                int(ft[k * SM.FSE_TAB + x]) for k, x in enumerate(states))]
+            st["wide_steps"] += any(y & SM.WIDE for _, y in ents)
+            if ents[1][0] & 255 > 31:   # an offset code > 31 stops the walk
+                st["stops"] += 1
+                break
+        (ax, ay), (bx, _), (cx, cy) = ents
+        upd = t < n_seq - 1
+        counts = (bx & 255, (cy >> 24) & 31, (ay >> 24) & 31,
+                  *((((x >> 8) & 255) if upd else 0) for x in (ax, cx, bx)))
+        if fast:
+            xo, xm, xl, yl, ym, yo = SM.window_fields(word, pos, counts)
+        else:
+            fields, p = [], pos
+            for nb in counts:
+                p -= nb
+                fields.append(row.read(p, nb))
+            xo, xm, xl, yl, ym, yo = fields
+        pos -= sum(counts)
+        ofv = (1 << min(counts[0], 30)) + xo
+        ml = (cy & 0xFFFFFF) + xm
+        ll = (ay & 0xFFFFFF) + xl
+        off = _rep_step(rep, ofv, ll)
+        if upd:
+            s_ll = (ax >> 16) + yl
+            s_ml = (cx >> 16) + ym
+            s_of = (bx >> 16) + yo
+        lim = min(base + op + ll, MAX_TOKEN_OFFSET)
+        w1 = ((ml >> 14) << 28) & 0xFFFFFFFF
+        if off < SYM // 2:
+            ok = ok and 1 <= off <= lim
+            w1 |= off & 0xFFFFFFFF
+        else:
+            syms.append((off, t, lim))
+        toks.append(((ll | (ml & 0x3FFF) << 18) & 0xFFFFFFFF, w1))
+        op += ll + ml
+        lpos += ll
+    else:
+        t = n_seq
+    st["symbolic"] += len(syms)
+    ok = ok and t == n_seq and pos == 0
+    return toks, syms, dict(ok=ok, op=op, lpos=lpos, rep=rep)
+
+
+def transcode_mirror(lp_words, sq_words, dtabs, ftabs, meta, chain,
+                     lit_prefix, tok_prefix, lit_words: int, tok_words: int,
+                     stats: dict | None = None):
+    """The CUDA transcode arm's phases on CPU tensors: the literal pass;
+    T1, every row of a chain walked with symbolic repcodes (tc_row_walk);
+    T2, each chain's transforms composed into its rows' input repcodes
+    (compose); T3, every symbolic offset resolved (resolve_sym), checked
+    and ORed into its token.  Returns (lits, toks, stat) as
+    transcode_blocks does; `stats` gets tc_row_walk's counts."""
+    lp = lp_words.numpy() if lp_words is not None else None
+    sq, mt, ch = sq_words.numpy(), meta.numpy(), chain.numpy()
+    tpre = tok_prefix.numpy()
+    lits, lit_ok, stat = _transcode_literals(lp, dtabs, mt,
+                                             lit_prefix.numpy(), lit_words)
+    toks = np.zeros(tok_words, np.int64)
+    rows = range(int(ch[0]), int(ch[-1])) if len(ch) > 1 else range(0)
+    xforms, walks, syms, ok = {}, {}, {}, {}
+    for r in rows:              # T1: every row at once
+        m = mt[r]
+        mode, regen, n_seq = int(m[0]), int(m[3]), int(m[13])
+        w = dict(ok=True, op=0, lpos=0, rep=list(SYM_IN))
+        syms[r] = []
+        if mode & DMODE_SEQ and n_seq > 0:
+            tk, syms[r], w = tc_row_walk(sq[r], ftabs[r].tolist(), m,
+                                         int(m[2]), stats)
+            for t, (w0, w1) in enumerate(tk):
+                toks[int(tpre[r]) + 2 * t: int(tpre[r]) + 2 * t + 2] = w0, w1
+        ok[r] = bool(lit_ok[r]) and w["ok"]
+        stat[r] = (_i32(w["op"] + max(regen - w["lpos"], 0)), 0, 0, 0)
+        xforms[r], walks[r] = w["rep"], w
+    ins, _ = compose(mt, ch, xforms, walks)     # T2
+    for r in rows:              # T3: the symbolic offsets
+        for off, t, lim in syms[r]:
+            o = resolve_sym(off, ins[r])
+            ok[r] = ok[r] and 1 <= o <= lim
+            toks[int(tpre[r]) + 2 * t + 1] |= o & 0xFFFFFFFF
+        stat[r, 1] = ok[r]
+    return (torch.from_numpy(lits.view("<i4").copy()),
+            torch.from_numpy(toks.astype(np.uint32).view(np.int32)),
+            torch.from_numpy(stat))

@@ -53,19 +53,6 @@ seq_tagged_launches = seq_anchored_launches = 0
 _count = threading.Lock()     # the Reader decodes from two threads
 
 
-_ctabs: dict = {}      # device -> D.CTAB there, copied once
-
-
-def _device_ctab(dev) -> torch.Tensor:
-    t = _ctabs.get(dev)
-    if t is None:
-        with _count:
-            t = _ctabs.get(dev)
-            if t is None:
-                t = _ctabs[dev] = torch.from_numpy(D.CTAB).to(dev)
-    return t
-
-
 def _check(name, t, dtype, shape, dev):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
             t.device != dev or not t.is_contiguous():
@@ -161,7 +148,7 @@ def seq_lanes(bank, sid, bits, n, states, rep1, tids, tls, tabs, cap: int,
     global seq_launches, seq_tagged_launches, seq_anchored_launches
     from libzseek_tpu_torch import kernels
     lib = kernels.library()
-    ctab = _device_ctab(dev)
+    ctab = D.device_ctab(dev)
     ll = torch.zeros((L, cap), dtype=torch.int32, device=dev)
     ml = torch.zeros((L, cap), dtype=torch.int32, device=dev)
     off = torch.zeros((L, cap), dtype=torch.int32, device=dev)

@@ -1,5 +1,6 @@
 """Damaged zstd frames for the decoders' failure paths, and variants of
-the lane decoders' calls (the port's tests and chip_smoke.py).
+the lane decoders' and K4's transcode arm's calls (the port's tests and
+chip_smoke.py).
 
 The port's own: each copy has one bit flipped near the end of one
 compressed block, where the sequence section's backward bitstream
@@ -65,6 +66,79 @@ def damaged_rows(args, seed: int, n: int):
         s.view(-1)[r * s.shape[1] + bit // 32] ^= np.int32(
             np.uint32(1 << (bit % 32)).view(np.int32))
         out.append((args[0], s, *args[2:]))
+    return out
+
+
+def transcode_variants(args, seed: int, n_damaged: int = 4) -> dict:
+    """Copies of one call of K4's transcode arm (the positional arguments
+    of ops/decode.transcode_blocks, CPU tensors), by name: "damaged i"
+    (one bit of a row's sequence stream flipped, damaged_rows), "stopped"
+    (offset code 40 in the OF entry a row's walk first reaches mid-row:
+    the walk stops there), "wide" (a 12-bit state read in the LL entry of
+    a row's last sequence, reached by no earlier step: a WIDE step that
+    reads no state) and "shifted" (a chain's second row placed at byte 0
+    of its frame: its offsets that reach before it fail) and "unstaged"
+    (a row's stream moved above the row walk's 96 KiB stage: the same
+    tokens, not consumed exactly).  A variant whose row cannot be found
+    is left out."""
+    import torch
+    from libzseek_tpu_torch.ops import decode as D
+    rng = np.random.default_rng(seed)
+    out = {f"damaged {i}": a
+           for i, a in enumerate(damaged_rows(args, seed, n_damaged))}
+    sq, ft, meta, chain = (args[k].numpy() for k in (1, 3, 4, 5))
+    rows = [r for r in rng.permutation(len(meta))
+            if meta[r, 0] & D.DMODE_SEQ and meta[r, 13] >= 4]
+
+    def trace(r):
+        st = {"trace": []}
+        D.tc_row_walk(sq[r], ft[r].tolist(), meta[r], int(meta[r, 2]), st)
+        return st["trace"]
+
+    def with_ftabs(r, k, s, entry):
+        f = args[3].clone()
+        f[r, k * 512 + s] = entry
+        return (*args[:3], f, *args[4:])
+
+    for r in rows:
+        tr = trace(r)
+        firsts = {}
+        for t, (_, s_of, _) in enumerate(tr):
+            firsts.setdefault(s_of, t)
+        mid = [s for s, t in firsts.items() if 0 < t < len(tr) - 1]
+        if mid:
+            s = mid[int(rng.integers(len(mid)))]
+            e = int(ft[r, 512 + s])
+            out["stopped"] = with_ftabs(r, 1, s, (e & ~255) | 40)
+            break
+    for r in rows:
+        tr = trace(r)
+        last = tr[-1][0]
+        if len(tr) == meta[r, 13] and all(st[0] != last for st in tr[:-1]):
+            e = int(ft[r, last])
+            out["wide"] = with_ftabs(r, 0, last, (e & ~(255 << 8)) | 12 << 8)
+            break
+    for c in range(len(chain) - 1):
+        r = int(chain[c]) + 1
+        if r < int(chain[c + 1]) and meta[r, 2] > 0:
+            m = args[4].clone()
+            m[r, 2] = 0
+            out["shifted"] = (*args[:4], m, *args[5:])
+            break
+    if rows:
+        # "unstaged": a row's stream moved up by `up` words past the row
+        # walk's stage (96 KiB), zero words below it: the same tokens,
+        # the walk ending `32 * up` bits above bit 0 (not exact)
+        r, up = rows[0], 96 * 1024 // 4
+        W = sq.shape[1]
+        wide = np.zeros((len(sq), W + up), np.int32)
+        wide[:, :W] = sq
+        wide[r] = 0
+        wide[r, up:] = sq[r]
+        m = args[4].clone()
+        m[r, 12] += 32 * up
+        out["unstaged"] = (args[0], torch.from_numpy(wide), *args[2:4], m,
+                           *args[5:])
     return out
 
 

@@ -146,6 +146,24 @@ def _top(V: int, d: int, nb: int) -> int:
     return ((V >> 1) >> (63 - d)) & ((1 << nb) - 1)
 
 
+def window_fields(word, pos: int, counts) -> tuple[int, ...]:
+    """csrc/lane_bits.cuh window_fields: a windowed step's six fields
+    (the OF, ML, LL extra bits, then the LL, ML, OF state bits; counts in
+    that order, the first three summing to <= 63, the last three to <=
+    33) from the 128 bits below pos."""
+    ofc, mlb, llb, nll, nml, nof = counts
+    X, Y = window(word, pos)
+    d1, d2, d3 = ofc, ofc + mlb, ofc + mlb + llb
+    xo, xm, xl = (_top(X, d, nb) for d, nb in (
+        (d1, ofc), (d2, mlb), (d3, llb)))
+    # the states from Z, the 64 bits below p3 = pos - d3
+    Z = ((X << d3) | ((Y >> 1) >> (63 - d3))) & _M64
+    e1, e2, e3 = nll, nll + nml, nll + nml + nof
+    yl, ym, yo = (_top(Z, e, nb) for e, nb in (
+        (e1, nll), (e2, nml), (e3, nof)))
+    return xo, xm, xl, yl, ym, yo
+
+
 def walk(row, word, T, pos, st, reps, n_l, cap, tagged, stats):
     """One lane: (ll, ml, off lists, (r1, r2, r3), ok)."""
     s_ll, s_of, s_ml = st
@@ -170,15 +188,8 @@ def walk(row, word, T, pos, st, reps, n_l, cap, tagged, stats):
                 and not (ay | by | cy) & WIDE
                 and pos <= end_bits)
         if fast:
-            # extra bits from X (pos - p3 <= 63), the states from Z, the
-            # 64 bits below p3 (p3 - p6 <= 33)
-            X, Y = window(word, pos)
-            d1, d2, d3 = pos - p1, pos - p2, pos - p3
-            xo, xm, xl = (_top(X, d, nb) for d, nb in (
-                (d1, ofc), (d2, mlb), (d3, llb)))
-            Z = ((X << d3) | ((Y >> 1) >> (63 - d3))) & _M64
-            yl, ym, yo = (_top(Z, p3 - p, nb) for p, nb in (
-                (p4, nll), (p5, nml), (p6, nof)))
+            xo, xm, xl, yl, ym, yo = window_fields(
+                word, pos, (ofc, mlb, llb, nll, nml, nof))
         else:
             stats["slow_steps"] += 1
             xo = read_wide(row, p1, ofc)

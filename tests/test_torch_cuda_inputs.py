@@ -127,6 +127,27 @@ def stock_frames():
     return frames, raws
 
 
+def repeated_text(rng):
+    """320 KiB in three 128 KiB blocks: 40 KiB of text, then copies of it
+    with a byte changed every ~500, so most sequences reuse the previous
+    offset (repcodes carrying from block to block) and every block's
+    literals stay few enough for the reference's device-literal window
+    (lw + 2 * n_seq <= 2^15 words)."""
+    base = text_corpus(rng, 40 * 1024)
+    x = np.tile(base, 8)
+    hit = rng.integers(40 * 1024, len(x), len(x) // 500)
+    x[hit] = rng.integers(97, 123, len(hit), np.uint8)
+    return x.tobytes()
+
+
+def chain_stock_frames():
+    """(frames, raws): repeated_text (seed 91) by stock libzstd at levels 3
+    and 19, two frames of three blocks whose repcodes carry from block to
+    block."""
+    raw = repeated_text(np.random.default_rng(91))
+    return [golden.zstd_compress(raw, level=lv) for lv in (3, 19)], [raw] * 2
+
+
 def leftover_bits_frame():
     """rle_frame with one zero byte below its sequence stream: the walk
     ends 8 bits above the stream's start."""

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from libzseek_tpu_torch import ZstdCodec
+from libzseek_tpu_torch.ops import decode as D
 from libzseek_tpu_torch.ops import lanes as L
 from libzseek_tpu_torch.ops import lz4_decode as LD
 from libzseek_tpu_torch.ops import zstd_decode as ZD
@@ -80,7 +81,8 @@ def test_zstd_decoder_from_two_threads():
     fill the most staged shared memory, beside 2 KiB frames; then the
     lane route, whose tagged sequence arm stages each stream: libzstd
     level-9 frames of vocabulary text (~35 KB streams in 64 KiB rows)
-    beside 2 KiB frames of log-like lines."""
+    beside 2 KiB frames of log-like lines; then the transcode route on
+    the same frames, whose row walk stages each stream as well."""
     cuda_device()
     rng = np.random.default_rng(17)
     codec = ZstdCodec(device="cuda")
@@ -94,17 +96,20 @@ def test_zstd_decoder_from_two_threads():
             assert codec.decompress_frames(frames, sizes) == raws
         jobs.append(job)
     _in_two_threads(jobs, 40)
-    jobs = []
+    batches = []
     for n, size, text, level in ((2, 256 * 1024, words, 9),
                                  (8, 2048, log_corpus, 3)):
         raws = [text(rng, size).tobytes() for _ in range(n)]
         frames = [golden.zstd_compress(r, level=level) for r in raws]
-        sizes = [len(r) for r in raws]
-
-        def lane_job(frames=frames, sizes=sizes, raws=raws):
-            assert ZD.decode_frames_lanes(frames, sizes,
-                                          device="cuda") == raws
-        jobs.append(lane_job)
-    tagged = L.seq_tagged_launches
-    _in_two_threads(jobs, 10)
-    assert L.seq_tagged_launches >= tagged + 20
+        batches.append((frames, [len(r) for r in raws], raws))
+    # the lane route, then the transcode route (K4's row walk stages each
+    # row's stream too)
+    for route, count in ((ZD.decode_frames_lanes,
+                          lambda: L.seq_tagged_launches),
+                         (ZD.decode_frames_transcode,
+                          lambda: D.transcode_launches)):
+        def job(b, route=route):
+            assert route(*b[:2], device="cuda") == b[2]
+        before = count()
+        _in_two_threads([lambda b=b: job(b) for b in batches], 10)
+        assert count() >= before + 20

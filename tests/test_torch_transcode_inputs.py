@@ -25,7 +25,8 @@ from libzseek_tpu_torch.ops import zstd_decode as ZD
 from libzseek_tpu_torch.testing import golden
 from libzseek_tpu_torch.testing.corpus import mixed_corpus, text_corpus
 from libzseek_tpu_torch.format import zstd_frame as zf
-from test_torch_cuda_inputs import cases, multiblock  # noqa: F401
+from test_torch_cuda_inputs import (cases, multiblock,  # noqa: F401
+                                   repeated_text)
 from test_torch_inputs import build_native_runtime
 from test_torch_lanes_inputs import own_frames, stock_frames  # noqa: F401
 
@@ -73,12 +74,12 @@ def _prefix(w) -> np.ndarray:
     return np.concatenate([[0], np.cumsum(w)]).astype(np.int32)
 
 
-def port_on_rows(args):
-    """The port's plain transcode arm fed the reference's rows unchanged,
-    chains split at DMODE_FRAME_START, and without the literal payload
-    and peek tables when no row's literals are on the device, as the
-    route sends them: (lits, toks, stat, literal word prefix, token word
-    prefix, literal words per row)."""
+def port_args(args):
+    """The reference's rows as the port's transcode arm takes them:
+    unchanged, chains split at DMODE_FRAME_START, and without the literal
+    payload and peek tables when no row's literals are on the device, as
+    the route sends them.  Returns transcode_blocks' positional
+    arguments (CPU tensors)."""
     lp, sq, dtabs, ftabs, meta = (np.array(a, np.int32) for a in args)
     B = len(meta)
     litw = np.where(_dev_lit(meta), (meta[:, 3] + 3) >> 2, 0)
@@ -87,24 +88,34 @@ def port_on_rows(args):
                       B).astype(np.int32)
     t = torch.from_numpy
     lp, dtabs = (t(lp), t(dtabs)) if _dev_lit(meta).any() else (None, None)
-    lits, toks, stat = D.transcode_blocks(
-        lp, t(sq), dtabs, t(ftabs), t(meta), t(chain), t(lpre),
-        t(tpre), int(lpre[-1]), int(tpre[-1]))
-    return lits.numpy(), toks.numpy(), stat.numpy(), lpre, tpre, litw
+    return (lp, t(sq), dtabs, t(ftabs), t(meta), t(chain), t(lpre),
+            t(tpre), int(lpre[-1]), int(tpre[-1]))
 
 
-def check_rows(calls) -> int:
-    """Plain transcode on each captured call: stat, every token word and
-    every literal word equal to the reference's row output (tolerance:
-    none), but for the bytes past regen in a Huffman row's last literal
-    word, which no reader of the literals touches (the reference leaves
-    there its int32-minimum fill in interpret mode for a 1-stream row and
-    compaction leftovers for a 4-stream row; the port zeros).  Returns
-    the rows compared."""
+def port_on_rows(args, transcode=D.transcode_blocks):
+    """`transcode` (the port's plain transcode arm, or its mirror) on the
+    reference's rows (port_args): (lits, toks, stat, literal word prefix,
+    token word prefix, literal words per row)."""
+    a = port_args(args)
+    meta = a[4].numpy()
+    litw = np.where(_dev_lit(meta), (meta[:, 3] + 3) >> 2, 0)
+    lits, toks, stat = transcode(*a)
+    return (lits.numpy(), toks.numpy(), stat.numpy(), a[6].numpy(),
+            a[7].numpy(), litw)
+
+
+def check_rows(calls, transcode=D.transcode_blocks) -> int:
+    """`transcode` (plain by default) on each captured call: stat, every
+    token word and every literal word equal to the reference's row output
+    (tolerance: none), but for the bytes past regen in a Huffman row's
+    last literal word, which no reader of the literals touches (the
+    reference leaves there its int32-minimum fill in interpret mode for a
+    1-stream row and compaction leftovers for a 4-stream row; the port
+    zeros).  Returns the rows compared."""
     rows = 0
     for args, (out_w, stat) in calls:
         meta = args[4]
-        lits, toks, pstat, lpre, tpre, litw = port_on_rows(args)
+        lits, toks, pstat, lpre, tpre, litw = port_on_rows(args, transcode)
         np.testing.assert_array_equal(pstat, stat)
         for r in range(len(meta)):
             lw, nt = int(litw[r]), 2 * int(meta[r, 13])
@@ -135,6 +146,19 @@ def port_rows(frames, sizes, hints=None, host_literals=True):
     W, TLS = hufreg.weights_arr()
     dtabs = ZD.build_dtabs(torch.from_numpy(W), torch.from_numpy(TLS))
     return rows, dtabs.numpy()[rows["wtid"]]
+
+
+def transcode_args(frames, sizes, hints=None, host_literals=True):
+    """The positional arguments of ops/decode.transcode_blocks (CPU
+    tensors) for `frames` as the port's transcode route builds them."""
+    rows, dtabs = port_rows(frames, sizes, hints, host_literals)
+    t = torch.from_numpy
+    dev = np.array([d for _, d in rows["blocks"]], bool)
+    lp, dt = ((t(rows["lp"]), t(np.ascontiguousarray(dtabs)))
+              if dev.any() else (None, None))
+    return (lp, t(rows["sq"]), dt, t(rows["ftabs"]), t(rows["meta"]),
+            t(rows["chain"]), t(rows["lit_prefix"]), t(rows["tok_prefix"]),
+            int(rows["lit_prefix"][-1]), int(rows["tok_prefix"][-1]))
 
 
 def check_builder(calls, rows, dtabs) -> None:
@@ -171,19 +195,6 @@ def large_frame():
     """768 KiB of mixed_corpus (seed 91) in one frame of six 128 KiB
     blocks (test_decode_smem.py:101)."""
     return mixed_corpus(np.random.default_rng(91), 768 * KIB).tobytes()
-
-
-def repeated_text(rng):
-    """320 KiB in three 128 KiB blocks: 40 KiB of text, then copies of it
-    with a byte changed every ~500, so most sequences reuse the previous
-    offset (repcodes carrying from block to block) and every block's
-    literals stay few enough for the reference's device-literal window
-    (lw + 2 * n_seq <= 2^15 words)."""
-    base = text_corpus(rng, 40 * KIB)
-    x = np.tile(base, 8)
-    hit = rng.integers(40 * KIB, len(x), len(x) // 500)
-    x[hit] = rng.integers(97, 123, len(hit), np.uint8)
-    return x.tobytes()
 
 
 def chain_frames(rng):

@@ -45,13 +45,16 @@ segments), with each batch's candidates, selections and longest run of
 segments without a selection.  With --only=huf, seq or K4T (or a longer
 prefix, e.g. "huf L9"): every call of the Huffman lanes, the sequence
 lanes and K4's transcode arm in one sequential Reader pass over the
-level-3, level-9 and log-like archives (decoder "lanes"; groups "huf L3
-anchored", "seq L9 tagged", ...) and over the level-3 archive (decoder
-"transcode": "K4T L3 transcode host literals"): per group its launches,
-work and summed bound, the calls replayed together, and its call with
-the most work alone ("... max"; --check holds only these to plain); and
-for each decoder arm, which group's largest call has the most work of
-all ("seq tagged largest", ...).
+level-3, level-9 and log-like archives, with decoder "lanes" (groups
+"huf L3 anchored", "seq L9 tagged", ...) and with decoder "transcode"
+("K4T L3 transcode host literals", "K4T L9 transcode ...", "K4T log
+transcode ..."): per group its launches, work and summed bound, the
+calls replayed together, and its call with the most work alone ("...
+max"; --check holds only these to plain); for the transcode groups also
+the wrapper's host time ("... host ms": until the calls return, the card
+idle before each, apart from their device time); and for each decoder
+arm, which group's largest call has the most work of all ("seq tagged
+largest", ..., "K4T literals largest").
 
 pair: `times` in fresh processes from PARENT_DIR, DIR, DIR, PARENT_DIR
 (one card, in turns), then checks that both gave the same outputs.
@@ -69,13 +72,16 @@ K2 input of `times`: thread 0's run table, and per literal its run walk,
 `x` load, code load and push; its raw copy; thread 32's sequence walk;
 the zeroing), into greedy_select's first, lane-0 walk (per row: its
 cycles a segment, beside each row's candidates and selections), into
-the lane decoders' first, one-thread walks and K4's tc_kernel (at each
-lane group's largest call: cycles, symbols or sequences, lanes, the
-slowest lane; the first walks also split into their parts: the
-Huffman walk's stream read and table load, the sequence walk's table
-loads, ctab loads, extra-bit reads and state reads), into the redesigned
-lane walks (cycles, the steps read through read_at, the lanes on
-unstaged tables or streams), builds that copy, and prints per chain (per
+the lane decoders' first, one-thread walks and K4's first transcode
+walk, tc_kernel (at each lane group's largest call: cycles, symbols or
+sequences, lanes or chains, the slowest; the first walks also split
+into their parts: the Huffman walk's stream read and table load, the
+sequence walk's table loads, ctab loads, extra-bit reads and state
+reads), into the redesigned lane walks (cycles, the steps read through
+read_at, the lanes on unstaged tables or streams) and K4's transcode row
+walk that replaced tc_kernel (cycles, sequences, rows, the slowest row,
+the steps read through read_at and those with a WIDE entry, the rows
+whose stream was not staged), builds that copy, and prints per chain (per
 frame, per row) the cycles of each part of the walk and its counts.  For the
 one-thread K1 it also times the walk with the dual table in device
 memory instead of shared memory.  Kernels that DIR holds in another
@@ -725,6 +731,35 @@ TC_THREAD = ("chain", ["walk", "sequences", "chains", "max_walk"], [
      "    atomicMax(&g_prof[c & 63][3], dt);\n  }\n}\n"),
 ])
 
+# K4's transcode arm redesigned: tc_walk_kernel's row walk (row r counts
+# in slot r & 63): cycles, sequences walked, rows, the slowest row's
+# cycles, the steps read through read_at (slow_steps: WIDE entries,
+# states outside [0, 512), a position past the row), those with a WIDE
+# entry, and the rows whose stream was not staged
+TC_ROW = ("row", ["walk", "sequences", "rows", "max_walk", "slow_steps",
+                  "wide_steps", "unstaged_rows"], [
+    ("  lanebits::window(src, pos, X, Y);\n  int t = 0;\n",
+     "  lanebits::window(src, pos, X, Y);\n  int t = 0;\n"
+     "  long long T0 = clock64();\n"
+     "  unsigned long long slow_ = 0, wide_ = 0;\n"),
+    ("      c = tc_entry(ftg, ct, 2, s_ml);\n",
+     "      c = tc_entry(ftg, ct, 2, s_ml);\n      ++slow_;\n"
+     "      wide_ += ((a.y | b.y | c.y) & lanebits::WIDE) != 0;\n"),
+    ("  // stopped (the row's later tokens zero",
+     "  {\n    const unsigned long long dt = clock64() - T0;\n"
+     "    const int s_ = blockIdx.x & 63;\n"
+     "    atomicAdd(&g_prof[s_][0], dt);\n"
+     "    atomicAdd(&g_prof[s_][1], (unsigned long long)t);\n"
+     "    atomicAdd(&g_prof[s_][2], 1ull);\n"
+     "    atomicMax(&g_prof[s_][3], dt);\n"
+     "    atomicAdd(&g_prof[s_][4], slow_);\n"
+     "    atomicAdd(&g_prof[s_][5], wide_);\n  }\n"
+     "  // stopped (the row's later tokens zero"),
+    ("    w = staged\n",
+     "    if (!staged) atomicAdd(&g_prof[r & 63][6], 1ull);\n"
+     "    w = staged\n"),
+])
+
 MICRO = r'''
 #include <cstdio>
 #include <cuda_runtime.h>
@@ -1019,7 +1054,9 @@ def _rows_summary(rows):
 # them (level 3, level 9, the hash parser's log-like 8 MiB of phase 7)
 LANE_READS = (("L3", "level 3", "lanes"), ("L9", "level 9", "lanes"),
               ("log", "log-like", "lanes"),
-              ("L3 transcode", "level 3", "transcode"))
+              ("L3 transcode", "level 3", "transcode"),
+              ("L9 transcode", "level 9", "transcode"),
+              ("log transcode", "log-like", "transcode"))
 LANE_WRAPPERS = (("huf", "huf_lanes"), ("seq", "seq_lanes"),
                  ("K4T", "transcode_blocks"))
 
@@ -1105,6 +1142,23 @@ def _lanes_wanted(only):
 
 def _keep(name, only):
     return not only or any(name.startswith(p) for p in only)
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Mean host milliseconds until fn() returns, the card idle before
+    each call: the wrapper's own time (allocations, copies, launches),
+    apart from the kernels' device time."""
+    import time
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / reps * 1e3
 
 
 def _digest(ts) -> str:
@@ -1208,9 +1262,13 @@ def times(pkg_dir, levels, check, only=()):
             run(f"{name} max", lambda: list(fn(*a, **kw)),
                 lambda: list(fn(*map(cpu, a),
                                 **{k: cpu(v) for k, v in kw.items()})))
+            if name.startswith("K4T") and _keep(f"{name} max", only):
+                res[f"{name} max host ms"] = _host_ms(lambda: fn(*a, **kw))
+                res[f"{name} host ms"] = _host_ms(
+                    lambda: [fn(*a, **kw) for fn, a, kw, _ in calls])
         # each decoder arm's call with the most work over the reads
         for arm in ("huf plain", "huf anchored", "seq tagged",
-                    "seq anchored"):
+                    "seq anchored", "K4T literals"):
             short, kind = arm.split()
             groups = [k[: -len(" max call")] for k in res
                       if k.startswith(short) and k.endswith(
@@ -1439,8 +1497,8 @@ def counters(pkg_dir, only=()):
                               [HUF_THREAD, HUF_WINDOW], "huf")
     seqv, seq_fields = _patch(os.path.join(csrc, "fse_lanes.cu"),
                               [SEQ_THREAD, SEQ_WINDOW], "seq")
-    tcv, tc_fields = _patch(os.path.join(csrc, "decode.cu"), [TC_THREAD],
-                            "tc")
+    tcv, tc_fields = _patch(os.path.join(csrc, "decode.cu"),
+                            [TC_THREAD, TC_ROW], "tc")
     cs, data = _load(dst)
     from libzseek_tpu_torch import kernels
     from libzseek_tpu_torch.ops import decode, hash_parse, lz4_decode, lz4_emit
