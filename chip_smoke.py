@@ -138,11 +138,27 @@ Phases, each of which must pass (any failure exits non-zero):
      zseek_* shims write 8 MiB (CompressionParams("zstd",
      ZstdParams(3))), read it back with 64 zseek_preads and one
      Reader.prefetch of 8 offsets (one decode call), and print the
-     reader's stats.
+     reader's stats;
+ 12. `workers` and parallel/: Writer(workers=2) writes the 64 MiB as
+     phase 3 does, with one visible card the codec keeps every batch on
+     it (_devices None, _rr 0), the archive's sha256 phase 3's; with
+     utils/device._visible_devices listing cuda:0 four times,
+     ZstdCodec(workers=4) and LZ4Codec(workers=4) write it (each
+     dispatched batch takes the next device, _rr = the batches; K1, K2
+     and K3, or K5, must launch), the archives equal to phases 3 and 6's
+     by sha256, decoded by stock libzstd / liblz4 and read back by
+     Reader(device="cuda"), MiB/s beside workers=1's in turns; two
+     processes of libzseek_tpu_torch.testing.dist_worker on cuda:0 over
+     gloo on localhost write the 64 MiB in uneven shards (24 and 40
+     frames) through parallel.distributed.write_archive, rank 0's
+     archive decoded by libzstd and equal by sha256 to this process's
+     write_archive of the same 64 frames at world size 1, the MiB/s
+     printed; the dry run (parallel/dryrun.py) at
+     n = torch.cuda.device_count().
 
 Prints JSON lines for the write path, the read path, the LZ4 path, the
 hash path, the lane route, the level >= 4 path, the transcode route, the
-sort path and the kernels, the
+sort path, the workers path and the kernels, the
 card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
@@ -154,6 +170,8 @@ import contextlib
 import hashlib
 import json
 import os
+import re
+import socket
 import subprocess
 import sys
 import threading
@@ -1070,6 +1088,7 @@ def phase_lz4(data, card, report) -> dict:
           f"{routes['card']:.2f} MiB/s, host (native) {routes['host']:.2f} "
           f"MiB/s", flush=True)
     return {"card": card, "write_mib_s": 64 / dt, "ratio": ratio,
+            "sha256": hashlib.sha256(archive).hexdigest(),
             "read_mib_s": read["read_mib_s"],
             "pread_p50_us": read["pread_p50_us"],
             "pread_p99_us": read["pread_p99_us"],
@@ -2310,6 +2329,156 @@ def phase_sort(data, card, report) -> dict:
             "api_write_s": api_dt, "prefetch_frames": calls[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: workers across devices, and parallel/
+
+def dist_write(mib: int, timeout: int = 400) -> tuple[str, float, int]:
+    """Two processes of testing.dist_worker on cuda:0 over gloo: (rank 0's
+    archive sha256, its MiB/s, frames)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "libzseek_tpu_torch.testing.dist_worker",
+         str(rank), "2", str(port), "cuda:0", str(mib)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=env) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                fail(f"dist_worker did not finish in {timeout} s")
+            outs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (rc, out, err) in enumerate(outs):
+        check(rc == 0, f"dist_worker rank {rank} exited {rc}: {err[-1500:]}")
+    check("DIST-OK" in outs[0][1], "the ordered gather did not pass")
+    m = re.search(r"DIST-WRITE-OK frames=(\d+) bytes=\d+ sha256=(\w+) "
+                  r"mib_s=([\d.]+)", outs[0][1])
+    check(m is not None, f"no DIST-WRITE-OK: {outs[0][1][-500:]}")
+    return m.group(2), float(m.group(3)), int(m.group(1))
+
+
+def phase_workers(data, card, zstd_sha, lz4_sha) -> dict:
+    """Phase 12: the codecs' round-robin on one card, the two-process
+    write and the dry run."""
+    import torch
+    from libzseek_tpu_torch import LZ4Codec, Reader, Writer, ZstdCodec
+    from libzseek_tpu_torch.ops import (entropy, lz4_emit, parse_linked,
+                                        vector_entropy)
+    from libzseek_tpu_torch.parallel import distributed as dist
+    from libzseek_tpu_torch.parallel.dryrun import dryrun
+    from libzseek_tpu_torch.testing import dist_worker, golden
+    from libzseek_tpu_torch.utils import device as udev
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+
+    # (a) workers=2 with one visible card: that card, no round-robin
+    sink = Sink()
+    w = Writer(sink, "zstd", level=3, device="cuda", workers=2,
+               min_frame_size=MIB, batch_frames=16)
+    for pos in range(0, len(data), MIB):
+        w.write(data[pos: pos + MIB])
+    w.close()
+    check(w._codec._devices is None and w._codec._rr == 0,
+          "workers=2 on one card did not keep one device")
+    check(sha(sink.value()) == zstd_sha,
+          "the workers=2 archive differs from phase 3's")
+    print(f"workers=2, one card: _devices None, _rr 0, sha256 equal to "
+          f"phase 3's", flush=True)
+
+    # (b) the round-robin over cuda:0 listed four times
+    out = {"card": card}
+    real = udev._visible_devices
+    udev._visible_devices = lambda dev: [torch.device("cuda", 0)] * 4
+    try:
+        for name, make, want, decode, mods in (
+                ("zstd", lambda n: ZstdCodec(level=3, device="cuda",
+                                             workers=n),
+                 zstd_sha, golden.zstd_decompress,
+                 (parse_linked, entropy, vector_entropy)),
+                ("lz4", lambda n: LZ4Codec(level=0, device="cuda",
+                                           workers=n),
+                 lz4_sha, golden.lz4f_decompress, (lz4_emit,))):
+            rates = {1: [], 4: []}
+            for n in (1, 4, 4, 1):
+                codec = make(n)
+                dispatch = "_dispatch_parse" if name == "zstd" \
+                    else "_dispatch_batch"
+                batches = []
+                real_dispatch = getattr(codec, dispatch)
+                setattr(codec, dispatch, lambda *a, _f=real_dispatch, **k:
+                        batches.append(1) or _f(*a, **k))
+                for m in mods:
+                    m.launches = 0
+                archive, dt = write_archive(data, "cuda", codec)
+                counts = [m.launches for m in mods]
+                rates[n].append(64 / dt)
+                check(sha(archive) == want,
+                      f"{name} workers={n} archive differs")
+                if n == 4:
+                    check(codec._devices is not None
+                          and len(codec._devices) == 4,
+                          f"{name} workers=4 has no four devices")
+                    check(codec._rr == len(batches) > 1,
+                          f"{name} _rr {codec._rr} != {len(batches)} batches")
+                    check(all(c > 0 for c in counts),
+                          f"{name} workers=4: a kernel never launched "
+                          f"{counts}")
+                    four = {"batches": len(batches), "rr": codec._rr,
+                            "launches": counts}
+                    four_archive = archive
+            check(decode(four_archive) == data,
+                  f"stock library does not reproduce the {name} archive")
+            with Reader(four_archive, device="cuda") as r:
+                check(read_all(r) == data,
+                      f"the {name} workers=4 archive reads back wrong")
+            out[name] = dict(four, workers1_mib_s=rates[1],
+                             workers4_mib_s=rates[4])
+            print(f"{name} workers=4 on cuda:0 x4: {four['batches']} "
+                  f"batches, _rr {four['rr']}, launches {four['launches']}, "
+                  f"sha256 equal to workers=1's, stock decode and Reader "
+                  f"equal; MiB/s workers=1 {rates[1]}, workers=4 "
+                  f"{rates[4]} ({card})", flush=True)
+    finally:
+        udev._visible_devices = real
+
+    # (c) two processes over gloo on cuda:0, uneven shards
+    got_sha, mib_s, nframes = dist_write(64)
+    shards = dist_worker.frames(2, 64)
+    check([len(x) for x in shards] == [24, 40], "shards are not 24 and 40")
+    whole = [f for x in shards for f in x]
+    sink = Sink()
+    check(dist.write_archive(sink, whole, codec=ZstdCodec(
+        device="cuda", collect_hints=False)) == 64 == nframes,
+          "write_archive at world size 1 wrote the wrong frame count")
+    one = sink.value()
+    check(golden.zstd_decompress(one) == data,
+          "stock libzstd does not reproduce the world-size-1 archive")
+    check(sha(one) == got_sha,
+          "the two-process archive differs from the world-size-1 one")
+    out["distributed"] = {"mib_s": mib_s, "frames": nframes,
+                          "sha256": got_sha}
+    print(f"two-process gloo write on cuda:0 (24 + 40 frames): {mib_s:.2f} "
+          f"MiB/s, libzstd decode equal, sha256 equal to world size 1 "
+          f"({card})", flush=True)
+
+    # (d) the dry run
+    n = torch.cuda.device_count()
+    dryrun(n)
+    print(f"dry run at n = {n}: lengths positive, workers={n} archive "
+          f"read back equal", flush=True)
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "libzseek_tpu_torch")):
         fail("libzseek_tpu_torch is not beside chip_smoke.py")
@@ -2417,6 +2586,11 @@ def main() -> None:
     # phase 11
     sort_path = phase_sort(data, card, report)
 
+    # phase 12
+    workers_path = phase_workers(data, card,
+                                 hashlib.sha256(archive).hexdigest(),
+                                 lz4_path["sha256"])
+
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
           flush=True)
@@ -2427,6 +2601,7 @@ def main() -> None:
     print(json.dumps({"levels_path": levels_path}), flush=True)
     print(json.dumps({"transcode_path": transcode_path}), flush=True)
     print(json.dumps({"sort_path": sort_path}), flush=True)
+    print(json.dumps({"workers_path": workers_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1060,19 +1060,20 @@ extern "C" int zk_transcode(const void* lp, const void* sq, const void* dtabs,
     if (err != 0) return err;
   }
   if (C == 0) return 0;
-  // the kernel's most, set once: the attribute is the kernel's, shared by
-  // every host thread, so no launch lowers it under another's
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // the kernel's most, set before every launch: the attribute is the
+  // kernel's in the current device's context, shared by every host thread,
+  // so no launch lowers it under another's and every device has it
+  cudaError_t e = cudaFuncSetAttribute(
       tc_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       TC_SMEM_MAX);
-  if (attr != cudaSuccess) return (int)attr;
+  if (e != cudaSuccess) return (int)e;
   const int tsm = (min(SQW, TC_STAGE / 4) + 2 * lanebits::PAD) * 4;
   tc_walk_kernel<<<B, TC_THREADS, tsm, s>>>(
       lp != nullptr, (const uint32_t*)sq, SQW, (const int*)ftabs,
       (const int*)meta, (const int*)chain, C, (const int*)ctab,
       (const int*)tok_prefix, (uint32_t*)toks, (int*)stat,
       (long long*)rowx, (long long*)syms);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   tc_chain_kernel<<<C, TC_THREADS, 0, s>>>(
       (const int*)meta, (const int*)chain, (const int*)tok_prefix,

@@ -356,10 +356,11 @@ extern "C" int zk_fse_lanes(const void* bank, const void* sid,
   cudaStream_t st = (cudaStream_t)stream;
   if (L <= 0) return (int)cudaGetLastError();
   if (tagged) {
-    // the kernel's most, set once: the attribute is the kernel's, shared
-    // by every host thread, so no launch lowers it under another's
+    // the kernel's most, set before every launch: the attribute is the
+    // kernel's in the current device's context, shared by every host
+    // thread, so no launch lowers it under another's and every device has it
     constexpr int SMEM_MAX = SEQ_STAGE + 2 * PAD * 4;
-    static const cudaError_t attr = cudaFuncSetAttribute(
+    const cudaError_t attr = cudaFuncSetAttribute(
         seq_tagged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_MAX);
     if (attr != cudaSuccess) return (int)attr;

@@ -15,9 +15,11 @@ edited source rebuilds and an unchanged one loads at once.  Nothing is
 built at import: the first wrapper that launches a kernel calls
 `library()`.
 
-Each C entry point launches on the stream it is given (the caller passes
-`torch.cuda.current_stream().cuda_stream`), allocates nothing and returns
-`cudaGetLastError()`; `check` raises on a non-zero code.
+Each C entry point launches on the stream it is given, allocates nothing
+and returns `cudaGetLastError()`; `check` raises on a non-zero code.  The
+wrappers call them through `launch`, which makes the tensors' device the
+calling thread's current one (the CUDA runtime launches there, and sets
+a kernel's attributes there) and passes that device's current stream.
 """
 
 from __future__ import annotations
@@ -136,3 +138,16 @@ def library() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def launch(name: str, dev, *args) -> None:
+    """Call C entry point `name` with `args` and the current stream of
+    `dev` (the device of the launch's tensors), with `dev` the calling
+    thread's current device; raise on a non-zero return."""
+    import torch
+
+    lib = library()
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    check(err, name)

@@ -160,7 +160,6 @@ def _decode_cuda(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     dev = lp_words.device
     if out_size >= 1 << 31 or n_seqs >= 1 << 31:
         raise ParameterError("K4: output and records must stay below 2^31")
-    lib = kernels.library()
     ctab = device_ctab(dev)
     rounds = max(1, int(out_size).bit_length())
     n = max(n_seqs, 1)
@@ -175,17 +174,14 @@ def _decode_cuda(lp_words, sq_words, dtabs, ftabs, meta, chain, frame_off,
     instate = torch.empty((B, 3), dtype=torch.int64, device=dev)
     srcs = torch.empty(max(out_size, 1), dtype=torch.int32, device=dev)
     changed = torch.empty(rounds, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_decode(lp_words.data_ptr(), sq_words.data_ptr(),
-                        dtabs.data_ptr(), ftabs.data_ptr(), meta.data_ptr(),
-                        chain.data_ptr(), frame_off.data_ptr(),
-                        ctab.data_ptr(), B, F, LPW, SQW, n_seqs, out_size,
-                        rounds, lits.data_ptr(), out.data_ptr(),
-                        stat.data_ptr(), rec.data_ptr(), sym.data_ptr(),
-                        res_off.data_ptr(), rinfo.data_ptr(),
-                        xform.data_ptr(), instate.data_ptr(),
-                        srcs.data_ptr(), changed.data_ptr(), stream)
-    kernels.check(err, "zk_decode")
+    kernels.launch(
+        "zk_decode", dev, lp_words.data_ptr(), sq_words.data_ptr(),
+        dtabs.data_ptr(), ftabs.data_ptr(), meta.data_ptr(), chain.data_ptr(),
+        frame_off.data_ptr(), ctab.data_ptr(), B, F, LPW, SQW, n_seqs,
+        out_size, rounds, lits.data_ptr(), out.data_ptr(), stat.data_ptr(),
+        rec.data_ptr(), sym.data_ptr(), res_off.data_ptr(), rinfo.data_ptr(),
+        xform.data_ptr(), instate.data_ptr(), srcs.data_ptr(),
+        changed.data_ptr())
     with _count:
         launches += 1
     return out, stat
@@ -245,23 +241,17 @@ def transcode_blocks(lp_words, sq_words, dtabs, ftabs, meta, chain,
     lits = out[4 * B + tok_words:]
     if B:
         from libzseek_tpu_torch import kernels
-        lib = kernels.library()
         scratch = torch.empty(4 * B + max(tok_words, 1), dtype=torch.int64,
                               device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         ptr = lambda t: t.data_ptr() if t is not None else None
-        err = lib.zk_transcode(ptr(lp_words), sq_words.data_ptr(),
-                               ptr(dtabs), ftabs.data_ptr(),
-                               meta.data_ptr(), chain.data_ptr(),
-                               device_ctab(dev).data_ptr(),
-                               lit_prefix.data_ptr(),
-                               tok_prefix.data_ptr(), B, C,
-                               lp_words.shape[1] if lp_words is not None
-                               else 0, SQW, lit_words,
-                               lits.data_ptr(), toks.data_ptr(),
-                               stat.data_ptr(), scratch.data_ptr(),
-                               scratch.data_ptr() + 32 * B, stream)
-        kernels.check(err, "zk_transcode")
+        kernels.launch(
+            "zk_transcode", dev, ptr(lp_words), sq_words.data_ptr(),
+            ptr(dtabs), ftabs.data_ptr(), meta.data_ptr(), chain.data_ptr(),
+            device_ctab(dev).data_ptr(), lit_prefix.data_ptr(),
+            tok_prefix.data_ptr(), B, C,
+            lp_words.shape[1] if lp_words is not None else 0, SQW, lit_words,
+            lits.data_ptr(), toks.data_ptr(), stat.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + 32 * B)
         with _count:
             transcode_launches += 1
     return lits, toks, stat

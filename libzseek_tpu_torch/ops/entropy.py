@@ -198,13 +198,10 @@ def _emit_cuda(x, sll, sml, soff, meta, codes, ctabs, S, LITW, SEQW,
         (B, LITW), (B, SEQW), (B, 8), (B, 4, LMAXA), (B, 5, SMAXA))]
     tmp = torch.empty(lib.zk_entropy_scratch(B, N, S), dtype=torch.int32,
                       device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_entropy_emit(
-        *[t.data_ptr() for t in ins], tabs.data_ptr(), ctabs.data_ptr(),
-        B, N, S, LITW, SEQW, LMAXA, SMAXA, ctabs.stride(0),
-        _KERNEL_OFFSETS_PTR, tmp.data_ptr(), *[t.data_ptr() for t in outs],
-        stream)
-    kernels.check(err, "zk_entropy_emit")
+    kernels.launch(
+        "zk_entropy_emit", dev, *[t.data_ptr() for t in ins], tabs.data_ptr(),
+        ctabs.data_ptr(), B, N, S, LITW, SEQW, LMAXA, SMAXA, ctabs.stride(0),
+        _KERNEL_OFFSETS_PTR, tmp.data_ptr(), *[t.data_ptr() for t in outs])
     launches += 1
     return tuple(outs)
 
@@ -322,10 +319,11 @@ def _seq_stream(sll, sml, soff, n, mode, ctabs, rows, SEQW, SMAXA):
     vals, nbs = [], []
     sanch = torch.full((B, 5, SMAXA + 1), -1, dtype=torch.int64, device=dev)
     bits = zero.clone()
+    sll, sml, soff = i64(sll), i64(sml), i64(soff)
     for t in range(nmax):
         act = rows & (t < n)
         i = torch.clamp(n - 1 - t, min=0)
-        g = lambda a: i64(a).gather(1, i[:, None])[:, 0]
+        g = lambda a: a.gather(1, i[:, None])[:, 0]
         ll_v, ml_v, of_v = g(sll), g(sml), g(soff)
         code = {
             "ll": torch.where(ll_v > 63, exp_of(ll_v) + 19,

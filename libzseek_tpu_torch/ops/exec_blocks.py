@@ -122,7 +122,6 @@ def _exec_cuda(lit, ll, ml, off, meta, chain, frame_off, out_size, bound):
     dev = lit.device
     if out_size >= 1 << 31:
         raise ParameterError("K6: the output must stay below 2^31 bytes")
-    lib = kernels.library()
     rounds = int(bound).bit_length()
     out = torch.zeros(out_size, dtype=torch.uint8, device=dev)
     ok = torch.zeros(BL, dtype=torch.int32, device=dev)
@@ -135,14 +134,13 @@ def _exec_cuda(lit, ll, ml, off, meta, chain, frame_off, out_size, bound):
                for v in np.cumsum([0] + sizes[:-1])]
         srcs = torch.empty(out_size if rounds else 0, dtype=torch.int32,
                            device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zk_exec_blocks(
-            lit.data_ptr(), ll.data_ptr(), ml.data_ptr(), off.data_ptr(),
-            meta.data_ptr(), chain.data_ptr(), frame_off.data_ptr(), LW, S,
-            F, BL, out_size, rounds, out.data_ptr(), ok.data_ptr(), *ptr[:4],
+        kernels.launch(
+            "zk_exec_blocks", dev, lit.data_ptr(), ll.data_ptr(),
+            ml.data_ptr(), off.data_ptr(), meta.data_ptr(), chain.data_ptr(),
+            frame_off.data_ptr(), LW, S, F, BL, out_size, rounds,
+            out.data_ptr(), ok.data_ptr(), *ptr[:4],
             srcs.data_ptr() if rounds else None, ptr[4],
-            _serial_counter(dev).data_ptr(), stream)
-        kernels.check(err, "zk_exec_blocks")
+            _serial_counter(dev).data_ptr())
         with _count:
             launches += 1
     return out, ok

@@ -77,7 +77,6 @@ def _parse_cuda(x, lengths, cap):
     """One CUDA block per row; the rows are independent."""
     global launches
     from libzseek_tpu_torch import kernels
-    lib = kernels.library()
     dev = x.device
     B, N = x.shape
     x = x.contiguous()
@@ -87,12 +86,10 @@ def _parse_cuda(x, lengths, cap):
     ml = torch.zeros_like(ll)
     offv = torch.zeros_like(ll)
     nn = torch.empty((B, 2), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_hash_parse(x.data_ptr(), lengths.contiguous().data_ptr(),
-                            B, N, cap, MAX_OFFSET, ll.data_ptr(),
-                            ml.data_ptr(), offv.data_ptr(), nn.data_ptr(),
-                            stream)
-    kernels.check(err, "zk_hash_parse")
+    kernels.launch(
+        "zk_hash_parse", dev, x.data_ptr(), lengths.contiguous().data_ptr(), B,
+        N, cap, MAX_OFFSET, ll.data_ptr(), ml.data_ptr(), offv.data_ptr(),
+        nn.data_ptr())
     with _count:
         launches += 1
     return ll, ml, offv, nn[:, 0], nn[:, 1]

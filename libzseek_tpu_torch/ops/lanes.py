@@ -93,17 +93,14 @@ def huf_lanes(bank, sid, bits, n, tid, dtabs, cap: int, exact: bool):
         raise ParameterError(f"huf_lanes runs on cuda or cpu, not {dev}")
     global huf_launches, huf_plain_launches, huf_anchored_launches
     from libzseek_tpu_torch import kernels
-    lib = kernels.library()
     syms = torch.zeros((L, cap), dtype=torch.uint8, device=dev)
     ok = torch.empty(L, dtype=torch.bool, device=dev)
     if L:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zk_huf_lanes(bank.data_ptr(), sid.data_ptr(),
-                               bits.data_ptr(), n.data_ptr(), tid.data_ptr(),
-                               dtabs.data_ptr(), bank.shape[1], bank.shape[0],
-                               dtabs.shape[0], L, cap, int(exact),
-                               syms.data_ptr(), ok.data_ptr(), stream)
-        kernels.check(err, "zk_huf_lanes")
+        kernels.launch(
+            "zk_huf_lanes", dev, bank.data_ptr(), sid.data_ptr(),
+            bits.data_ptr(), n.data_ptr(), tid.data_ptr(), dtabs.data_ptr(),
+            bank.shape[1], bank.shape[0], dtabs.shape[0], L, cap, int(exact),
+            syms.data_ptr(), ok.data_ptr())
         with _count:
             huf_launches += 1
             if exact:
@@ -147,7 +144,6 @@ def seq_lanes(bank, sid, bits, n, states, rep1, tids, tls, tabs, cap: int,
         raise ParameterError(f"seq_lanes runs on cuda or cpu, not {dev}")
     global seq_launches, seq_tagged_launches, seq_anchored_launches
     from libzseek_tpu_torch import kernels
-    lib = kernels.library()
     ctab = D.device_ctab(dev)
     ll = torch.zeros((L, cap), dtype=torch.int32, device=dev)
     ml = torch.zeros((L, cap), dtype=torch.int32, device=dev)
@@ -155,15 +151,13 @@ def seq_lanes(bank, sid, bits, n, states, rep1, tids, tls, tabs, cap: int,
     rep = torch.empty((L, 3), dtype=torch.int32, device=dev)
     ok = torch.empty(L, dtype=torch.bool, device=dev)
     if L:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.zk_fse_lanes(
-            bank.data_ptr(), sid.data_ptr(), bits.data_ptr(), n.data_ptr(),
-            states.data_ptr(), rep1.data_ptr(), tids.data_ptr(),
-            tls.data_ptr(), tabs.data_ptr(), ctab.data_ptr(), bank.shape[1],
-            bank.shape[0], tabs.shape[0], L, cap, int(tagged),
+        kernels.launch(
+            "zk_fse_lanes", dev, bank.data_ptr(), sid.data_ptr(),
+            bits.data_ptr(), n.data_ptr(), states.data_ptr(), rep1.data_ptr(),
+            tids.data_ptr(), tls.data_ptr(), tabs.data_ptr(), ctab.data_ptr(),
+            bank.shape[1], bank.shape[0], tabs.shape[0], L, cap, int(tagged),
             ll.data_ptr(), ml.data_ptr(), off.data_ptr(), rep.data_ptr(),
-            ok.data_ptr(), stream)
-        kernels.check(err, "zk_fse_lanes")
+            ok.data_ptr())
         with _count:
             seq_launches += 1
             if tagged:

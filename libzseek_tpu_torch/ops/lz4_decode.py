@@ -69,7 +69,6 @@ def lz4_decode_frames(comp: torch.Tensor, comp_lens: torch.Tensor,
                              f"{dev}")
     global launches
     from libzseek_tpu_torch import kernels
-    lib = kernels.library()
     comp = comp.contiguous()
     clens = comp_lens.contiguous()
     unc = uncompressed.contiguous()
@@ -82,13 +81,11 @@ def lz4_decode_frames(comp: torch.Tensor, comp_lens: torch.Tensor,
     srcs = torch.empty((B, F), dtype=torch.int32, device=dev)
     meta = torch.zeros((3 * L + 2 * B + rounds,), dtype=torch.int32,
                        device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_lz4_decode(comp.data_ptr(), clens.data_ptr(),
-                            unc.data_ptr(), B, K, M, F, max_seqs,
-                            int(linked), out.data_ptr(), out_lens.data_ptr(),
-                            ok.data_ptr(), rec.data_ptr(), srcs.data_ptr(),
-                            meta.data_ptr(), rounds, stream)
-    kernels.check(err, "zk_lz4_decode")
+    kernels.launch(
+        "zk_lz4_decode", dev, comp.data_ptr(), clens.data_ptr(),
+        unc.data_ptr(), B, K, M, F, max_seqs, int(linked), out.data_ptr(),
+        out_lens.data_ptr(), ok.data_ptr(), rec.data_ptr(), srcs.data_ptr(),
+        meta.data_ptr(), rounds)
     with _count:
         launches += 1
     return out, out_lens, ok

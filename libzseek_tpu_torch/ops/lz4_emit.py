@@ -96,7 +96,6 @@ def _emit_cuda(blocks, lengths, min_ref, cap, lazy, accel_log):
     chains (the kernel finds them from min_ref, so no host sync)."""
     global launches
     from libzseek_tpu_torch import kernels
-    lib = kernels.library()
     dev = blocks.device
     B1, N = blocks.shape
     B = B1 - 1
@@ -106,12 +105,10 @@ def _emit_cuda(blocks, lengths, min_ref, cap, lazy, accel_log):
     tables = torch.empty((B, TAB_SIZE), dtype=torch.int32, device=dev)
     out = torch.zeros((B, cap), dtype=torch.uint8, device=dev)
     olen = torch.empty((B,), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_lz4_emit(blocks.data_ptr(), lengths.contiguous().data_ptr(),
-                          min_ref.contiguous().data_ptr(), B, N, cap,
-                          MAX_OFFSET, lazy, accel_log, tables.data_ptr(),
-                          out.data_ptr(), olen.data_ptr(), stream)
-    kernels.check(err, "zk_lz4_emit")
+    kernels.launch(
+        "zk_lz4_emit", dev, blocks.data_ptr(), lengths.contiguous().data_ptr(),
+        min_ref.contiguous().data_ptr(), B, N, cap, MAX_OFFSET, lazy,
+        accel_log, tables.data_ptr(), out.data_ptr(), olen.data_ptr())
     with _count:
         launches += 1
     return out, olen

@@ -234,15 +234,11 @@ def _greedy_cuda(p, e, has, lengths, min_tail, min_match, c0):
     if B == 0 or nseg == 0:
         return sel, start, lit_from, c_final
     from libzseek_tpu_torch import kernels
-    lib = kernels.library()
     p, e, has, lengths = (t.contiguous() for t in (p, e, has, lengths))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_greedy_select(p.data_ptr(), e.data_ptr(), has.data_ptr(),
-                               lengths.data_ptr(), B, nseg, min_tail,
-                               min_match, c0, sel.data_ptr(),
-                               start.data_ptr(), lit_from.data_ptr(),
-                               c_final.data_ptr(), stream)
-    kernels.check(err, "zk_greedy_select")
+    kernels.launch(
+        "zk_greedy_select", dev, p.data_ptr(), e.data_ptr(), has.data_ptr(),
+        lengths.data_ptr(), B, nseg, min_tail, min_match, c0, sel.data_ptr(),
+        start.data_ptr(), lit_from.data_ptr(), c_final.data_ptr())
     with _count:
         launches += 1
     return sel, start, lit_from, c_final

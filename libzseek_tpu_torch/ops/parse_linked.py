@@ -113,7 +113,6 @@ def _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, prm):
     global launches
     from libzseek_tpu_torch import kernels
     gate_bits, min_match, accel_log, lazy, dual, rep_probe = prm
-    lib = kernels.library()
     dev = x2.device
     x2 = x2.contiguous()
     bounds = torch.from_numpy(chain_bounds(ma, N)).to(dev)
@@ -127,14 +126,12 @@ def _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, prm):
     nn = torch.empty((B, 2), dtype=torch.int32, device=dev)
     mask = torch.empty((B, N // 32), dtype=torch.int32, device=dev)
     ins = [t.contiguous() for t in (lengths, min_abs, h16)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_parse_linked(
-        x2.data_ptr(), ins[0].data_ptr(), ins[1].data_ptr(),
-        ins[2].data_ptr(), bounds.data_ptr(), nch, N, CAP, MAX_OFFSET,
-        gate_bits, min_match, accel_log, STRICT_H16_X6, lazy, int(dual),
-        int(rep_probe), tables.data_ptr(), ll.data_ptr(), ml.data_ptr(),
-        off.data_ptr(), nn.data_ptr(), mask.data_ptr(), stream)
-    kernels.check(err, "zk_parse_linked")
+    kernels.launch(
+        "zk_parse_linked", dev, x2.data_ptr(), ins[0].data_ptr(),
+        ins[1].data_ptr(), ins[2].data_ptr(), bounds.data_ptr(), nch, N, CAP,
+        MAX_OFFSET, gate_bits, min_match, accel_log, STRICT_H16_X6, lazy,
+        int(dual), int(rep_probe), tables.data_ptr(), ll.data_ptr(),
+        ml.data_ptr(), off.data_ptr(), nn.data_ptr(), mask.data_ptr())
     launches += 1
     return ll, ml, off, nn[:, 0], nn[:, 1], mask
 

@@ -93,10 +93,9 @@ def _vector_cuda(x, lit_mask_words, codes_packed, lens, vec_row, LITW):
     lanch = torch.empty((B, 4, LMAXA), dtype=torch.int32, device=dev)
     tmp = torch.empty(lib.zk_vector_scratch(B, N), dtype=torch.int32,
                       device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.zk_vector_literals(
-        *[t.data_ptr() for t in ins], B, N, LITW, LMAXA, tmp.data_ptr(),
-        out.data_ptr(), sizes.data_ptr(), lanch.data_ptr(), stream)
-    kernels.check(err, "zk_vector_literals")
+    kernels.launch(
+        "zk_vector_literals", dev, *[t.data_ptr() for t in ins], B, N, LITW,
+        LMAXA, tmp.data_ptr(), out.data_ptr(), sizes.data_ptr(),
+        lanch.data_ptr())
     launches += 1
     return out, sizes, lanch

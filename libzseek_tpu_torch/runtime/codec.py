@@ -24,9 +24,10 @@ Decoding runs the card's LZ4 decoder (ops/lz4_decode.py,
 csrc/lz4_decode.cu) for every call, host delivery and to_device alike;
 device="cpu" runs its plain version.  The reference's host route over
 the native block decoder is kept as _decompress_frames_host, which no
-call takes by default.  `workers` behaves as the reference's does with
-one device; its round-robin over several CUDA devices is not ported
-(ROADMAP A3) and raises.  Not ported: the ZN_LZ4_HOST_DECODE knob.
+call takes by default.  `workers` is the reference's round-robin (its
+_put): with more than one visible device, each batch is encoded on the
+next of the first `workers` devices and finished there; decoding stays
+on the codec's device.  Not ported: the ZN_LZ4_HOST_DECODE knob.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from libzseek_tpu_torch.ops.lz4_decode import lz4_decode_frames
 from libzseek_tpu_torch.ops.lz4_emit import lz4_emit, out_cap
 from libzseek_tpu_torch.ops.lz4_encode import lz4_encode_blocks
 from libzseek_tpu_torch.ops.zstd_encode import compact_payload
-from libzseek_tpu_torch.utils.device import check_workers, resolve_device
+from libzseek_tpu_torch.utils.device import RoundRobin, resolve_device
 
 BLOCK = 1 << 16  # 64 KiB blocks, like the reference writer
 MAX_BATCH_BLOCKS = 128
@@ -55,7 +56,7 @@ def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-class LZ4Codec:
+class LZ4Codec(RoundRobin):
     """LZ4F frames with 64 KiB blocks, linked by default like the
     reference's LZ4F_compressFrame defaults.  Each row of a batch carries
     the previous block as its context, so matches reach across block
@@ -93,7 +94,9 @@ class LZ4Codec:
         self.block_independent = block_independent
         self.parser = parser
         self.device = resolve_device(device)
-        check_workers(workers, self.device)
+        # N workers: batches round-robin over the first `workers` devices
+        # (see ZstdCodec; blocks are independent, no collectives needed)
+        self._init_workers(workers)
         # adaptive payload-fetch cap, sized from recent batches' realized
         # compressed bytes instead of the compress bound
         self._cap_hint: int | None = None
@@ -166,18 +169,18 @@ class LZ4Codec:
 
     def _dispatch_batch(self, frames, chunk, ctx):
         """Lay out one block batch, launch the encode (K5, or the sort
-        parser) and the compaction (no sync on the card)."""
+        parser) and the compaction on the batch's device (no sync on the
+        card)."""
         B = len(chunk)
         Bp = max(8, 1 << max(0, (B - 1).bit_length()))
-        dev = self.device
+        dev = self._batch_device()
         t = lambda a: torch.from_numpy(a).to(dev)
         sizes = np.zeros((Bp,), np.int32)
         for i, (_, _, sz) in enumerate(chunk):
             sizes[i] = sz
-        if self.parser == "sort":
-            out, olens = self._encode_sort(frames, chunk, ctx, Bp)
-        else:
-            out, olens = self._encode_k5(frames, chunk, ctx, Bp)
+        encode = self._encode_sort if self.parser == "sort" \
+            else self._encode_k5
+        out, olens = encode(frames, chunk, ctx, Bp, dev)
         # blocks whose payload reaches the raw size are stored raw from the
         # host's bytes at assembly: their payloads stay out of the fetch
         # (the sort parser's padding rows report negative lengths)
@@ -192,7 +195,7 @@ class LZ4Codec:
         return {"Bp": Bp, "sizes": sizes, "meta": meta,
                 "cap_words": cap_words, "streams": (words, live)}
 
-    def _encode_k5(self, frames, chunk, ctx, Bp):
+    def _encode_k5(self, frames, chunk, ctx, Bp, dev):
         """K5 over the shared-context layout: (out (Bp, cap) uint8,
         olens (Bp,) int32)."""
         D = np.zeros((Bp + 1, BLOCK), np.uint8)
@@ -208,11 +211,11 @@ class LZ4Codec:
             dlens[i] = BLOCK + sz
             if ctx and s > 0:
                 dminr[i] = i * BLOCK  # previous row is same-frame
-        t = lambda a: torch.from_numpy(a).to(self.device)
+        t = lambda a: torch.from_numpy(a).to(dev)
         return lz4_emit(t(D), t(dlens), t(dminr), out_cap(BLOCK),
                         **self._level_params(self.level))
 
-    def _encode_sort(self, frames, chunk, ctx, Bp):
+    def _encode_sort(self, frames, chunk, ctx, Bp, dev):
         """The sort parser over rows of ctx + 64 KiB, each block behind a
         copy of its window (the first block of a frame has none, so its
         min_ref is ctx): (out (Bp, cap) uint8, olens (Bp,) int32)."""
@@ -228,13 +231,13 @@ class LZ4Codec:
                     X[i, ctx - clen: ctx] = np.frombuffer(
                         frames[fi], np.uint8, clen, s - clen)
                 min_ref[i] = ctx - clen
-        t = lambda a: torch.from_numpy(a).to(self.device)
+        t = lambda a: torch.from_numpy(a).to(dev)
         return lz4_encode_blocks(t(X), t(lens), seg_size=self.seg_size,
                                  ctx_len=ctx, min_ref=t(min_ref))
 
     def _finish_batch(self, B, staged) -> list[bytes | None]:
         """Fetch one batch's results -> per-block payload bytes (None =
-        store raw)."""
+        store raw).  Every tensor of the batch lies on its device."""
         Bp, sizes = staged["Bp"], staged["sizes"]
         fetched = staged["meta"].cpu().numpy()
         olens = fetched[:Bp]

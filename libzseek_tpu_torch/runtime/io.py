@@ -7,15 +7,23 @@ callback; the reader into pread/fsize callbacks — file, object store,
 anything.  FileIO supplies the FILE*-based defaults
 (src/compress.c:39-50, src/decompress.c:47-98).
 
-Copy of the sinks and sources of libzseek_tpu/runtime/io.py that the
-port's Writer and Reader use.
+Copy of libzseek_tpu/runtime/io.py.
 """
 
 from __future__ import annotations
 
 import io
 import os
-from typing import Callable
+from typing import Callable, Protocol
+
+
+class WriteSink(Protocol):
+    def write(self, data: bytes) -> None: ...
+
+
+class ReadSource(Protocol):
+    def pread(self, offset: int, size: int) -> bytes: ...
+    def fsize(self) -> int: ...
 
 
 class CallbackWriteSink:
@@ -28,6 +36,19 @@ class CallbackWriteSink:
         r = self._fn(data)
         if r is False:
             raise IOError("user write callback failed")
+
+
+class CallbackReadSource:
+    def __init__(self, pread: Callable[[int, int], bytes],
+                 fsize: Callable[[], int]):
+        self._pread = pread
+        self._fsize = fsize
+
+    def pread(self, offset: int, size: int) -> bytes:
+        return self._pread(offset, size)
+
+    def fsize(self) -> int:
+        return self._fsize()
 
 
 class FileIO:
@@ -70,3 +91,17 @@ class BytesIOSource:
 
     def fsize(self) -> int:
         return len(self._data)
+
+
+class CountingSink:
+    """Byte-counting sink, like the benchmark's counting_write callback
+    (test/benchmark.c:139-151 of the reference library)."""
+
+    def __init__(self, inner: WriteSink | None = None):
+        self.inner = inner
+        self.bytes_written = 0
+
+    def write(self, data: bytes) -> None:
+        self.bytes_written += len(data)
+        if self.inner is not None:
+            self.inner.write(data)

@@ -18,7 +18,7 @@ the card), then written to the sink in order.  The API contract (not
 concurrency-safe, like src/zseek.h:278) is unchanged.  A codec given by
 name is the port's ZstdCodec ("zstd", default level 3) or LZ4Codec
 ("lz4", default level 0) on `device`, given `workers` as the reference's
-_make_codec gives it (one device: that device; ROADMAP A3).
+_make_codec gives it (its batches round-robin over that many devices).
 """
 
 from __future__ import annotations

@@ -49,9 +49,10 @@ The host assembly helpers are copies of the reference's (they sit in a
 module that imports JAX); the byte-identity tests hold them to it.  The
 reference's ZN_* environment knobs are not ported (their defaults are
 fixed), nor its adaptive vector-literal hint: every row K3 accepts goes
-through K3, with identical bits either way.  `workers` behaves as the
-reference's does with one device; its round-robin over several CUDA
-devices is not ported (ROADMAP A3) and raises (utils/device.py).
+through K3, with identical bits either way.  `workers` is the
+reference's round-robin: with more than one visible device, each batch
+goes to the next of the first `workers` devices (utils/device.py), and
+its upload, device stages and finishing follow it there.
 collect_hints=False returns no decode hints (the archive bytes are the
 same).
 
@@ -99,7 +100,7 @@ from libzseek_tpu_torch.ops.zstd_encode import (apply_ldm_override,
                                                 zstd_sequences_fast,
                                                 zstd_sequences_fast_nolit,
                                                 zstd_sequences_linked)
-from libzseek_tpu_torch.utils.device import check_workers, resolve_device
+from libzseek_tpu_torch.utils.device import RoundRobin, resolve_device
 
 # profiler ranges around the codec's stages (free when no profiler runs;
 # read by libzseek_tpu_torch/profile_write.py)
@@ -177,7 +178,7 @@ _MODE_NAMES = {hp.M_SKIP: "skip", hp.M_RLEBLOCK: "rleblock",
                hp.M_HUF: "huf", hp.M_HUF1: "huf1"}
 
 
-class ZstdCodec:
+class ZstdCodec(RoundRobin):
     """zstd seekable-frame codec: compression and decompression on the
     GPU (or, with device="cpu", through every kernel's plain version, for
     tests).  Compression also yields per-block decode anchors
@@ -223,7 +224,9 @@ class ZstdCodec:
                 f"bytes a batch (rounded up to a power of two)")
         self.level = level
         self.device = resolve_device(device)
-        check_workers(workers, self.device)
+        # N workers: batches round-robin over the first `workers` devices;
+        # frames are independent, so the batches need no collectives
+        self._init_workers(workers)
         self.block = block
         self.max_batch_blocks = max_batch_blocks
         self.collect_hints = collect_hints
@@ -309,14 +312,15 @@ class ZstdCodec:
 
     def _dispatch_parse(self, blocks: list[np.ndarray],
                         first_flags: list[bool] | None = None):
-        """Upload one batch and dispatch its device stages.  first_flags[i]
-        marks a frame's first block; the linked parser fences frame starts
-        and the batch start off from the preceding row (min_abs)."""
+        """Upload one batch to its device and dispatch its device stages
+        there.  first_flags[i] marks a frame's first block; the linked
+        parser fences frame starts and the batch start off from the
+        preceding row (min_abs)."""
         linked = self.parser == "linked"
         with _span("zseek.layout"):
             X, lens, min_abs, ldm, lens_parse = self._layout(
                 blocks, first_flags, linked)
-        dev = self.device
+        dev = self._batch_device()
         t = lambda a: torch.from_numpy(a).to(dev)
         B = len(blocks)
         X2d = t(X)
@@ -338,7 +342,7 @@ class ZstdCodec:
                 if "literals" in seqs else None
             seqs = apply_ldm_override(seqs, ldm[0], lens, ldm[1], plane)
         if linked and self.entropy != "xla":
-            return self._dispatch_chain(seqs, lens[:B], X2d, lens)
+            return self._dispatch_chain(seqs, lens[:B], X2d, lens, dev)
         packed = torch.cat([seqs["hist"].reshape(-1), seqs["lit_count"],
                             seqs["n_seq"], seqs["const"]]).to(torch.int32)
         return {"kind": "blocks", "seqs": seqs, "lens": lens[:B],
@@ -400,8 +404,7 @@ class ZstdCodec:
             return self._bucket_words(batch_words // 2 + (1 << 14))
         return self._cap_hint
 
-    def _dispatch_chain(self, seqs, lens, x_dev, lens_pad):
-        dev = self.device
+    def _dispatch_chain(self, seqs, lens, x_dev, lens_pad, dev):
         Bp = seqs["n_seq"].shape[0]
         N = self.block
         S = seqs["ll"].shape[1]
@@ -456,7 +459,7 @@ class ZstdCodec:
                  rep23, lanch, sanch]
         small = torch.cat([p.to(torch.int32).reshape(-1) for p in parts])
         return {"kind": "chain", "B": len(lens), "Bp": Bp, "lens": lens,
-                "small": small,
+                "small": small, "device": dev,
                 "flat": flat, "cap_words": cap_words,
                 "streams": (lit_w, lit_bytes, seq_w, seq_bytes)}
 
@@ -541,7 +544,9 @@ class ZstdCodec:
 
     def _finish_blocks(self, staged):
         """Finish one batch: the device chain's fetch and assembly, or the
-        per-block path's table decisions, entropy arm and assembly."""
+        per-block path's table decisions, entropy arm and assembly.  Every
+        tensor of the batch lies on its device, and kernels.launch enters
+        that device for each launch."""
         if staged["kind"] == "chain":
             return self._finish_chain(staged)
         seqs, lens, x_dev = staged["seqs"], staged["lens"], staged["x"]

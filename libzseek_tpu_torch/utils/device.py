@@ -3,8 +3,9 @@
 Counterpart of libzseek_tpu/utils/platform.py (apply_platform), which picks
 the JAX backend.  The port never falls back: `device="cuda"` (the default)
 needs a visible card and raises without one; `device="cpu"` runs every
-kernel's plain PyTorch version and exists for the tests.  check_workers
-holds the codecs' `workers` to what one device can do.
+kernel's plain PyTorch version and exists for the tests.  worker_devices
+and RoundRobin are the codecs' `workers`: the devices their batches take
+in turn.
 """
 
 from __future__ import annotations
@@ -28,17 +29,42 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     raise ParameterError(f"unsupported device {device!r} (cuda or cpu)")
 
 
-def check_workers(workers: int | None, device: torch.device) -> None:
-    """The codecs' `workers` (the reference's round-robin of batches over
-    its first `workers` devices, libzseek_tpu/runtime/zstd_codec.py:
-    121-133).  With one visible device the reference uses that device,
-    and so does the port; spreading the batches over more than one CUDA
-    device is not ported yet (ROADMAP A3) and raises."""
-    if not workers or workers <= 1 or device.type != "cuda":
-        return
-    n = torch.cuda.device_count()
-    if n > 1:
-        raise ParameterError(
-            f"workers={workers} would spread batches over {min(workers, n)} "
-            f"of {n} CUDA devices: the round-robin is not ported "
-            f"(ROADMAP A3)")
+def _visible_devices(device: torch.device) -> list[torch.device]:
+    """The devices a codec on `device` may spread its batches over: every
+    CUDA device for a CUDA `device`, else `device` alone."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def worker_devices(workers: int | None,
+                   device: torch.device) -> list[torch.device] | None:
+    """The codecs' `workers`, as the reference's round-robin
+    (libzseek_tpu/runtime/zstd_codec.py:128-133): with workers > 1 and
+    more than one visible device, the first min(workers, n) devices, which
+    the batches take in turn; else None, every batch on `device`."""
+    if not workers or workers <= 1:
+        return None
+    devs = _visible_devices(device)
+    return devs[: min(workers, len(devs))] if len(devs) > 1 else None
+
+
+class RoundRobin:
+    """The codecs' `workers` (the reference's _put): a codec on `device`
+    calls _init_workers once, then _batch_device for each batch it
+    dispatches."""
+
+    device: torch.device
+
+    def _init_workers(self, workers: int | None) -> None:
+        self._devices = worker_devices(workers, self.device)
+        self._rr = 0
+
+    def _batch_device(self) -> torch.device:
+        """The next batch's device: the codec's, or the next worker's."""
+        if self._devices is None:
+            return self.device
+        dev = self._devices[self._rr % len(self._devices)]
+        self._rr += 1
+        return dev

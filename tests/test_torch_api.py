@@ -15,7 +15,7 @@ import libzseek_tpu_torch as port
 from libzseek_tpu import api as japi
 from libzseek_tpu_torch import api
 from libzseek_tpu_torch.errors import ParameterError
-from libzseek_tpu_torch.utils.device import check_workers
+from libzseek_tpu_torch.utils import device as udev
 
 
 def _write(mod, data, params=None, **kw):
@@ -77,7 +77,8 @@ def test_shims_both_ways():
 def test_exports_structs_and_workers(monkeypatch):
     """Every name the JAX package exports, the structs' fields and
     defaults, the unknown-type refusal, and `workers`: > 1 on one device
-    uses that device; over several CUDA devices it raises (ROADMAP A3)."""
+    uses that device alone; over several devices (listed by a patched
+    _visible_devices) the batches take the first `workers` in turn."""
     for name in ("ZseekError", "Reader", "Writer", "open_reader",
                  "open_writer", "zseek_pread", "zseek_read",
                  "zseek_reader_close", "zseek_reader_open",
@@ -99,6 +100,7 @@ def test_exports_structs_and_workers(monkeypatch):
     with api.open_writer(buf, workers=3, device="cpu",
                          min_frame_size=1 << 16) as w:
         w.write(data)
+        assert w._codec._devices is None and w._codec._rr == 0
     assert api.Reader(buf.getvalue(), device="cpu").pread_full(
         len(data), 0) == data
     assert port.LZ4Codec(device="cpu", workers=8).device.type == "cpu"
@@ -111,9 +113,16 @@ def test_exports_structs_and_workers(monkeypatch):
                           max_batch_blocks=1000).max_batch_blocks == 1000
     cuda = torch.device("cuda", 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    check_workers(4, cuda)
+    assert udev.worker_devices(4, cuda) is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    check_workers(1, cuda)
-    check_workers(None, cuda)
-    with pytest.raises(ParameterError, match="A3"):
-        check_workers(4, cuda)
+    assert udev.worker_devices(1, cuda) is None
+    assert udev.worker_devices(None, cuda) is None
+    assert udev.worker_devices(4, cuda) == [cuda, torch.device("cuda", 1)]
+    cpus = [torch.device("cpu", i) for i in range(4)]
+    monkeypatch.setattr(udev, "_visible_devices", lambda dev: cpus)
+    for cls in (port.ZstdCodec, port.LZ4Codec):
+        c = cls(device="cpu", workers=3)
+        assert c._devices == cpus[:3]
+        assert [c._batch_device() for _ in range(5)] == \
+            cpus[:3] + cpus[:2] and c._rr == 5
+        assert cls(device="cpu", workers=1)._devices is None

@@ -70,6 +70,28 @@ def reference_row_bytes(out_words, r, n):
     return out_words[r].astype("<i4").tobytes()[:n]
 
 
+def check_rows(calls):
+    """Every row of every frame the reference accepts whole (ok, and each
+    block's advance as predicted): the port's plain K4 fed the same rows
+    gives ok and equal bytes.  Returns the number of rows compared."""
+    rows = 0
+    for args, (out_w, stat) in calls:
+        meta = args[4]
+        out, pstat, row_off = port_on_reference_rows(args)
+        good = (stat[:, 1] == 1) & (stat[:, 0] == meta[:, 1])
+        frame = np.cumsum((meta[:, 0] & D.DMODE_FRAME_START) != 0)
+        accepted = np.array([good[frame == frame[r]].all()
+                             for r in range(len(meta))])
+        for r in np.nonzero(accepted)[0]:
+            n = int(stat[r, 0])
+            assert pstat[r, 1] == 1, r
+            assert pstat[r, 0] == n, r
+            got = out[row_off[r]: row_off[r] + n].tobytes()
+            assert got == reference_row_bytes(out_w, r, n), r
+            rows += 1
+    return rows
+
+
 def section_modes(frames):
     """The literal-section kinds ("raw", "rle", "huf4", "huf1",
     "treeless") and sequence-table modes ("predefined", "rle",

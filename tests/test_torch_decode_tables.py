@@ -1,8 +1,8 @@
-"""The read path's host half against the reference: the Huffman peek
-tables built with torch ops (build_dtabs, the counterpart of the jitted
-_build_dtabs) and the row packing that feeds K4 (the counterpart of
-_try_decode_smem's), on the frames of tests/test_torch_decode_inputs.py.
-Integer arrays, compared exactly."""
+"""The read path against the reference on stock libzstd frames: the
+Huffman peek tables built with torch ops (build_dtabs, the counterpart
+of the jitted _build_dtabs), compared exactly, and K4's plain version fed
+the reference's packed rows of those frames (tolerance: none, bytes).
+The port's own frames: tests/test_torch_decode_ref.py."""
 
 import numpy as np
 import pytest
@@ -14,7 +14,8 @@ from libzseek_tpu.ops import huffman as jhuf
 from libzseek_tpu.ops import zstd_decode as jzd
 from libzseek_tpu_torch.ops import zstd_decode as ZD
 from libzseek_tpu_torch.testing import golden
-from test_torch_decode_inputs import capture_reference, own_frames, stock_frames
+from test_torch_decode_inputs import (capture_reference, check_rows,
+                                      section_modes, stock_frames)
 
 pytestmark = pytest.mark.skipif(not golden.have_zstd(),
                                 reason="system libzstd unavailable")
@@ -24,7 +25,8 @@ def test_build_dtabs_matches_reference():
     """Every table stock libzstd's frames carry, and tables of 2-256
     symbols and code lengths up to 11 bits built by the reference's
     Huffman code from skewed histograms (seed 23).  (The port's own
-    frames' tables go through test_rows_match_reference_packing.)"""
+    frames' tables go through test_torch_decode_ref.py's
+    test_rows_match_reference_packing.)"""
     frames, raws = stock_frames()
     hufreg, fsereg = ZD._HufReg(), ZD._FseReg()
     for d, n in zip(frames, raws):
@@ -43,28 +45,18 @@ def test_build_dtabs_matches_reference():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-def test_rows_match_reference_packing(monkeypatch):
-    frames, raws = own_frames()
-    _, calls = capture_reference(monkeypatch, frames, raws)
-    (lp, sq, dtabs, ftabs, meta), _ = calls[0]
-    args, out_size, rows = ZD.k4_inputs(frames, [len(r) for r in raws],
-                                        torch.device("cpu"))
-    B = len(meta)
-    assert len(rows["meta"]) == B and out_size == sum(map(len, raws))
-    for name, ref, got in (("lp", lp, rows["lp"]), ("sq", sq, rows["sq"])):
-        w = min(ref.shape[1], got.shape[1])
-        np.testing.assert_array_equal(got[:, :w], ref[:, :w], name)
-        assert not got[:, w:].any() and not ref[:, w:].any(), name
-    np.testing.assert_array_equal(args[2].numpy(), dtabs)
-    np.testing.assert_array_equal(rows["ftabs"], ftabs)
-    # meta[1]: the reference predicts every block size, the port knows
-    # raw and RLE block sizes only (-1 elsewhere); meta[2], the
-    # reference's predicted ring base, is computed inside the port's K4
-    cols = [0] + list(range(3, 16))
-    np.testing.assert_array_equal(rows["meta"][:, cols], meta[:, cols])
-    known = rows["meta"][:, 1] >= 0
-    np.testing.assert_array_equal(rows["meta"][known, 1], meta[known, 1])
-    starts = np.nonzero(meta[:, 0] & ZD.D.DMODE_FRAME_START)[0]
-    np.testing.assert_array_equal(rows["chain"], np.append(starts, B))
-    np.testing.assert_array_equal(np.diff(rows["frame_off"]),
-                                  [len(r) for r in raws])
+def test_plain_k4_matches_reference_on_stock_frames(monkeypatch):
+    """K4's plain version fed the reference's packed rows of stock
+    libzstd frames (as tests/test_torch_decode_ref.py does for the port's
+    own frames): ok and equal bytes on every row the reference accepts."""
+    frames, raws = stock_frames()
+    lits, seqs = section_modes(frames)
+    assert {"huf4", "raw"} <= lits and "predefined" in seqs, (lits, seqs)
+    res, calls = capture_reference(monkeypatch, frames, raws)
+    assert res == raws
+    # the reference accepts every frame but the long-window one, whose
+    # offsets exceed its 128 KiB ring (tests/test_torch_decode_limits.py)
+    assert len(calls) == 1
+    meta = calls[0][0][4]
+    last = np.nonzero(meta[:, 0] & ZD.D.DMODE_FRAME_START)[0][-1]
+    assert check_rows(calls) == last

@@ -7,7 +7,7 @@ writes a zstd archive (with each parser) and an LZ4 archive (with each
 parser) with the port's Writer, the sort archives through the zseek_*
 shims, and reads them back with the port's Reader (the zstd one through
 the fused, lane and transcode decoders) and the port's own format and
-testing copies."""
+testing copies, with the scale-out package (parallel/) imported."""
 
 import os
 import subprocess
@@ -30,7 +30,10 @@ from libzseek_tpu_torch.ops import (bits, common, decode, entropy,
                                     lz4_emit, lz4_encode, match,
                                     parse_linked, vector_entropy,
                                     xla_entropy, zstd_decode, zstd_encode)
+from libzseek_tpu_torch.parallel import distributed, dryrun, mesh
 from libzseek_tpu_torch.runtime import codec
+from libzseek_tpu_torch.runtime import io as zio
+from libzseek_tpu_torch.testing import dist_worker
 from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
 from libzseek_tpu_torch.testing import golden
 from libzseek_tpu_torch.testing.corpus import mixed_corpus
