@@ -37,7 +37,8 @@ Phases, each of which must pass (any failure exits non-zero):
      frames;
   4. the first 1 MiB frame written once more with device="cpu" (the plain
      versions) is byte-identical to the card's;
-  5. the read path: the port's Reader(device="cuda") reads the archive
+  5. the read path: the port's Reader(device="cuda", decoder="fused")
+     (K4's execute arm) reads the archive
      sequentially in 1 MiB reads (one warm-up pass, then the measured
      pass, during which K4 must launch), makes 1,000 uniform random 4 KiB
      preads (seed 7), and with device_cache=True 16 preads whose cached
@@ -46,16 +47,21 @@ Phases, each of which must pass (any failure exits non-zero):
      their plain versions, exact, on small inputs (linked 4 KiB rows, a
      seeded batch, the four level arms, hand-written frames with every
      kind of copy and bad block, damaged frames) and at the path's
-     shapes (K5 on 128 rows = 8 frames x 16 blocks of 64 KiB, the decoder
-     on a 4-frame reader window); then the port's Writer(codec="lz4",
+     shapes (K5 on 128 rows = 8 frames x 16 blocks of 64 KiB; the decoder
+     on one archive frame of each quarter, the shape of the device-cache
+     read's one-frame calls, timed and reported, and on a 4-frame
+     window, timed and printed); then the port's Writer(codec="lz4",
      level=0) writes the same 64 MiB with 1 MiB frames (warm-up, then the
      measured run, during which K5 must launch); stock liblz4 decodes it
      (its sha256 printed), the seek table lists 64 frames, the first
      frame equals the plain
      versions', a level-9 write of 8 MiB decodes through liblz4; the
-     Reader reads it as in phase 5 (the decoder must launch), and the
-     codec's host route (native block decoder) and the card route decode
-     the 64 frames in 4-frame windows, timed;
+     Reader reads it as in phase 5 with device_cache=True (frames
+     delivered to the host take the native host route; the decoder must
+     launch), and the codec's host route (native block decoder, host
+     delivery's) and the card route (to_device=True, then one copy of
+     the window to the host) decode the 64 frames in 4-frame windows,
+     timed;
   7. the per-block hash-parser path: K7 (hash parse) against its plain
      version, exact, on four 16 KiB rows (text, repeats, zeros, noise),
      at the path's 64-row batch of 128 KiB blocks (8 frames of 8
@@ -98,20 +104,22 @@ Phases, each of which must pass (any failure exits non-zero):
      quarter), timed there; then the port's Writer(sink, level=9) writes
      the 64 MiB with 1 MiB frames and batch_frames=16 (warm-up, then the
      measured run, during which K1 and K2 must launch and K3 must not);
-     stock libzstd decodes it, the seek table lists 64 frames, 16 random
-     4 KiB reads decode, and its first frame equals the plain versions';
+     stock libzstd decodes it (its sha256 printed), the seek table lists
+     64 frames, 16 random 4 KiB reads decode, and its first frame equals
+     the plain versions';
      levels 4 and 16, and ZstdCodec(level=9, parser="hash"), each write
      8 MiB (2 MiB of each quarter) that libzstd decodes, K1 (K7) launching;
      the level-9 archive is read back through Reader(device="cuda")
      (fused, K4 launching) and Reader(decoder="lanes"), with the lane
      route's counts;
- 10. the transcode decode route (ZstdCodec(decoder="transcode")): every
+ 10. the transcode decode route (host delivery under ZstdCodec(), whose
+     decoder "auto" is the default): every
      call the route makes to K4's transcode arm is replayed on its plain
      version, exact (tokens, literals, stat), with the Huffman literals
      on the host and on the device, on the small frames of phase 2 and
      on the archive's first 8 frames with their hints, where the route
      must equal libzstd's output and the arm is timed; then
-     Reader(decoder="transcode") reads the 64 MiB archive as in phase 5
+     Reader(decoder="auto") reads the 64 MiB archive as in phase 5
      (the arm must launch, no batch may leave the route), the
      long-window frame and the level-9 archive go through it without a
      fallback, and the log-like archive of phase 7; every call of the
@@ -131,9 +139,10 @@ Phases, each of which must pass (any failure exits non-zero):
      KiB block, timed; Writer(sink, ZstdCodec(parser="sort")) writes the
      64 MiB after an 8 MiB warm-up (greedy_select must launch; libzstd
      decodes it, 64 frames, the first frame equals the CPU-plain write's,
-     Reader(device="cuda") reads it back with K4 launching and 16 random
-     4 KiB preads equal), then Writer(codec=LZ4Codec(parser="sort")) the
-     same with liblz4 and the LZ4 decoder; level 1 zstd and LZ4 level -1
+     Reader(device="cuda", decoder="fused") reads it back with K4
+     launching and 16 random 4 KiB preads equal), then
+     Writer(codec=LZ4Codec(parser="sort")) the same with liblz4 and the
+     LZ4 decoder (device_cache=True); level 1 zstd and LZ4 level -1
      (seg_size 8) write 8 MiB each, decoded by the stock libraries; the
      zseek_* shims write 8 MiB (CompressionParams("zstd",
      ZstdParams(3))), read it back with 64 zseek_preads and one
@@ -154,11 +163,27 @@ Phases, each of which must pass (any failure exits non-zero):
      archive decoded by libzstd and equal by sha256 to this process's
      write_archive of the same 64 frames at world size 1, the MiB/s
      printed; the dry run (parallel/dryrun.py) at
-     n = torch.cuda.device_count().
+     n = torch.cuda.device_count();
+ 13. the default decode routes (decoder="auto", the JAX package's):
+     Reader(device="cuda") with no decoder reads the level-3 archive of
+     phase 3, the level-9 archive of phase 9, 8 MiB in 1 MiB frames of
+     stock libzstd (level 3, no hints) and the LZ4 archive of phase 6,
+     each equal to its input; each zstd read's transcode counts
+     (zstd_decode.routes) and K4 launches by arm are printed, and the
+     LZ4 read must launch no decoder (the native host route); then
+     paired rounds in turns (AB, BA, AB): the level-3 archive through
+     "auto" and "fused", and the LZ4 archive through the host route and
+     the card route (device_cache=True, the decoder launching; the host
+     route's rounds must launch none), each round timed_read's
+     sequential read (MiB/s) and uniform random 4 KiB pread_fulls (seed
+     7; 1,000 for zstd, 300 for LZ4: p50, p99);
+     the example CLI (libzseek_tpu_torch.example, --zstd and --lz4) on
+     the 8 MiB sample in a temporary directory prints SUCCESS, K1 or K5
+     launching.
 
 Prints JSON lines for the write path, the read path, the LZ4 path, the
 hash path, the lane route, the level >= 4 path, the transcode route, the
-sort path, the workers path and the kernels, the
+sort path, the workers path, the default routes and the kernels, the
 card's name and power limit, then as its last line {"ok": true,
 "device": {...}}.  Exits non-zero without a result when no CUDA device is
 visible or the port is not beside it.
@@ -664,48 +689,71 @@ def read_all(r) -> bytes:
         parts.append(b)
 
 
+def timed_read(archive: bytes, data: bytes, n_preads: int = 1000,
+               counted=None, **kw) -> dict:
+    """The read phases' timing: a fresh Reader(device="cuda", **kw) reads
+    the archive sequentially in 1 MiB reads (MiB/s, host clock to a
+    synchronize; the counters of `counted`, {name: (module, attribute)},
+    set to 0 just before that pass and read just after), then a fresh one
+    makes n_preads uniform random 4 KiB pread_fulls (seed 7): p50 and p99
+    in microseconds and the cache hits; every byte equal to the input."""
+    import numpy as np
+    import torch
+    from libzseek_tpu_torch import Reader
+    counted = counted or {}
+    r = Reader(archive, device="cuda", **kw)
+    for mod, attr in counted.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    got = read_all(r)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in counted.items()}
+    r.close()
+    check(got == data, f"the sequential read ({kw}) differs from the input")
+    offs = np.random.default_rng(7).integers(0, len(data) - 4096, n_preads)
+    lat = []
+    with Reader(archive, device="cuda", **kw) as r:
+        for off in offs.tolist():
+            t = time.perf_counter()
+            b = r.pread_full(4096, off)
+            lat.append((time.perf_counter() - t) * 1e6)
+            check(b == data[off: off + 4096], f"{kw} pread at {off} differs")
+        hits = r.stats().cache_hits
+    return {"read_mib_s": len(data) / MIB / dt, "seconds": dt,
+            "pread_p50_us": float(np.percentile(lat, 50)),
+            "pread_p99_us": float(np.percentile(lat, 99)),
+            "cache_hits": hits, "counts": counts}
+
+
 def phase_read(archive: bytes, data: bytes, card: str, D=None,
                name: str = "K4", decoder: str = "fused",
-               counted=None, attr: str = "launches") -> dict:
+               counted=None, attr: str = "launches",
+               device_cache: bool = False) -> dict:
     """Phase 5 (and the LZ4, lane and transcode routes' reads): the read
-    path through the port's Reader on the card; `D` is the decoder's
-    module, whose launch count `attr` the measured sequential pass must
-    raise, and `counted` maps more names to (module, counter attribute)
-    to count in that pass (all set to 0 just before it)."""
+    path through the port's Reader on the card, after a warm-up read,
+    timed by timed_read; `D` is the decoder's module, whose launch count
+    `attr` the measured sequential pass must raise, and `counted` maps
+    more names to (module, counter attribute) to count in that pass.
+    device_cache keeps the frames of both passes on the card (the LZ4
+    decoder serves only device-resident frames); 16 preads through a
+    device-cache reader must leave CUDA tensors in its cache."""
     import numpy as np
     import torch
     from libzseek_tpu_torch import Reader
     if D is None:
         from libzseek_tpu_torch.ops import decode as D
     counted = dict(counted or {}, **{name: (D, attr)})
-    with Reader(archive, device="cuda", decoder=decoder) as r:  # warm-up
+    kw = dict(decoder=decoder, device_cache=device_cache)
+    with Reader(archive, device="cuda", **kw) as r:  # warm-up
         check(read_all(r) == data, "warm-up read differs from the input")
-    for mod, attr in counted.values():
-        setattr(mod, attr, 0)
-    r = Reader(archive, device="cuda", decoder=decoder)
-    t0 = time.perf_counter()
-    got = read_all(r)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = {k: getattr(mod, attr) for k, (mod, attr) in counted.items()}
+    t = timed_read(archive, data, counted=counted, **kw)
+    counts = t["counts"]
     launches = counts[name]
-    r.close()
-    check(got == data, "sequential read differs from the input")
     check(launches > 0, f"{name} never launched on the read path")
-    mib_s = len(data) / MIB / dt
-    r = Reader(archive, device="cuda", decoder=decoder)
-    offs = np.random.default_rng(7).integers(0, len(data) - 4096, 1000)
-    lat = []
-    for off in offs.tolist():
-        t = time.perf_counter()
-        b = r.pread_full(4096, off)
-        lat.append((time.perf_counter() - t) * 1e6)
-        check(b == data[off: off + 4096], f"pread at {off} differs")
-    hits = r.stats().cache_hits
-    r.close()
-    p50, p99 = (float(np.percentile(lat, q)) for q in (50, 99))
     rd = Reader(archive, device="cuda", device_cache=True, decoder=decoder)
-    for off in offs[:16].tolist():
+    offs = np.random.default_rng(7).integers(0, len(data) - 4096, 16)
+    for off in offs.tolist():
         check(rd.pread_full(4096, off) == data[off: off + 4096],
               f"device-cache pread at {off} differs")
     cached = list(rd._cache._map.values())
@@ -713,13 +761,17 @@ def phase_read(archive: bytes, data: bytes, card: str, D=None,
                          for c in cached),
           "device_cache frames are not CUDA tensors")
     rd.close()
-    print(f"read path ({decoder}): 64 MiB sequential in {dt:.3f} s = "
-          f"{mib_s:.2f} MiB/s (launches {counts}); 1000 random 4 KiB "
-          f"preads p50 {p50:.1f} us, p99 {p99:.1f} us ({hits} cache hits); "
-          f"16 device-cache preads equal, {len(cached)} frames on the card",
-          flush=True)
-    return {"card": card, "read_mib_s": mib_s, "pread_p50_us": p50,
-            "pread_p99_us": p99, "launches": launches, "counts": counts}
+    where = ", device_cache" if device_cache else ""
+    print(f"read path ({decoder}{where}): 64 MiB sequential in "
+          f"{t['seconds']:.3f} s = {t['read_mib_s']:.2f} MiB/s (launches "
+          f"{counts}); 1000 random 4 KiB preads p50 {t['pread_p50_us']:.1f} "
+          f"us, p99 {t['pread_p99_us']:.1f} us ({t['cache_hits']} cache "
+          f"hits); 16 device-cache preads equal, {len(cached)} frames on the "
+          f"card", flush=True)
+    return {"card": card, "read_mib_s": t["read_mib_s"],
+            "pread_p50_us": t["pread_p50_us"],
+            "pread_p99_us": t["pread_p99_us"], "launches": launches,
+            "counts": counts}
 
 
 class Sink:
@@ -957,10 +1009,10 @@ def decoder_against_plain(name, args, F, linked, n_valid, max_seqs=None):
     return err, plain_ms, got
 
 
-def phase_lz4(data, card, report) -> dict:
+def phase_lz4(data, card, report, keep: dict) -> dict:
     """Phase 6: K5 and the LZ4 decoder against their plain versions, then
-    the LZ4 write and read paths."""
-    import numpy as np
+    the LZ4 write and read paths (the archive goes to `keep` for phase
+    13)."""
     import torch
     from libzseek_tpu_torch import LZ4Codec
     from libzseek_tpu_torch.format.seek_table import parse_seek_table_bytes
@@ -1030,6 +1082,7 @@ def phase_lz4(data, card, report) -> dict:
           "stock liblz4 does not reproduce the input")
     print(f"LZ4 archive sha256 {hashlib.sha256(archive).hexdigest()}",
           flush=True)
+    keep["lz4_archive"] = archive
     table = parse_seek_table_bytes(archive)
     check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
     cpu_archive, cpu_dt = write_archive(data[:MIB], "cpu", "lz4", 0)
@@ -1044,38 +1097,61 @@ def phase_lz4(data, card, report) -> dict:
           f"to plain (CPU, {cpu_dt:.1f} s); level 9, 8 MiB: ratio "
           f"{len(hc) / (8 * MIB):.5f}, liblz4 decode equal", flush=True)
 
-    # the decoder at the reader's window: 4 frames, one per quarter
+    # the decoder on archive frames: one frame of each quarter alone (the
+    # device-cache read decodes one frame a call; timed, the mean over the
+    # quarters), then the four together (a 4-frame window)
     frames = [frame_bytes(archive, table, i) for i in range(64)]
-    win = [frames[16 * q] for q in range(4)]
-    args, F, linked = lz4_rows(win)
-    e_big, plain_ms, got = decoder_against_plain(
-        "LZ4 decoder (4 archive frames)", args, F, linked, 4)
-    check(all(got[0][r, :MIB].cpu().numpy().tobytes() ==
-              data[16 * q * MIB: (16 * q + 1) * MIB]
-              for r, q in enumerate(range(4))),
-          "LZ4 decoder: archive frames differ from the input")
-    dargs = [a.to(cuda) for a in args]
-    dec = lambda: lz4_decode.lz4_decode_frames(*dargs, F, linked=linked)
-    comp_bytes = sum(len(f) for f in win)
+    timed = {}
+    for win in [[frames[16 * q]] for q in range(4)] + \
+            [[frames[16 * q] for q in range(4)]]:
+        args, F, linked = lz4_rows(win)
+        n = len(win)
+        e, p_ms, got = decoder_against_plain(
+            f"LZ4 decoder ({n} archive frame{'s' if n > 1 else ''})",
+            args, F, linked, n)
+        derrs.append(e)
+        q0 = [16 * q for q in range(4)] if n > 1 else [frames.index(win[0])]
+        check(all(got[0][r, :MIB].cpu().numpy().tobytes() ==
+                  data[i * MIB: (i + 1) * MIB] for r, i in enumerate(q0)),
+              "LZ4 decoder: archive frames differ from the input")
+        dargs = [a.to(cuda) for a in args]
+        ms = time_cuda(lambda: lz4_decode.lz4_decode_frames(
+            *dargs, F, linked=linked))
+        timed.setdefault(n, []).append(
+            (ms, p_ms, sum(len(f) for f in win) + n * MIB, n * MIB))
+    mean = lambda rows, k: sum(r[k] for r in rows) / len(rows)
+    one, four = timed[1], timed[4][0]
     entry(report, "LZ4 decode", "libzseek_tpu_torch/csrc/lz4_decode.cu",
           "libzseek_tpu/ops/lz4_decode.py:110 (XLA lz4_decode_frames)",
-          derrs + [e_big], time_cuda(dec), plain_ms,
-          comp_bytes + 4 * MIB, 4 * MIB,
+          derrs, mean(one, 0), mean(one, 1), round(mean(one, 2)), MIB,
           "hand-written frames (self-overlapping, cross-block and bad "
           "copies); linked and independent frames of the codec and of "
-          "liblz4 with 12 damaged copies each; 4 archive frames (the "
-          "reader's window)")
+          "liblz4 with 12 damaged copies each; one archive frame of each "
+          "quarter (the device-cache read's calls; times the mean of the "
+          "four) and the four together")
+    bms4, _ = bound(four[2], four[3])
+    report[-1].update(window4_ms=four[0], window4_plain_ms=four[1],
+                      window4_bound_ms=bms4)
+    print(f"LZ4 decoder, 4 archive frames together: card {four[0]:.3f} ms, "
+          f"plain {four[1]:.1f} ms on the CPU, bound {bms4:.4f} ms; one "
+          f"frame: card " + ", ".join(f"{r[0]:.3f}" for r in one) + " ms",
+          flush=True)
 
-    # the read path
-    read = phase_read(archive, data, card, lz4_decode, "LZ4 decoder")
+    # the read path: frames kept on the card go through the decoder
+    read = phase_read(archive, data, card, lz4_decode, "LZ4 decoder",
+                      decoder="auto", device_cache=True)
     report[-1]["launches"] = read["launches"]
 
-    # the two decode routes over the 64 frames, 4-frame windows
+    # the two decode routes over the 64 frames, 4-frame windows: the
+    # card's decoder with each window copied to the host at once, and the
+    # native host route that host delivery takes
     codec = LZ4Codec(device="cuda")
     sizes = [MIB] * 64
     routes = {}
-    for name, fn in (("card", codec.decompress_frames),
-                     ("host", codec._decompress_frames_host)):
+    card_route = lambda d, s: [torch.cat(codec.decompress_frames(
+        d, s, to_device=True)).cpu().numpy().tobytes()]
+    for name, fn in (("card", card_route),
+                     ("host", codec.decompress_frames)):
         fn(frames[:4], sizes[:4])                        # warm-up
         t0 = time.perf_counter()
         got = []
@@ -1738,6 +1814,8 @@ def phase_levels(data, card, report, keep: dict) -> dict:
     check(counts["K3"] == 0, "K3 launched on 64 KiB blocks")
     check(golden.zstd_decompress(archive) == data,
           "stock libzstd does not reproduce the level-9 archive")
+    print(f"level-9 archive sha256 {hashlib.sha256(archive).hexdigest()}",
+          flush=True)
     keep["level9_archive"] = archive
     table = parse_seek_table_bytes(archive)
     check(table.num_frames == 64, f"seek table has {table.num_frames} frames")
@@ -1920,7 +1998,7 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
     """Phase 10: K4's transcode arm against its plain version (host and
     device literals) on the small frames of phase 2 and on the phase-3
     archive's first 8 frames, the route against libzstd there, the arm
-    timed, then Reader(decoder="transcode") over the 64 MiB archive, the
+    timed, then Reader(decoder="auto") over the 64 MiB archive, the
     long-window frame, the level-9 archive, and the fused, lane and
     transcode reads of the 64 MiB timed in alternation."""
     import torch
@@ -1948,7 +2026,7 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
         return res
 
     small, raws = k4_small_frames()    # the long-window frame comes last
-    r = Reader(archive, device="cuda", decoder="transcode")
+    r = Reader(archive, device="cuda", decoder="auto")
     hints8 = [r._frame_hints(i) for i in range(8)]
     r.close()
     frames8 = [frame_bytes(archive, table, i) for i in range(8)]
@@ -1965,10 +2043,11 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
     nb_d, ops_d = transcode_work(recorded["8 frames, device literals"])
     rows = sum(len(a[4]) for a, _ in recorded["8 frames, host literals"])
 
-    # the main path: Reader(decoder="transcode") over the 64 MiB archive
+    # the main path: Reader(decoder="auto") over the 64 MiB archive, whose
+    # host delivery takes the transcode route
     for k in ZD.routes:
         ZD.routes[k] = 0
-    read = phase_read(archive, data, card, D, "K4 transcode", "transcode",
+    read = phase_read(archive, data, card, D, "K4 transcode", "auto",
                       attr="transcode_launches")
     main_routes = dict(ZD.routes)
     check(main_routes["transcode_fallback_batches"] == 0
@@ -2002,7 +2081,7 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
         ZD.routes[k] = 0
     with record_transcode() as l9_calls, \
             Reader(kept["level9_archive"], device="cuda",
-                   decoder="transcode") as r:
+                   decoder="auto") as r:
         check(read_all(r) == data, "the level-9 transcode read differs")
     l9_routes = dict(ZD.routes)
     check(l9_routes["transcode_fallback_batches"] == 0
@@ -2013,7 +2092,7 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
         ZD.routes[k] = 0
     with record_transcode() as log_calls, \
             Reader(kept["log_archive"], device="cuda",
-                   decoder="transcode") as r:
+                   decoder="auto") as r:
         check(read_all(r) == kept["logs"],
               "the log-like transcode read differs")
     log_routes = dict(ZD.routes)
@@ -2045,7 +2124,8 @@ def phase_transcode(archive, table, data, kept, card, report) -> dict:
     paired = {"fused": [], "lanes": [], "transcode": []}
     for _ in range(3):
         for dec in paired:
-            r = Reader(archive, device="cuda", decoder=dec)
+            r = Reader(archive, device="cuda",
+                       decoder="auto" if dec == "transcode" else dec)
             t0 = time.perf_counter()
             got = read_all(r)
             torch.cuda.synchronize()
@@ -2140,26 +2220,14 @@ def greedy_work(args) -> tuple[int, int]:
             + B * nseg * (1 + 4 + 4) + 4 * B), 4 * B * nseg
 
 
-def sort_read(archive: bytes, data: bytes, D, name: str) -> float:
-    """Reader(device="cuda") over the archive: the decoder module D must
-    launch, the bytes equal the input, and 16 random 4 KiB preads (seed
-    7) equal; returns the sequential MiB/s."""
-    import numpy as np
-    import torch
-    from libzseek_tpu_torch import Reader
-    D.launches = 0
-    t0 = time.perf_counter()
-    with Reader(archive, device="cuda") as r:
-        got = read_all(r)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        rng = np.random.default_rng(7)
-        for off in rng.integers(0, len(data) - 4096, 16).tolist():
-            check(r.pread_full(4096, off) == data[off: off + 4096],
-                  f"sort archive: pread at {off} differs")
-    check(got == data, "the Reader's read of a sort archive differs")
-    check(D.launches > 0, f"{name} never launched on the sort read")
-    return len(data) / MIB / dt
+def sort_read(archive: bytes, data: bytes, D, name: str, **kw) -> float:
+    """timed_read of the archive with 16 preads (kw picks the route that
+    runs D: decoder="fused" for K4, device_cache=True for the LZ4
+    decoder): the decoder module D must launch on the sequential pass;
+    returns its MiB/s."""
+    t = timed_read(archive, data, 16, {name: (D, "launches")}, **kw)
+    check(t["counts"][name] > 0, f"{name} never launched on the sort read")
+    return t["read_mib_s"]
 
 
 def phase_sort(data, card, report) -> dict:
@@ -2237,7 +2305,7 @@ def phase_sort(data, card, report) -> dict:
     check(frame_bytes(cpu_archive, parse_seek_table_bytes(cpu_archive), 0)
           == frame_bytes(archive, table, 0),
           "first zstd sort frame differs between the card and plain")
-    read_mib_s = sort_read(archive, data, decode, "K4")
+    read_mib_s = sort_read(archive, data, decode, "K4", decoder="fused")
     print(f"zstd sort archive: libzstd decode equal, 64 frames, first frame "
           f"equal to plain (CPU, {cpu_dt:.1f} s), Reader read equal "
           f"({read_mib_s:.2f} MiB/s, K4 launching), 16 preads equal",
@@ -2266,7 +2334,8 @@ def phase_sort(data, card, report) -> dict:
     check(frame_bytes(cpu_l, parse_seek_table_bytes(cpu_l), 0)
           == frame_bytes(l_archive, l_table, 0),
           "first LZ4 sort frame differs between the card and plain")
-    l_read = sort_read(l_archive, data, lz4_decode, "LZ4 decoder")
+    l_read = sort_read(l_archive, data, lz4_decode, "LZ4 decoder",
+                       device_cache=True)
     print(f"LZ4 sort archive: liblz4 decode equal, 64 frames, first frame "
           f"equal to plain (CPU, {cpu_l_dt:.1f} s), Reader read equal "
           f"({l_read:.2f} MiB/s, the LZ4 decoder launching), 16 preads "
@@ -2479,6 +2548,140 @@ def phase_workers(data, card, zstd_sha, lz4_sha) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the default decode routes
+
+def golden_archive(data: bytes) -> bytes:
+    """`data` in 1 MiB frames of stock libzstd (level 3, no hints
+    sidecar) behind the port's seek table."""
+    from libzseek_tpu_torch.format.seek_table import FrameLog
+    from libzseek_tpu_torch.testing import golden
+    log = FrameLog()
+    frames = []
+    for pos in range(0, len(data), MIB):
+        raw = data[pos: pos + MIB]
+        frames.append(golden.zstd_compress(raw, level=3))
+        log.log_frame(len(frames[-1]), len(raw))
+    return b"".join(frames) + log.serialize()
+
+
+def phase_routes(archive, data, kept, card) -> dict:
+    """Phase 13: Reader(device="cuda") with no decoder on the level-3,
+    level-9, stock libzstd and LZ4 archives (bytes, the routes taken),
+    paired rounds of the zstd routes and of the LZ4 routes, and the
+    example CLI on the card."""
+    import io
+    import tempfile
+    from libzseek_tpu_torch import Reader, example
+    from libzseek_tpu_torch.ops import decode, lz4_decode, lz4_emit
+    from libzseek_tpu_torch.ops import parse_linked
+    from libzseek_tpu_torch.ops import zstd_decode as ZD
+    t_phase = time.perf_counter()
+    sample = sample_8mib(data)
+    out = {"card": card, "default_reads": {}}
+    for name, arc, raw in (("level 3", archive, data),
+                           ("level 9", kept["level9_archive"], data),
+                           ("libzstd level 3", golden_archive(sample),
+                            sample)):
+        for k in ZD.routes:
+            ZD.routes[k] = 0
+        decode.launches = decode.transcode_launches = 0
+        t0 = time.perf_counter()
+        with Reader(arc, device="cuda") as r:
+            check(r._codec.decoder == "auto", "the default is not 'auto'")
+            hinted = r._hints is not None
+            got = read_all(r)
+        dt = time.perf_counter() - t0
+        check(got == raw, f"the default read of the {name} archive differs")
+        routes = {k: v for k, v in ZD.routes.items()
+                  if k.startswith("transcode")}
+        check(routes["transcode_batches"] + routes["transcode_rule_batches"]
+              > 0, f"the default {name} read never tried transcode")
+        out["default_reads"][name] = dict(
+            mib_s=len(raw) / MIB / dt, hints=hinted, routes=routes,
+            k4_launches=decode.launches,
+            k4_transcode_launches=decode.transcode_launches)
+        print(f"default read, {name}: {len(raw) // MIB} MiB at "
+              f"{len(raw) / MIB / dt:.2f} MiB/s, hints {hinted}, routes "
+              f"{routes}, K4 launches execute {decode.launches} / "
+              f"transcode {decode.transcode_launches}", flush=True)
+    lz4_archive = kept["lz4_archive"]
+    lz4_decode.launches = 0
+    t0 = time.perf_counter()
+    with Reader(lz4_archive, device="cuda") as r:
+        got = read_all(r)
+    dt = time.perf_counter() - t0
+    check(got == data, "the default read of the LZ4 archive differs")
+    check(lz4_decode.launches == 0,
+          f"the LZ4 host-delivery read launched the decoder "
+          f"{lz4_decode.launches} times")
+    out["default_reads"]["lz4"] = {"mib_s": len(data) / MIB / dt,
+                                   "decoder_launches": 0}
+    print(f"default read, LZ4: {len(data) // MIB} MiB at "
+          f"{len(data) / MIB / dt:.2f} MiB/s, LZ4 decoder launches 0 (the "
+          f"native host route)", flush=True)
+
+    parts = {"default reads": time.perf_counter() - t_phase}
+
+    # paired rounds in turns: AB, BA, AB (timed_read); the LZ4 card
+    # route must launch the decoder in each of its rounds, the host
+    # route never
+    sets = (("level 3, 1000 preads", archive, 1000,
+             {d: {"decoder": d} for d in ("auto", "fused")}),
+            ("LZ4, 300 preads", lz4_archive, 300,
+             {"host": {}, "card": {"device_cache": True}}))
+    counted = {"LZ4 decoder": (lz4_decode, "launches")}
+    rounds = []
+    for what, arc, n, kws in sets:
+        got = {k: [] for k in kws}
+        for rnd in range(3):
+            for k in (list(kws)[::-1] if rnd == 1 else list(kws)):
+                t = timed_read(arc, data, n, counted, **kws[k])
+                launched = t.pop("counts")["LZ4 decoder"] > 0
+                check(arc is archive or launched == (k == "card"),
+                      f"the LZ4 {k} route: decoder launched {launched}")
+                got[k].append(t)
+        for k, rs in got.items():
+            fmt = lambda key, f: " / ".join(format(x[key], f) for x in rs)
+            print(f"paired rounds ({what}), {k}: MiB/s "
+                  f"{fmt('read_mib_s', '.2f')}; pread p50 "
+                  f"{fmt('pread_p50_us', '.1f')} us, p99 "
+                  f"{fmt('pread_p99_us', '.1f')} us ({card})", flush=True)
+        rounds.append(got)
+    zstd, lz4 = rounds
+    out.update(zstd_rounds=zstd, lz4_rounds=lz4)
+    parts["rounds"] = time.perf_counter() - t_phase - sum(parts.values())
+
+    # the example CLI on the card, 8 MiB, in a temporary directory
+    cli = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sample.bin")
+        with open(path, "wb") as f:
+            f.write(sample)
+        for flag, mod in (("--zstd", parse_linked), ("--lz4", lz4_emit)):
+            mod.launches = 0
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = example.main([flag, path])
+            lines = buf.getvalue().strip().splitlines()
+            check(rc == 0 and lines and lines[-1] == "SUCCESS",
+                  f"example {flag}: {lines[-3:]}")
+            check(mod.launches > 0, f"example {flag} wrote off the card")
+            check(os.listdir(tmp) == ["sample.bin"],
+                  f"example {flag} left {os.listdir(tmp)}")
+            cli[flag[2:]] = lines[-2]
+            print(f"example {flag} on the card, 8 MiB: {lines[-2]}; "
+                  f"{lines[-1]}", flush=True)
+    out["example"] = cli
+    out["seconds"] = time.perf_counter() - t_phase
+    parts["example CLI"] = out["seconds"] - sum(parts.values())
+    out["parts_s"] = parts
+    print(f"phase 13 in {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")",
+          flush=True)
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "libzseek_tpu_torch")):
         fail("libzseek_tpu_torch is not beside chip_smoke.py")
@@ -2567,10 +2770,10 @@ def main() -> None:
     report[-1]["launches"] = read["launches"]
 
     # phase 6
-    lz4_path = phase_lz4(data, card, report)
+    kept = {}
+    lz4_path = phase_lz4(data, card, report, kept)
 
     # phase 7
-    kept = {}
     hash_path = phase_hash(data, card, report, kept)
 
     # phase 8
@@ -2591,6 +2794,9 @@ def main() -> None:
                                  hashlib.sha256(archive).hexdigest(),
                                  lz4_path["sha256"])
 
+    # phase 13
+    routes_path = phase_routes(archive, data, kept, card)
+
     print(json.dumps({"main_path": {"card": card, "write_mib_s": 64 / dt,
                                     "ratio": len(archive) / len(data)}}),
           flush=True)
@@ -2602,6 +2808,7 @@ def main() -> None:
     print(json.dumps({"transcode_path": transcode_path}), flush=True)
     print(json.dumps({"sort_path": sort_path}), flush=True)
     print(json.dumps({"workers_path": workers_path}), flush=True)
+    print(json.dumps({"routes_path": routes_path}), flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -104,10 +104,14 @@ def open_writer(path_or_file, codec: str = "zstd", *,
 
 def open_reader(path_or_file, *, device: str = "cuda", cache_frames: int = 8,
                 readahead: int = 8, verify_checksums: bool = False,
-                device_cache: bool = False, decoder: str = "fused") -> Reader:
+                device_cache: bool = False, decoder: str = "auto") -> Reader:
     """Reader on a path, a binary file object, or a pread/fsize source.
     A path's file stays open for the reader's lifetime.  `decoder` picks
-    the zstd decode route ("fused", "lanes" or "transcode", Reader)."""
+    the decode route (Reader): "auto", the JAX package's routes (zstd:
+    transcode for host delivery, falling back to fused, and fused for
+    device-resident frames; LZ4: the native host decoder, and the card's
+    decoder for device-resident frames), or for zstd "fused" or
+    "lanes"."""
     kw = dict(device=device, cache_frames=cache_frames, readahead=readahead,
               verify_checksums=verify_checksums, device_cache=device_cache,
               decoder=decoder)

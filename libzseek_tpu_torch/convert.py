@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 
-def to_torch(a, device: str | torch.device = "cpu") -> torch.Tensor:
+def to_torch(a, device: str | torch.device = "cuda") -> torch.Tensor:
     """numpy (or array-like) -> tensor with the port's dtype."""
     a = np.asarray(a)
     if a.dtype == np.uint32:
@@ -39,7 +39,7 @@ def to_numpy(t: torch.Tensor, dtype=None) -> np.ndarray:
     return a if dtype is None else a.astype(dtype)
 
 
-def seqs_to_torch(seqs: dict, device: str | torch.device = "cpu") -> dict:
+def seqs_to_torch(seqs: dict, device: str | torch.device = "cuda") -> dict:
     """A sequences dict (ll, ml, offv, n_seq, hist, hist_q, lit_count,
     const, lit_mask, ...) from the JAX package -> port tensors."""
     return {k: to_torch(np.asarray(v), device) for k, v in seqs.items()}

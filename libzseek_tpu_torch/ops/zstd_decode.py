@@ -36,7 +36,14 @@ fused packer predicts no block sizes: K4 places each block where the
 previous one ended, checks a block's size only where its header gives it
 (raw and RLE blocks, meta[1]; -1 otherwise) and decode_frames checks each
 frame's total against its content size.  There is no second route: a
-block K4 rejects raises FormatError.  The lane route takes the
+block K4 rejects raises FormatError.  So the reference's ladder for
+host delivery (transcode, then fused, then its XLA lane passes where
+_try_decode_smem returns None: a block larger than BLOCK_MAX, a d_off
+not a multiple of 4, a size off the prediction, :775-800) has two rungs
+here, transcode then fused: the fused route accepts every block the
+third rung would take, with the same bytes (the codec's
+decoder="auto", runtime/zstd_codec.py).  Every route runs on `device`,
+"cuda" unless the caller asks for "cpu".  The lane route takes the
 reference's TPU branch on every device: Huffman symbols stay on the
 device and are scattered into K6's literal plane, and K6 runs whenever
 the batch meets the reference's rule (:1578-1586).
@@ -472,7 +479,7 @@ def k4_inputs(datas, d_sizes, device) -> tuple[tuple, int, dict]:
 
 
 def decode_frames(datas, d_sizes=None, to_device: bool = False,
-                  device="cpu"):
+                  device="cuda"):
     """Decode a batch of zstd frames with K4 on `device`.
 
     Returns host `bytes` per frame, or with to_device=True one uint8
@@ -745,7 +752,7 @@ def _upload(inp: dict, dev) -> dict:
 
 
 def decode_frames_lanes(datas, d_sizes=None, hints=None,
-                        to_device: bool = False, device="cpu"):
+                        to_device: bool = False, device="cuda"):
     """Decode a batch of zstd frames through the lane route on `device`.
 
     hints: per-frame decode-anchor lists (format/hints.py, the Writer's
@@ -1127,7 +1134,7 @@ def _host_literals(rows, hufreg: _HufReg) -> dict:
             for r, o in spans.items()}
 
 
-def decode_frames_transcode(datas, d_sizes=None, hints=None, device="cpu",
+def decode_frames_transcode(datas, d_sizes=None, hints=None, device="cuda",
                             host_literals: bool = True):
     """Decode a batch of zstd frames through the transcode route: K4's
     transcode arm on `device` emits each block's sequences as packed

@@ -9,9 +9,12 @@ with its 64 KiB blocks and K1's level >= 4 arms; lz4 at level 0; hash,
 ZstdCodec(parser="hash") at level 3; transcode and lanes, zstd at level
 3; 1 MiB frames, batch_frames=16, 1 MiB writes), once to warm up
 and once under torch.profiler with CPU and CUDA activities; then reads
-the archive back through the port's Reader(device="cuda") in 1 MiB
-reads (transcode: Reader(decoder="transcode"); lanes:
-Reader(decoder="lanes"), K6 on every batch), likewise once to warm up
+the archive back through the port's Reader(device="cuda",
+decoder="fused") in 1 MiB reads (K4's execute arm; transcode:
+Reader(decoder="auto"), whose host delivery takes K4's transcode arm;
+lanes: Reader(decoder="lanes"), K6 on every batch; lz4:
+Reader(decoder="auto"), the native host route),
+likewise once to warm up
 and once profiled.  For each, prints
 the wall time, the device's busy share of it (union of CUDA kernel and
 copy intervals), the CUDA time per kernel name, and the host time
@@ -153,7 +156,8 @@ def main(argv: list[str]) -> int:
           f"{SIZE_MIB / wall:.2f} MiB/s,"
           f" ratio {len(archive) / len(data):.5f}")
     report(prof, wall)
-    decoder = codec if codec in ("transcode", "lanes") else "fused"
+    decoder = {"transcode": "auto", "lz4": "auto",
+               "lanes": "lanes"}.get(codec, "fused")
     got, prof, wall = _profiled(functools.partial(_read, decoder=decoder),
                                 archive)
     if got != data:

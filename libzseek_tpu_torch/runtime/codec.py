@@ -20,14 +20,16 @@ parser (parser="sort", the reference's CPU default) and _LZ4Stream:
           LZ4F assembly, storing a block raw from the host's bytes where
           its payload is not smaller (_assemble_frames, :128-148).
 
-Decoding runs the card's LZ4 decoder (ops/lz4_decode.py,
-csrc/lz4_decode.cu) for every call, host delivery and to_device alike;
-device="cpu" runs its plain version.  The reference's host route over
-the native block decoder is kept as _decompress_frames_host, which no
-call takes by default.  `workers` is the reference's round-robin (its
-_put): with more than one visible device, each batch is encoded on the
-next of the first `workers` devices and finished there; decoding stays
-on the codec's device.  Not ported: the ZN_LZ4_HOST_DECODE knob.
+Decoding takes the reference's routes (:288-299, 326-336): host
+delivery goes through the native block decoder (zn_lz4_decode) on the
+host, as the reference's does whenever its native library is there
+(the port's is built at first use, so always); to_device=True runs the
+card's LZ4 decoder (ops/lz4_decode.py, csrc/lz4_decode.cu), whose
+frames stay on the device; device="cpu" runs its plain version.
+`workers` is the reference's round-robin (its _put): with more than one
+visible device, each batch is encoded on the next of the first
+`workers` devices and finished there; decoding stays on the codec's
+device.  Not ported: the ZN_LZ4_HOST_DECODE knob (A11 of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -272,10 +274,11 @@ class LZ4Codec(RoundRobin):
         return self.decompress_frames([data], [d_size])[0]
 
     def _decompress_frames_host(self, datas, d_sizes) -> list[bytes]:
-        """The reference's host route: each block through the native
-        decoder (zn_lz4_decode) into the frame's buffer.  Kept for
-        measurement beside the card's decoder; no call takes it by
-        default."""
+        """The reference's host route, taken for host delivery: each
+        block through the native decoder (zn_lz4_decode) into the
+        frame's buffer.  LZ4 has no entropy stage, so expanding bytes
+        the host already holds is memcpy work; the card's decoder serves
+        device-resident frames."""
         out = []
         for data, d in zip(datas, d_sizes):
             info = lz4f.parse_frame_header(data)
@@ -305,10 +308,13 @@ class LZ4Codec(RoundRobin):
         return out
 
     def decompress_frames(self, datas, d_sizes, to_device: bool = False):
-        """Decode a batch of LZ4F frames on the codec's device: host bytes
-        per frame, or with to_device=True one uint8 tensor per frame on
-        the device.  Frames are grouped by padded geometry, one decoder
-        launch per group.  A corrupt frame raises FormatError."""
+        """Decode a batch of LZ4F frames: host bytes per frame through the
+        native host route, or with to_device=True one uint8 tensor per
+        frame on the codec's device through the card's decoder, frames
+        grouped by padded geometry, one decoder launch per group.  A
+        corrupt frame raises FormatError."""
+        if not to_device:
+            return self._decompress_frames_host(datas, d_sizes)
         parsed = []
         for data in datas:
             info = lz4f.parse_frame_header(data)
@@ -341,7 +347,6 @@ class LZ4Codec(RoundRobin):
                                                   F, linked=linked)
             out_lens = out_lens.cpu().numpy()
             ok = ok.cpu().numpy()
-            host = None if to_device else out.cpu().numpy()
             for r, i in enumerate(idxs):
                 if not ok[r]:
                     raise FormatError(f"corrupt LZ4 frame (index {i})")
@@ -349,9 +354,7 @@ class LZ4Codec(RoundRobin):
                     raise FormatError(
                         f"LZ4 frame decoded to {out_lens[r]} bytes, "
                         f"expected {d_sizes[i]}")
-                n = int(out_lens[r])
-                results[i] = out[r, :n] if to_device else \
-                    host[r, :n].tobytes()
+                results[i] = out[r, : int(out_lens[r])]
         return results
 
 

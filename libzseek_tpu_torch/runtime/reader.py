@@ -23,19 +23,24 @@ happens outside the locks so concurrent readers overlap device work
 :484-553); two prefetch threads decode the next sequential windows, so
 the codec is called from two threads at once.
 
-`decoder` picks the zstd decode route: "fused" (K4, the default) walks
-whole streams and skips the Writer's decode-anchor sidecar, as stock zstd
-readers do; "lanes" (the lane decoders and K6) and "transcode" (K4's
-transcode arm and the host executor; device-resident frames take the
-fused route) load the sidecar, as the JAX reader does (_load_hints), and
-pass each frame's anchors to the codec.  LZ4 archives have one decoder,
-"fused".  `codec` (the reference's, :41) replaces the sniffed codec with
-any object that has decompress_frames(datas, d_sizes[, frame_hints]
-[, to_device=True]); the sidecar is loaded for it when it says
-supports_hints, and frames stay on the device only when it says
-supports_device_frames.  prefetch(offsets) (the reference's, :154-186)
-decodes the uncached frames covering a list of offsets in one codec
-call; it takes only the cache lock.
+`decoder` picks the zstd decode route (ZstdCodec): "auto" (the default)
+takes the JAX package's routes, transcode for frames delivered to the
+host (K4's transcode arm and the host executor, falling back to fused by
+rule or after a failed stat) and fused for device-resident frames;
+"fused" (K4) walks whole streams and skips the Writer's decode-anchor
+sidecar, as stock zstd readers do; "lanes" is the lane decoders and K6.
+"auto" and "lanes" load the sidecar, as the JAX reader does for every
+zstd archive (_load_hints), and pass each frame's anchors to the codec.
+LZ4 archives take "auto" only, the JAX package's routes: the native host
+decoder for frames delivered to the host, the card's decoder for
+device-resident frames (device_cache=True, or cache_frames=0).  `codec` (the reference's, :41)
+replaces the sniffed codec with any object that has
+decompress_frames(datas, d_sizes[, frame_hints][, to_device=True]); the
+sidecar is loaded for it when it says supports_hints, and frames stay
+on the device only when it says supports_device_frames.
+prefetch(offsets) (the reference's, :154-186) decodes the uncached
+frames covering a list of offsets in one codec call; it takes only the
+cache lock.
 """
 
 from __future__ import annotations
@@ -59,14 +64,15 @@ DEFAULT_CACHE_FRAMES = 8
 
 class Reader:
     """Random-access reader of a zstd or LZ4 seekable archive (bytes, or a
-    source with pread/fsize), decoding frames on `device` (K4, the lane
-    route or the LZ4 decoder on "cuda"; "cpu" runs their plain versions,
-    for tests)."""
+    source with pread/fsize), decoding frames on `device` through the
+    `decoder` route (K4's arms, the lane route or the LZ4 decoder on
+    "cuda", LZ4 host delivery on the host; "cpu" runs the kernels' plain
+    versions, for tests)."""
 
     def __init__(self, source, *, device="cuda",
                  cache_frames: int = DEFAULT_CACHE_FRAMES, codec=None,
                  readahead: int = 8, verify_checksums: bool = False,
-                 device_cache: bool = False, decoder: str = "fused"):
+                 device_cache: bool = False, decoder: str = "auto"):
         """device_cache=True keeps decompressed frames on the card (a
         device frame cache): cached entries are uint8 tensors and pread
         copies only the requested span to the host.  cache_frames=0 (no
@@ -89,9 +95,9 @@ class Reader:
                 raise ParameterError("codec must provide decompress_frames")
             self._codec = codec
         elif magic == LZ4F_MAGIC:
-            if decoder != "fused":
+            if decoder != "auto":
                 raise ParameterError(
-                    f"decoder {decoder!r}: LZ4 archives decode with 'fused'")
+                    f"decoder {decoder!r}: LZ4 archives decode with 'auto'")
             from libzseek_tpu_torch.runtime.codec import LZ4Codec
             self._codec = LZ4Codec(device=device)
         elif magic == ZSTD_MAGIC:
@@ -102,8 +108,8 @@ class Reader:
         self._table: SeekTable = parse_seek_table(source.pread, self._fsize)
         # the Writer's decode anchors: the lane route anchors its walks at
         # them, the transcode route starts chunks mid-frame where they are
-        wants = getattr(codec, "supports_hints", False) if codec is not None \
-            else decoder in ("lanes", "transcode")
+        wants = getattr(self._codec, "supports_hints", False) and \
+            (codec is not None or decoder != "fused")
         self._hints = self._load_hints() if wants else None
         self._cache = FrameCache(cache_frames) if cache_frames > 0 else None
         self._lock = threading.Lock()          # the cursor

@@ -56,18 +56,24 @@ its upload, device stages and finishing follow it there.
 collect_hints=False returns no decode hints (the archive bytes are the
 same).
 
-Decoding (decompress_frames, the Reader's codec call) takes one of three
-routes of the reference's decode_frames (ops/zstd_decode.py), chosen by
-`decoder`: "fused" (the default) is host frame parse and row packing,
-then K4 on the device (ops/decode.py); "lanes" is the route the
+Decoding (decompress_frames, the Reader's codec call) takes the routes
+of the reference's decode_frames (ops/zstd_decode.py), chosen by
+`decoder`: "auto" (the default) is the reference's choice (its
+:1298-1321): host delivery takes the transcode route (Huffman literals
+on the host, K4's transcode arm on the device, sequence execution on the
+host; decode_frames_transcode), which hands a batch to fused by rule
+(its predicted block sizes do not add up) or after a failed stat, both
+counted in zstd_decode.routes; device delivery (to_device=True) goes
+straight to fused.  The reference's third rung, its XLA lane passes for
+blocks its fused packer refuses, has no counterpart: the port's fused
+route takes those blocks too, with the same bytes.  "auto" takes the
+reference's accelerator branch on every device, device="cpu" included.
+"fused" is host frame parse and row packing, then K4 on the device
+(ops/decode.py), for both deliveries; "lanes" is the route the
 reference runs with ZN_DECODE_SMEM=off: Huffman and FSE lane decoders,
 anchored at the Writer's decode hints where a frame has them
 (ops/lanes.py), then K6 (ops/exec_blocks.py) or the pointer-doubling
-executor; "transcode" is the route the reference tries first on its TPU
-for host delivery: Huffman literals on the host, K4's transcode arm on
-the device, sequence execution on the host (decode_frames_transcode).
-Device delivery (to_device=True) takes the fused route under
-"transcode", as in the reference.
+executor.
 """
 
 from __future__ import annotations
@@ -117,7 +123,7 @@ SMEM_SEQ_MAX = 4096   # beyond this many sequences in a block: the XLA arm
 SMEM_SEQ_MIN = 512    # lower bound on K2's sequence bucket
 PARSERS = ("linked", "hash", "sort")
 ENTROPIES = ("auto", "smem", "xla")
-DECODERS = ("fused", "lanes", "transcode")
+DECODERS = ("auto", "fused", "lanes")
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -191,7 +197,7 @@ class ZstdCodec(RoundRobin):
 
     def __init__(self, level: int = 3, device: str = "cuda",
                  block: int | None = None, parser: str = "auto",
-                 entropy: str = "auto", decoder: str = "fused",
+                 entropy: str = "auto", decoder: str = "auto",
                  max_batch_blocks: int = MAX_BATCH_BLOCKS,
                  collect_hints: bool = True, workers: int | None = None):
         parser = "linked" if parser == "auto" else parser
@@ -240,9 +246,10 @@ class ZstdCodec(RoundRobin):
         # "auto"/"smem": K2 (the chain, or the per-block path's K2 arm while
         # its blocks hold <= SMEM_SEQ_MAX sequences); "xla": the XLA arm
         self.entropy = entropy
-        # "fused": K4 walks whole streams; "lanes": the lane route, which
-        # reads the Writer's decode hints; "transcode": K4's transcode arm
-        # and the host executor (hints allow mid-frame chunks)
+        # "auto": transcode (K4's transcode arm and the host executor;
+        # hints allow mid-frame chunks) for host delivery, fused for device
+        # delivery (the reference's choice); "fused": K4 walks whole
+        # streams; "lanes": the lane route, which reads the Writer's hints
         self.decoder = decoder
         # adaptive payload-fetch cap, sized from recent batches
         self._cap_hint: int | None = None
@@ -937,17 +944,18 @@ class ZstdCodec(RoundRobin):
     def decompress_frames(self, datas, d_sizes, frame_hints=None,
                           to_device: bool = False):
         """Decode frames on the codec's device through the `decoder`
-        route: host bytes per frame, or with to_device=True one uint8
-        tensor per frame on the device.  frame_hints (per frame, the
-        Writer's decode anchors, or None) anchor the lane route's walks;
-        the transcode route splits a frame that has them into chunks;
-        the fused route walks whole streams and does not read them.  A
-        corrupt frame raises FormatError."""
+        route ("auto": transcode for host delivery, fused for device
+        delivery): host bytes per frame, or with to_device=True one
+        uint8 tensor per frame on the device.  frame_hints (per frame,
+        the Writer's decode anchors, or None) anchor the lane route's
+        walks; the transcode route splits a frame that has them into
+        chunks; the fused route walks whole streams and does not read
+        them.  A corrupt frame raises FormatError."""
         if self.decoder == "lanes":
             return zstd_decode.decode_frames_lanes(
                 datas, d_sizes, frame_hints, to_device=to_device,
                 device=self.device)
-        if self.decoder == "transcode" and not to_device:
+        if self.decoder == "auto" and not to_device:
             return zstd_decode.decode_frames_transcode(
                 datas, d_sizes, frame_hints, device=self.device)
         return zstd_decode.decode_frames(datas, d_sizes, to_device=to_device,

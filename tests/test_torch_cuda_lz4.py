@@ -137,5 +137,7 @@ def test_lz4_decoder_matches_plain(cuda):
     bad = bytearray(frames[0])
     first = parsed[0][0].offset
     bad[first: first + 3] = bytes(3)     # token 0, offset 0
-    with pytest.raises(FormatError):
-        LZ4Codec(device="cuda").decompress_frames([bytes(bad)], [len(text)])
+    for to_device in (True, False):       # the card's route, the host's
+        with pytest.raises(FormatError):
+            LZ4Codec(device="cuda").decompress_frames(
+                [bytes(bad)], [len(text)], to_device=to_device)

@@ -71,7 +71,8 @@ def test_crafted_frames_match_plain(cuda):
 def test_window_with_damage_and_a_short_frame(cuda):
     """Linked and independent frames of the codec (on the card) and of
     liblz4, eight damaged copies of the first, the last frame 3,000
-    bytes; then the codec's own window decode of the good frames."""
+    bytes; then the codec's own window decode of the good frames (the
+    card route, to_device=True, and the host route)."""
     rng = np.random.default_rng(101)
     raws = [mixed_corpus(rng, 4 * BLOCK).tobytes(),
             mixed_corpus(rng, 2 * BLOCK + 77).tobytes(),
@@ -104,3 +105,5 @@ def test_window_with_damage_and_a_short_frame(cuda):
             assert not out[r, len(raw):].any()
         sizes = [len(r) for r in raws]
         assert codec.decompress_frames(frames[:3], sizes) == raws
+        dev = codec.decompress_frames(frames[:3], sizes, to_device=True)
+        assert [t.cpu().numpy().tobytes() for t in dev] == raws

@@ -85,7 +85,7 @@ def test_zstd_decoder_from_two_threads():
     the same frames, whose row walk stages each stream as well."""
     cuda_device()
     rng = np.random.default_rng(17)
-    codec = ZstdCodec(device="cuda")
+    codec = ZstdCodec(device="cuda", decoder="fused")
     jobs = []
     for n, size in ((4, 128 * 1024), (8, 2048)):
         raws = [text_corpus(rng, size).tobytes() for _ in range(n)]

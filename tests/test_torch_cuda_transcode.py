@@ -1,7 +1,8 @@
 """K4's transcode arm (csrc/decode.cu zk_transcode) against its plain
 version on the card, both arms (host and device literals), on small
 frames, multi-row chains and variants of their calls, and the
-transcode route of ZstdCodec on "cuda" against device="cpu".
+transcode route of ZstdCodec (decoder="auto", host delivery) on "cuda"
+against device="cpu".
 
 Marked `cuda`: they need an NVIDIA GPU with sm_90a and nvcc, and skip
 elsewhere (the check runs inside the tests, not at import).  On the GPU
@@ -100,9 +101,9 @@ def test_transcode_codec_matches_cpu(cuda):
         raws, return_hints=True)
     sizes = [len(r) for r in raws]
     before = dict(ZD.routes)
-    got = ZstdCodec(device="cuda", decoder="transcode").decompress_frames(
+    got = ZstdCodec(device="cuda", decoder="auto").decompress_frames(
         frames, sizes, fh)
-    cpu = ZstdCodec(device="cpu", decoder="transcode").decompress_frames(
+    cpu = ZstdCodec(device="cpu", decoder="auto").decompress_frames(
         frames, sizes, fh)
     assert got == cpu == raws
     assert ZD.routes["transcode_batches"] == before["transcode_batches"] + 2
@@ -110,5 +111,5 @@ def test_transcode_codec_matches_cpu(cuda):
         before["transcode_fallback_batches"]
     bad, raw = leftover_bits_frame()
     with pytest.raises(FormatError):
-        ZstdCodec(device="cuda", decoder="transcode").decompress_frames(
+        ZstdCodec(device="cuda", decoder="auto").decompress_frames(
             [bad], [len(raw)])

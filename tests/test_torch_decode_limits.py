@@ -42,7 +42,7 @@ def test_offsets_past_the_reference_ring(monkeypatch):
     out, pstat, _ = port_on_reference_rows(args)
     assert (pstat[:, 1] == 1).all()
     assert out.tobytes() == b"".join(raws)
-    assert decode_frames(frames, [len(r) for r in raws]) == raws
+    assert decode_frames(frames, [len(r) for r in raws], device="cpu") == raws
 
 
 def test_corrupt_frames_raise():
@@ -50,12 +50,12 @@ def test_corrupt_frames_raise():
     with pytest.raises(RuntimeError):
         golden.zstd_frame_decompress(fr, len(raw))
     with pytest.raises(FormatError):
-        decode_frames([fr], [len(raw)])
+        decode_frames([fr], [len(raw)], device="cpu")
     # a flipped bit near the top of a sequence stream (its initial FSE
     # states): the first such flip stock libzstd rejects must raise here
     raw = multiblock(np.random.default_rng(91))[:100 * 1024]
     good = ZstdCodec(device="cpu").compress_frames([raw])[0]
-    assert decode_frames([good], [len(raw)]) == [raw]
+    assert decode_frames([good], [len(raw)], device="cpu") == [raw]
     for bit in range(8, 8 * 32):
         bad = bytearray(good)
         bad[len(bad) - 1 - bit // 8] ^= 1 << (bit % 8)
@@ -66,4 +66,4 @@ def test_corrupt_frames_raise():
     else:
         pytest.fail("no flip of the stream's top bytes is rejected")
     with pytest.raises(FormatError):
-        decode_frames([bytes(bad)], [len(raw)])
+        decode_frames([bytes(bad)], [len(raw)], device="cpu")

@@ -6,8 +6,11 @@ The test session itself imports jax and the JAX package
 writes a zstd archive (with each parser) and an LZ4 archive (with each
 parser) with the port's Writer, the sort archives through the zseek_*
 shims, and reads them back with the port's Reader (the zstd one through
-the fused, lane and transcode decoders) and the port's own format and
-testing copies, with the scale-out package (parallel/) imported."""
+the default decoder, whose host delivery takes the transcode route, and
+the fused and lane decoders; the LZ4 one through the default) and the
+port's own format and testing copies, runs the example CLI
+(libzseek_tpu_torch.example) for both codecs, with the scale-out
+package (parallel/) imported."""
 
 import os
 import subprocess
@@ -52,12 +55,12 @@ if golden.have_zstd():
     assert golden.zstd_decompress(archive) == data
 r = port.Reader(archive, device="cpu", verify_checksums=True)
 assert r.pread_full(len(data), 0) == data
+assert zstd_decode.routes["transcode_batches"] > 0
+r = port.Reader(archive, device="cpu", decoder="fused")
+assert r.pread_full(len(data), 0) == data
 r = port.Reader(archive, device="cpu", decoder="lanes")
 assert r.pread_full(len(data), 0) == data
 assert zstd_decode.routes["anchored_frames"] > 0
-r = port.Reader(archive, device="cpu", decoder="transcode")
-assert r.pread_full(len(data), 0) == data
-assert zstd_decode.routes["transcode_batches"] > 0
 sink = io.BytesIO()
 w = port.Writer(sink, port.ZstdCodec(device="cpu", parser="hash"),
                 min_frame_size=16 * 1024)
@@ -98,6 +101,14 @@ for codec in (port.ZstdCodec(device="cpu", parser="sort"),
     assert port.zseek_pread(r, 1000, 20000) == data[20000:21000]
     r.prefetch([0, 50000])
     assert port.zseek_reader_stats(r).frames == 4
+import os, tempfile
+from libzseek_tpu_torch import example
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "sample.bin")
+    with open(path, "wb") as f:
+        f.write(data)
+    for flag in ("--zstd", "--lz4"):
+        assert example.main([flag, path, "--device", "cpu"]) == 0
 loaded = sorted(m for m in sys.modules
                 if m in ("jax", "libzseek_tpu") or
                 m.startswith(("jax.", "libzseek_tpu.")))

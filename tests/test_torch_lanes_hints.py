@@ -38,4 +38,7 @@ def test_reader_load_hints_matches_jax():
     assert r._hints is not None and len(r._hints) == 4
     assert _plain(r._hints) == _plain(j._hints)
     assert _plain([r._frame_hints(2)]) == _plain([j._frame_hints(2)])
-    assert port.Reader(archive, device="cpu")._hints is None  # fused
+    assert _plain(port.Reader(archive, device="cpu")._hints) == \
+        _plain(j._hints)                                 # "auto"
+    assert port.Reader(archive, device="cpu",
+                       decoder="fused")._hints is None

@@ -42,9 +42,9 @@ def test_unknown_decoder_and_lz4_lanes_raise():
 def test_corrupt_frames_raise_format_error():
     bad, raw = leftover_bits_frame()
     with pytest.raises(FormatError):
-        ZD.decode_frames_lanes([bad], [len(raw)])
+        ZD.decode_frames_lanes([bad], [len(raw)], device="cpu")
     fr, raw = rle_frame()
-    assert ZD.decode_frames_lanes([fr], [len(raw)]) == [raw]
+    assert ZD.decode_frames_lanes([fr], [len(raw)], device="cpu") == [raw]
     # the same frame with offset code 5 (5 zero extra bits a sequence):
     # the first match reaches 29 bytes back from byte 10
     lits = fr[zf.parse_frame_header(fr, 0).header_size + 3:][:3]
@@ -53,9 +53,9 @@ def test_corrupt_frames_raise_format_error():
            + zf.build_block_header(zf.BLOCK_COMPRESSED, len(body), True)
            + body)
     with pytest.raises(FormatError, match="before its frame"):
-        ZD.decode_frames_lanes([far], [len(raw)])
+        ZD.decode_frames_lanes([far], [len(raw)], device="cpu")
     with pytest.raises(FormatError, match="backward bitstream"):
-        ZD.decode_frames_lanes([fr[:-1] + b"\x00"], [len(raw)])
+        ZD.decode_frames_lanes([fr[:-1] + b"\x00"], [len(raw)], device="cpu")
     # a sidecar whose literal anchors stop early
     text = text_corpus(np.random.default_rng(71), 8192).tobytes()
     sink = io.BytesIO()
@@ -64,7 +64,8 @@ def test_corrupt_frames_raise_format_error():
     w.close()
     r = port.Reader(sink.getvalue(), device="cpu", decoder="lanes")
     frame, hints = r._read_frame_bytes(0), r._hints[0]
-    assert ZD.decode_frames_lanes([frame], [len(text)], [hints]) == [text]
+    assert ZD.decode_frames_lanes([frame], [len(text)], [hints],
+                                  device="cpu") == [text]
     hints[0].lit.bitpos[0] = hints[0].lit.bitpos[0][:1]
     with pytest.raises(FormatError, match="too few literal anchors"):
-        ZD.decode_frames_lanes([frame], [len(text)], [hints])
+        ZD.decode_frames_lanes([frame], [len(text)], [hints], device="cpu")

@@ -61,7 +61,8 @@ def _check_ldm_override_and_stats(batch):
     np.testing.assert_array_equal(t_hist, r_hist)
     rseqs = {k: jnp.asarray(v) for k, v in ref.items()}
     r = jze.apply_ldm_override(rseqs, r_sp, lens, r_hist)
-    t = tze.apply_ldm_override(seqs_to_torch(ref), t_sp, lens, t_hist)
+    t = tze.apply_ldm_override(seqs_to_torch(ref, "cpu"), t_sp, lens,
+                               t_hist)
     for k in r:
         eq(t[k], r[k], k)
 
@@ -77,8 +78,9 @@ def _check_compact_payload(cap_words):
     sb[5] = 0
     ref = jze.compact_payload(jnp.asarray(lw), jnp.asarray(lb),
                               jnp.asarray(sw), jnp.asarray(sb), cap_words)
-    got = tze.compact_payload(to_torch(lw), to_torch(lb), to_torch(sw),
-                              to_torch(sb), cap_words)
+    got = tze.compact_payload(to_torch(lw, "cpu"), to_torch(lb, "cpu"),
+                              to_torch(sw, "cpu"), to_torch(sb, "cpu"),
+                              cap_words)
     for g, r in zip(got, ref):
         eq(g, r)
 

@@ -2,7 +2,8 @@
 version) against the JAX package's LZ4Codec(parser="hash"), whose fused
 arm runs the Pallas kernel in interpret mode: LZ4F frames must be
 byte-identical, decode through stock liblz4 and through the port's own
-decoder."""
+routes: the native host route (host delivery) and the decoder's plain
+version (to_device=True)."""
 
 import pytest
 
@@ -22,7 +23,10 @@ def _same(frames, **kw):
     assert got == ref
     for fr, raw in zip(got, frames):
         assert golden.lz4f_decompress(fr) == raw
-    assert codec.decompress_frames(got, [len(f) for f in frames]) == frames
+    sizes = [len(f) for f in frames]
+    assert codec.decompress_frames(got, sizes) == frames
+    dev = codec.decompress_frames(got, sizes, to_device=True)
+    assert [t.numpy().tobytes() for t in dev] == frames
     return codec
 
 

@@ -62,8 +62,9 @@ def _check_plan_blocks(batch):
               mode_rawlit=jpe.MODE_RAWLIT, mode_seq=jpe.MODE_SEQ)
     r = jhp.plan_blocks(*(jnp.asarray(a) for a in args), jnp.asarray(lens),
                         hist_q=jnp.asarray(ref["hist_q"]), **kw)
-    t = thp.plan_blocks(*(to_torch(a) for a in args), to_torch(lens),
-                        hist_q=to_torch(ref["hist_q"]), **kw)
+    t = thp.plan_blocks(*(to_torch(a, "cpu") for a in args),
+                        to_torch(lens, "cpu"),
+                        hist_q=to_torch(ref["hist_q"], "cpu"), **kw)
     for g, rr in zip(t, r):
         eq(g, rr)
     modes = set(np.asarray(r[0]).tolist())
@@ -77,7 +78,8 @@ def _check_plan_seq_tables(batch):
     ll, ml, offv, n = ll.copy(), ml.copy(), offv.copy(), n.copy()
     ll[7, :40], ml[7, :40], offv[7, :40], n[7] = 3, 9, 1, 40
     r = jfpl.plan_seq_tables(*(jnp.asarray(a) for a in (ll, ml, offv, n)))
-    t = tfpl.plan_seq_tables(*(to_torch(a) for a in (ll, ml, offv, n)))
+    t = tfpl.plan_seq_tables(*(to_torch(a, "cpu")
+                               for a in (ll, ml, offv, n)))
     for g, rr in zip(t, r):
         eq(g, rr)
     flags = np.bitwise_or.reduce(np.asarray(r[0]))

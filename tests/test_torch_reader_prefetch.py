@@ -52,9 +52,12 @@ def test_prefetch_one_call_and_no_deadlock():
     data, arch = _archive()
     offs = [0, 5, 2 * FRAME + 7, 5 * FRAME, 5 * FRAME + 100, 11 * FRAME,
             len(data), len(data) + 10]
-    for kw, hints, device in (({}, 0, False),
+    # the default route ("auto") and "lanes" pass the sidecar's hints,
+    # "fused" none
+    for kw, hints, device in (({}, 1, False),
+                              ({"decoder": "fused"}, 0, False),
                               ({"decoder": "lanes"}, 1, False),
-                              ({"device_cache": True}, 0, True)):
+                              ({"device_cache": True}, 1, True)):
         r = Reader(arch, device="cpu", **kw)
         calls = _count_calls(r)
         r.prefetch(offs)
@@ -70,7 +73,7 @@ def test_prefetch_one_call_and_no_deadlock():
     r = Reader(arch, device="cpu", cache_frames=0)
     calls = _count_calls(r)
     r.prefetch(offs)
-    assert calls == [(4, 0, True)]
+    assert calls == [(4, 1, True)]
     # a sequential read (its prefetch windows on the reader's threads)
     # beside prefetch calls from another thread
     r = Reader(arch, device="cpu", cache_frames=4, readahead=2)

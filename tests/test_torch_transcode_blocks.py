@@ -38,7 +38,8 @@ def test_transcode_route_64k_blocks():
     cut[1][0] = None
     for hints in (fh, cut):
         before = dict(ZD.routes)
-        assert ZD.decode_frames_transcode(frames, sizes, hints) == raws
+        assert ZD.decode_frames_transcode(frames, sizes, hints,
+                                          device="cpu") == raws
         assert _routes(before) == {"transcode_batches": 1,
                                    "transcode_rule_batches": 0,
                                    "transcode_fallback_batches": 0}
@@ -49,8 +50,8 @@ def test_transcode_route_64k_blocks():
     for i, key in ((0, "transcode_rule_batches"),
                    (1, "transcode_fallback_batches")):
         before = dict(ZD.routes)
-        assert ZD.decode_frames_transcode(frames[i:i + 1],
-                                          sizes[i:i + 1]) == raws[i:i + 1]
+        assert ZD.decode_frames_transcode(frames[i:i + 1], sizes[i:i + 1],
+                                          device="cpu") == raws[i:i + 1]
         assert _routes(before)[key] == 1
 
 
@@ -61,7 +62,7 @@ def test_reader_transcode_level4_archive():
     w.write(data)
     w.close()
     before = dict(ZD.routes)
-    r = port.Reader(sink.getvalue(), device="cpu", decoder="transcode")
+    r = port.Reader(sink.getvalue(), device="cpu", decoder="auto")
     assert r.pread_full(len(data), 0) == data
     r.close()
     routes = _routes(before)

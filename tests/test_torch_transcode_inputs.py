@@ -8,8 +8,10 @@ _try_decode_transcode hands to pallas_decode.decode_blocks_smem, with the
 kernel's outputs.  That route returns None without the JAX native runtime
 and the reference then decodes through its execute arm, so it builds the
 runtime first and asserts that every captured row carries
-DMODE_TRANSCODE.  Frames come from the port's codec (on the CPU), the JAX
-codec (its hints too) and stock libzstd, all made with numpy seeds."""
+DMODE_TRANSCODE (unless asked to let the reference leave the route, as
+it does for a batch it refuses).  Frames come from the port's codec (on
+the CPU), the JAX codec (its hints too) and stock libzstd, all made with
+numpy seeds."""
 
 import numpy as np
 import torch
@@ -34,9 +36,11 @@ KIB = 1024
 
 
 def capture_transcode(monkeypatch, frames, sizes, hints=None,
-                      host_literals=True, chunk=None):
+                      host_literals=True, chunk=None, fallback=False):
     """JAX decode_frames down its transcode route: (its per-frame results,
-    [(args, (out, stat)) per decode_blocks_smem call] as numpy)."""
+    [(args, (out, stat)) per decode_blocks_smem call] as numpy).  With
+    fallback=True the reference may leave the route for its fused
+    decode (the calls then hold its execute-arm rows too, in order)."""
     build_native_runtime()
     assert jax_native.have_native(), "the JAX native runtime did not build"
     monkeypatch.setenv("ZN_DECODE_SMEM", "force")
@@ -58,7 +62,7 @@ def capture_transcode(monkeypatch, frames, sizes, hints=None,
     monkeypatch.setattr(jpd, "decode_blocks_smem", spy)
     res = JZ.decode_frames(frames, sizes, hints)
     for args, _ in calls:
-        assert (args[4][:, 0] & jpd.DMODE_TRANSCODE).all(), \
+        assert fallback or (args[4][:, 0] & jpd.DMODE_TRANSCODE).all(), \
             "the reference decoded through its execute arm"
     return res, calls
 

@@ -26,7 +26,7 @@ def test_transcode_route_port_frames(monkeypatch, host_literals):
                                    host_literals=host_literals)
     before = dict(ZD.routes)
     got = ZD.decode_frames_transcode(frames, sizes,
-                                     host_literals=host_literals)
+                                     host_literals=host_literals, device="cpu")
     assert got == ref == raws
     assert calls and _routes(before) == {
         "transcode_batches": 1, "transcode_rule_batches": 0,

@@ -18,6 +18,7 @@ def test_transcode_route_jax_frames(monkeypatch):
     sizes = [len(r) for r in raws]
     ref, calls = capture_transcode(monkeypatch, frames, sizes, jh)
     before = ZD.routes["transcode_fallback_batches"]
-    assert ZD.decode_frames_transcode(frames, sizes, ph) == ref == raws
-    assert ZD.decode_frames_transcode(frames, sizes) == raws
+    assert ZD.decode_frames_transcode(frames, sizes, ph,
+                                      device="cpu") == ref == raws
+    assert ZD.decode_frames_transcode(frames, sizes, device="cpu") == raws
     assert calls and ZD.routes["transcode_fallback_batches"] == before

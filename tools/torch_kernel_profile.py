@@ -46,8 +46,8 @@ segments without a selection.  With --only=huf, seq or K4T (or a longer
 prefix, e.g. "huf L9"): every call of the Huffman lanes, the sequence
 lanes and K4's transcode arm in one sequential Reader pass over the
 level-3, level-9 and log-like archives, with decoder "lanes" (groups
-"huf L3 anchored", "seq L9 tagged", ...) and with decoder "transcode"
-("K4T L3 transcode host literals", "K4T L9 transcode ...", "K4T log
+"huf L3 anchored", "seq L9 tagged", ...) and with decoder "auto", whose
+host delivery takes the transcode route ("K4T L3 transcode host literals", "K4T L9 transcode ...", "K4T log
 transcode ..."): per group its launches, work and summed bound, the
 calls replayed together, and its call with the most work alone ("...
 max"; --check holds only these to plain); for the transcode groups also
@@ -1054,9 +1054,9 @@ def _rows_summary(rows):
 # them (level 3, level 9, the hash parser's log-like 8 MiB of phase 7)
 LANE_READS = (("L3", "level 3", "lanes"), ("L9", "level 9", "lanes"),
               ("log", "log-like", "lanes"),
-              ("L3 transcode", "level 3", "transcode"),
-              ("L9 transcode", "level 9", "transcode"),
-              ("log transcode", "log-like", "transcode"))
+              ("L3 transcode", "level 3", "auto"),
+              ("L9 transcode", "level 9", "auto"),
+              ("log transcode", "log-like", "auto"))
 LANE_WRAPPERS = (("huf", "huf_lanes"), ("seq", "seq_lanes"),
                  ("K4T", "transcode_blocks"))
 
