@@ -67,11 +67,9 @@ from libzseek_tpu_torch.ops import exec_blocks as X
 from libzseek_tpu_torch.ops import fse
 from libzseek_tpu_torch.ops import huffman
 from libzseek_tpu_torch.ops import lanes as L
+from libzseek_tpu_torch.utils import trace
 
 _HUF_PEEK = D.HUF_PEEK  # libzstd's HUF_TABLELOG_MAX: accept 12-bit tables
-# profiler ranges around the read path's stages (free when no profiler
-# runs; read by libzseek_tpu_torch/profile_write.py)
-_span = torch.profiler.record_function
 
 
 def _sentinel_bits(stream: bytes) -> int:
@@ -463,12 +461,12 @@ def pack_rows(plans, hufreg: _HufReg, fsereg: _FseReg) -> dict:
 def k4_inputs(datas, d_sizes, device) -> tuple[tuple, int, dict]:
     """Parse and pack frames, upload the rows to `device` and build their
     Huffman tables there: (K4's arguments, out_size, the packed rows)."""
-    with _span("zseek.parse"):
+    with trace.span("zseek.parse"):
         hufreg, fsereg = _HufReg(), _FseReg()
         plans = [_parse_frame_impl(d, hufreg, fsereg, sz)
                  for d, sz in zip(datas, d_sizes)]
         rows = pack_rows(plans, hufreg, fsereg)
-    with _span("zseek.upload"):
+    with trace.span("zseek.upload"):
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
         W, TLS = hufreg.weights_arr()
         dtabs = build_dtabs(t(W), t(TLS)).index_select(0, t(rows["wtid"]))
@@ -491,10 +489,10 @@ def decode_frames(datas, d_sizes=None, to_device: bool = False,
     if d_sizes is None:
         d_sizes = [None] * len(datas)
     args, out_size, rows = k4_inputs(datas, d_sizes, torch.device(device))
-    with _span("zseek.k4"):
+    with trace.span("zseek.k4"):
         out, stat = D.decode_blocks(*args, out_size,
                                     n_seqs=D.seq_total(rows["meta"]))
-    with _span("zseek.fetch"):
+    with trace.span("zseek.fetch"):
         stat = stat.cpu().numpy()
     chain, frame_off = rows["chain"], rows["frame_off"]
     for f in range(len(datas)):
@@ -509,7 +507,7 @@ def decode_frames(datas, d_sizes=None, to_device: bool = False,
     if to_device:
         return [out[int(frame_off[f]): int(frame_off[f + 1])]
                 for f in range(len(datas))]
-    with _span("zseek.fetch"):
+    with trace.span("zseek.fetch"):
         host = out.cpu().numpy()
         return [host[frame_off[f]: frame_off[f + 1]].tobytes()
                 for f in range(len(datas))]
@@ -772,7 +770,7 @@ def decode_frames_lanes(datas, d_sizes=None, hints=None,
     def up(a):
         return _tensor(a, dev)
 
-    with _span("zseek.parse"):
+    with trace.span("zseek.parse"):
         hufreg, fsereg = _HufReg(), _FseReg()
         plans = [_parse_frame_impl(d, hufreg, fsereg, sz)
                  for d, sz in zip(datas, d_sizes)]
@@ -793,7 +791,7 @@ def decode_frames_lanes(datas, d_sizes=None, hints=None,
 
     # --- the literal plane: raw / RLE literal bytes from the host, the
     # Huffman lanes' symbols scattered in on the device ---
-    with _span("zseek.upload"):
+    with trace.span("zseek.upload"):
         template = np.zeros((BL, PW), np.uint8)
         for i, bp in enumerate(blocks):
             if not bp.huf_lanes and bp.lit_direct:
@@ -809,7 +807,7 @@ def decode_frames_lanes(datas, d_sizes=None, hints=None,
 
     # --- pass A: one lane per Huffman stream; pass A': one lane per
     # anchored chunk ---
-    with _span("zseek.huf_lanes"):
+    with trace.span("zseek.huf_lanes"):
         plain, anch = [], []      # (plane offset, lane, anchors)
         for i, bp in enumerate(blocks):
             po = i * PW
@@ -836,7 +834,7 @@ def decode_frames_lanes(datas, d_sizes=None, hints=None,
     # --- pass B: one lane per sequence section, tagged repcodes; pass B':
     # one lane per anchored chunk ---
     seq_res: dict[int, tuple] = {}   # block -> (ll, ml, off, rep_final)
-    with _span("zseek.seq_lanes"):
+    with trace.span("zseek.seq_lanes"):
         passes = []
         for anchored, msg in ((False, "sequence bitstream underflow"),
                               (True, "anchored sequence stream underflow")):
@@ -851,7 +849,7 @@ def decode_frames_lanes(datas, d_sizes=None, hints=None,
             checks.append((res[4], msg))
             passes.append((idx, inp["n"], spans, anchored, res))
 
-    with _span("zseek.fetch"):
+    with trace.span("zseek.fetch"):
         for ok, msg in checks:
             if not bool(ok.all()):
                 raise FormatError(msg)
@@ -913,7 +911,7 @@ def decode_frames_lanes(datas, d_sizes=None, hints=None,
         out, ok, spans = _execute_pointer_doubling(plans, recs, lit_lens,
                                                    plane, PW, up)
         msg = "match offset before frame start"
-    with _span("zseek.fetch"):
+    with trace.span("zseek.fetch"):
         if not bool(ok.all()):
             raise FormatError(msg)
         if to_device:
@@ -944,7 +942,7 @@ def _execute_k6(plans, recs, lit, up):
         [[0], np.cumsum([len(p.blocks) for p in plans])]).astype(np.int32)
     frame_off = np.concatenate(
         [[0], np.cumsum([p.content_size for p in plans])]).astype(np.int64)
-    with _span("zseek.k6"):
+    with trace.span("zseek.k6"):
         out, ok = X.execute_blocks(lit, up(lla), up(mla), up(offa), up(meta),
                                    up(chain), up(frame_off),
                                    int(frame_off[-1]),
@@ -998,7 +996,7 @@ def _execute_pointer_doubling(plans, recs, lit_lens, plane, PW, up):
         pool_idx[f, : len(pi)] = pi
         for k in range(6):
             arrs[k][f, : len(seqs[k])] = seqs[k]
-    with _span("zseek.execute"):
+    with trace.span("zseek.execute"):
         flat = torch.cat([plane.reshape(-1), plane.new_zeros(1)])
         out, ok = execute_sequences(flat[up(pool_idx)],
                                     *[up(a) for a in arrs], F)
@@ -1157,7 +1155,7 @@ def decode_frames_transcode(datas, d_sizes=None, hints=None, device="cuda",
     if hints is None:
         hints = [None] * len(datas)
     dev = torch.device(device)
-    with _span("zseek.parse"):
+    with trace.span("zseek.parse"):
         hufreg, fsereg = _HufReg(), _FseReg()
         plans = [_parse_frame_impl(d, hufreg, fsereg, sz)
                  for d, sz in zip(datas, d_sizes)]
@@ -1170,7 +1168,7 @@ def decode_frames_transcode(datas, d_sizes=None, hints=None, device="cuda",
     B = len(meta)
     res = None
     if B:
-        with _span("zseek.upload"):
+        with trace.span("zseek.upload"):
             up = lambda a: _tensor(a, dev)
             lp = dtabs = None     # no literal on the device: no payload
             if any(dev_lit for _, dev_lit in rows["blocks"]):
@@ -1183,13 +1181,13 @@ def decode_frames_transcode(datas, d_sizes=None, hints=None, device="cuda",
                     up(rows["tok_prefix"]))
         n_lit = int(rows["lit_prefix"][-1])
         n_tok = int(rows["tok_prefix"][-1])
-        with _span("zseek.k4"):
+        with trace.span("zseek.k4"):
             lits_d, toks_d, stat_d = D.transcode_blocks(*args, n_lit, n_tok)
             res = torch.cat([stat_d.reshape(-1), toks_d, lits_d])
-    with _span("zseek.hostlit"):     # on the host while the kernel runs
+    with trace.span("zseek.hostlit"):     # on the host while the kernel runs
         host_lits = _host_literals(rows, hufreg)
     if res is not None:
-        with _span("zseek.fetch"):
+        with trace.span("zseek.fetch"):
             res = res.cpu().numpy()
         stat = res[: 4 * B].reshape(B, 4)
         if not ((stat[:, 1] == 1).all() and (stat[:, 0] == meta[:, 1]).all()):
@@ -1197,7 +1195,7 @@ def decode_frames_transcode(datas, d_sizes=None, hints=None, device="cuda",
             return decode_frames(datas, d_sizes, device=device)
         toks = res[4 * B: 4 * B + n_tok].view(np.uint32)
         dev_lits = res[4 * B + n_tok:].view(np.uint8)
-    with _span("zseek.execute"):
+    with trace.span("zseek.execute"):
         tp, lpre = rows["tok_prefix"], rows["lit_prefix"]
         out = []
         for p, fr in zip(plans, rows["frames"]):

@@ -31,6 +31,7 @@ from libzseek_tpu_torch.ops.entropy import exp_of
 from libzseek_tpu_torch.ops import match as M
 from libzseek_tpu_torch.ops.hash_parse import hash_parse
 from libzseek_tpu_torch.ops.parse_linked import parse_linked
+from libzseek_tpu_torch.utils import trace
 
 # fixed per-sequence bit cost the in-kernel profitability gate charges
 GATE_FIXED_BITS = 14
@@ -274,20 +275,18 @@ def extract_literals(x, lengths, ll, ml, n_seq):
 
 def zstd_sequences_fast(x: torch.Tensor, lengths: torch.Tensor):
     """K7 plus the gate, with the literal plane (the XLA entropy arm)."""
-    span = torch.profiler.record_function
-    with span("zseek.parse"):
+    with trace.span("zseek.parse"):
         ll, ml, offv, n_seq, cover = hash_parse(x, lengths)
-    with span("zseek.fast_post"):
+    with trace.span("zseek.fast_post"):
         return _fast_post(x, lengths, ll, ml, offv, n_seq, cover,
                           ll.shape[1])
 
 
 def zstd_sequences_fast_nolit(x: torch.Tensor, lengths: torch.Tensor):
     """K7 plus the gate, without the literal plane (the K2 arm)."""
-    span = torch.profiler.record_function
-    with span("zseek.parse"):
+    with trace.span("zseek.parse"):
         ll, ml, offv, n_seq, cover = hash_parse(x, lengths)
-    with span("zseek.fast_post"):
+    with trace.span("zseek.fast_post"):
         return _fast_post_nolit(x, lengths, ll, ml, offv, n_seq, cover,
                                 ll.shape[1])
 
@@ -317,15 +316,14 @@ def zstd_sequences_linked(x2: torch.Tensor, lengths: torch.Tensor,
     outputs align with x2[1:].  parse_lengths: zeroed rows skip the
     parse (LDM-covered blocks); statistics use the real lengths."""
     x = x2[1:]
-    span = torch.profiler.record_function
-    with span("zseek.h16"):
+    with trace.span("zseek.h16"):
         h16, _ = block_entropy_h16(x, lengths)
     pl = lengths if parse_lengths is None else parse_lengths
-    with span("zseek.parse"):
+    with trace.span("zseek.parse"):
         ll, ml, offv, n_seq, cover, lmask = parse_linked(
             x2, pl, min_abs, h16,
             **{"gate_bits": GATE_FIXED_BITS, **level_search_params(level)})
-    with span("zseek.linked_post"):
+    with trace.span("zseek.linked_post"):
         return _linked_post(x, lengths, ll, ml, offv, n_seq, cover,
                             ll.shape[1], lmask)
 

@@ -17,14 +17,11 @@ Reader(decoder="auto"), the native host route),
 likewise once to warm up
 and once profiled.  For each, prints
 the wall time, the device's busy share of it (union of CUDA kernel and
-copy intervals), the CUDA time per kernel name, and the host time
-inside each stage range (`zseek.*`, see runtime/zstd_codec.py,
-ops/zstd_encode.py and ops/zstd_decode.py; the LZ4 codec has none),
-after the card's name and
-power limit.  Host ranges reach the profiler from the calling thread
-only: the write's finishing stages run on the codec's worker thread and
-the read's prefetched windows on the reader's two prefetch threads, so
-those show on the device timeline but not among the host stages.
+copy intervals), the CUDA time per kernel name, the host time inside
+each stage range (`zseek.*`) of the calling thread as the profiler saw
+it, and the time and self time of each stage on every thread from the
+port's span log (utils/trace.py: the write's finishing thread and the
+read's prefetch threads too), after the card's name and power limit.
 Needs a CUDA device.  Counterpart in the JAX package: the ZN_PROFILE
 stage marks of libzseek_tpu/runtime/zstd_codec.py (_dispatch_parse,
 _finish_chain) and ops/zstd_decode.py (decode_frames).
@@ -77,15 +74,17 @@ def _read(archive: bytes, decoder: str = "fused") -> bytes:
 
 def _profiled(fn, arg):
     """fn(arg) once to warm up, then once under the profiler: (result of
-    the profiled call, profile, wall seconds)."""
+    the profiled call, profile, wall seconds, span log)."""
     from torch.profiler import ProfilerActivity, profile
+    from libzseek_tpu_torch.utils import trace
     fn(arg)
+    trace.drain()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn(arg)
         wall = time.perf_counter() - t0
-    return out, prof, wall
+    return out, prof, wall, trace.drain()
 
 
 def _union_us(intervals) -> float:
@@ -98,10 +97,11 @@ def _union_us(intervals) -> float:
     return busy
 
 
-def report(prof, wall: float) -> None:
+def report(prof, wall: float, log=()) -> None:
     """Print the device's busy share of `wall` seconds (union of CUDA
-    kernel and copy intervals), the CUDA time per kernel name and the
-    host time inside each `zseek.*` stage range of a profile."""
+    kernel and copy intervals), the CUDA time per kernel name, the host
+    time inside each `zseek.*` stage range of a profile and, from the
+    span log, each stage's time and self time by thread."""
     from torch.autograd import DeviceType
     # kernels and copies; the zseek.* ranges also appear on the device
     # timeline as annotations and are left out
@@ -130,6 +130,18 @@ def report(prof, wall: float) -> None:
     print("host time inside stages, calling thread (ms, calls):")
     for k, (ms, n) in sorted(stages.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:10.3f} {n:6d}  {k}")
+    from libzseek_tpu_torch.utils import trace
+    own = trace.self_ns(log)
+    by = {}
+    for s in log:
+        key = (s.thread.rsplit("_", 1)[0], s.name)
+        ms, self_ms, n = by.get(key, (0.0, 0.0, 0))
+        by[key] = (ms + (s.end_ns - s.start_ns) / 1e6,
+                   self_ms + own[s.id] / 1e6, n + 1)
+    print("span log, every thread (ms, self ms, spans):")
+    for (th, k), (ms, self_ms, n) in sorted(by.items(),
+                                            key=lambda kv: -kv[1][0]):
+        print(f"  {ms:10.3f} {self_ms:10.3f} {n:6d}  {th:16s} {k}")
 
 
 def main(argv: list[str]) -> int:
@@ -150,22 +162,22 @@ def main(argv: list[str]) -> int:
                          text=True, timeout=60)
     print(smi.stdout.strip())
     data = mixed_corpus(np.random.default_rng(11), SIZE_MIB * MIB).tobytes()
-    archive, prof, wall = _profiled(functools.partial(_write, codec=codec),
-                                    data)
+    archive, prof, wall, log = _profiled(
+        functools.partial(_write, codec=codec), data)
     print(f"{codec} write {SIZE_MIB} MiB: {wall:.3f} s = "
           f"{SIZE_MIB / wall:.2f} MiB/s,"
           f" ratio {len(archive) / len(data):.5f}")
-    report(prof, wall)
+    report(prof, wall, log)
     decoder = {"transcode": "auto", "lz4": "auto",
                "lanes": "lanes"}.get(codec, "fused")
-    got, prof, wall = _profiled(functools.partial(_read, decoder=decoder),
-                                archive)
+    got, prof, wall, log = _profiled(
+        functools.partial(_read, decoder=decoder), archive)
     if got != data:
         print("the read differs from the input", file=sys.stderr)
         return 1
     print(f"{codec} read {SIZE_MIB} MiB: {wall:.3f} s = "
           f"{SIZE_MIB / wall:.2f} MiB/s")
-    report(prof, wall)
+    report(prof, wall, log)
     return 0
 
 

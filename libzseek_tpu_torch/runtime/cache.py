@@ -1,11 +1,11 @@
 """Decompressed-frame LRU cache.
 
-Copy of libzseek_tpu/runtime/cache.py.  Parity with the reference cache
-(src/cache.c of the reference library): capacity counted in FRAMES (not
-bytes), find() promotes to MRU, insert() evicts the LRU entry at capacity
-and takes ownership of the data.  Entries are host bytes or, for
-Reader(device_cache=True), uint8 tensors on the card; a tensor counts
-its nbytes.
+Copy of libzseek_tpu/runtime/cache.py, but for find()'s `count`.  Parity
+with the reference cache (src/cache.c of the reference library):
+capacity counted in FRAMES (not bytes), find() promotes to MRU, insert()
+evicts the LRU entry at capacity and takes ownership of the data.
+Entries are host bytes or, for Reader(device_cache=True), uint8 tensors
+on the card; a tensor counts its nbytes.
 
 Like the reference, the cache itself is unlocked; the Reader holds the
 lock (src/cache.h:27,36).
@@ -34,14 +34,17 @@ class FrameCache:
     def entries(self) -> int:
         return len(self._map)
 
-    def find(self, frame_idx: int):
-        """Return cached frame data or None; promotes to MRU on hit."""
+    def find(self, frame_idx: int, count: bool = True):
+        """Return cached frame data or None; promotes to MRU on hit.
+        Counts a hit or a miss unless count=False: the Reader's own
+        lookups (its probes, the look after a wait and the double-checked
+        insert) are no caller's request, and each request counts once."""
         v = self._map.get(frame_idx)
         if v is None:
-            self.misses += 1
+            self.misses += count
             return None
         self._map.move_to_end(frame_idx)
-        self.hits += 1
+        self.hits += count
         return v
 
     def insert(self, frame_idx: int, data) -> None:

@@ -48,6 +48,7 @@ from libzseek_tpu_torch.ops.lz4_decode import lz4_decode_frames
 from libzseek_tpu_torch.ops.lz4_emit import lz4_emit, out_cap
 from libzseek_tpu_torch.ops.lz4_encode import lz4_encode_blocks
 from libzseek_tpu_torch.ops.zstd_encode import compact_payload
+from libzseek_tpu_torch.utils import trace
 from libzseek_tpu_torch.utils.device import RoundRobin, resolve_device
 
 BLOCK = 1 << 16  # 64 KiB blocks, like the reference writer
@@ -200,48 +201,55 @@ class LZ4Codec(RoundRobin):
     def _encode_k5(self, frames, chunk, ctx, Bp, dev):
         """K5 over the shared-context layout: (out (Bp, cap) uint8,
         olens (Bp,) int32)."""
-        D = np.zeros((Bp + 1, BLOCK), np.uint8)
-        dlens = np.full((Bp,), BLOCK, np.int32)
-        # min_ref is an ABSOLUTE position (K5's table spans the rows):
-        # row i's window starts at i * BLOCK
-        dminr = (np.arange(Bp, dtype=np.int32) + 1) * BLOCK
-        fi0, s0, _ = chunk[0]
-        if ctx and s0 > 0:
-            D[0] = np.frombuffer(frames[fi0], np.uint8, BLOCK, s0 - BLOCK)
-        for i, (fi, s, sz) in enumerate(chunk):
-            D[i + 1, :sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
-            dlens[i] = BLOCK + sz
-            if ctx and s > 0:
-                dminr[i] = i * BLOCK  # previous row is same-frame
-        t = lambda a: torch.from_numpy(a).to(dev)
-        return lz4_emit(t(D), t(dlens), t(dminr), out_cap(BLOCK),
+        with trace.span("zseek.layout"):
+            D = np.zeros((Bp + 1, BLOCK), np.uint8)
+            dlens = np.full((Bp,), BLOCK, np.int32)
+            # min_ref is an ABSOLUTE position (K5's table spans the rows):
+            # row i's window starts at i * BLOCK
+            dminr = (np.arange(Bp, dtype=np.int32) + 1) * BLOCK
+            fi0, s0, _ = chunk[0]
+            if ctx and s0 > 0:
+                D[0] = np.frombuffer(frames[fi0], np.uint8, BLOCK,
+                                     s0 - BLOCK)
+            for i, (fi, s, sz) in enumerate(chunk):
+                D[i + 1, :sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
+                dlens[i] = BLOCK + sz
+                if ctx and s > 0:
+                    dminr[i] = i * BLOCK  # previous row is same-frame
+            t = lambda a: torch.from_numpy(a).to(dev)
+            D, dlens, dminr = t(D), t(dlens), t(dminr)
+        return lz4_emit(D, dlens, dminr, out_cap(BLOCK),
                         **self._level_params(self.level))
 
     def _encode_sort(self, frames, chunk, ctx, Bp, dev):
         """The sort parser over rows of ctx + 64 KiB, each block behind a
         copy of its window (the first block of a frame has none, so its
         min_ref is ctx): (out (Bp, cap) uint8, olens (Bp,) int32)."""
-        X = np.zeros((Bp, ctx + BLOCK), np.uint8)
-        lens = np.zeros((Bp,), np.int32)
-        min_ref = np.zeros((Bp,), np.int32)
-        for i, (fi, s, sz) in enumerate(chunk):
-            X[i, ctx: ctx + sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
-            lens[i] = ctx + sz
-            if ctx:
-                clen = min(BLOCK, s)  # the window this frame has
-                if clen:
-                    X[i, ctx - clen: ctx] = np.frombuffer(
-                        frames[fi], np.uint8, clen, s - clen)
-                min_ref[i] = ctx - clen
-        t = lambda a: torch.from_numpy(a).to(dev)
-        return lz4_encode_blocks(t(X), t(lens), seg_size=self.seg_size,
-                                 ctx_len=ctx, min_ref=t(min_ref))
+        with trace.span("zseek.layout"):
+            X = np.zeros((Bp, ctx + BLOCK), np.uint8)
+            lens = np.zeros((Bp,), np.int32)
+            min_ref = np.zeros((Bp,), np.int32)
+            for i, (fi, s, sz) in enumerate(chunk):
+                X[i, ctx: ctx + sz] = np.frombuffer(frames[fi], np.uint8,
+                                                    sz, s)
+                lens[i] = ctx + sz
+                if ctx:
+                    clen = min(BLOCK, s)  # the window this frame has
+                    if clen:
+                        X[i, ctx - clen: ctx] = np.frombuffer(
+                            frames[fi], np.uint8, clen, s - clen)
+                    min_ref[i] = ctx - clen
+            t = lambda a: torch.from_numpy(a).to(dev)
+            X, lens, min_ref = t(X), t(lens), t(min_ref)
+        return lz4_encode_blocks(X, lens, seg_size=self.seg_size,
+                                 ctx_len=ctx, min_ref=min_ref)
 
     def _finish_batch(self, B, staged) -> list[bytes | None]:
         """Fetch one batch's results -> per-block payload bytes (None =
         store raw).  Every tensor of the batch lies on its device."""
         Bp, sizes = staged["Bp"], staged["sizes"]
-        fetched = staged["meta"].cpu().numpy()
+        with trace.span("zseek.fetch"):
+            fetched = staged["meta"].cpu().numpy()
         olens = fetched[:Bp]
         base_w = fetched[Bp: 2 * Bp]
         live = np.where((olens >= 0) & (olens < sizes), olens, 0)
@@ -256,8 +264,9 @@ class LZ4Codec(RoundRobin):
             zb = torch.zeros((Bp,), dtype=torch.int32, device=words.device)
             flat_d, base_d, _lw = compact_payload(
                 words, live_dev, dummy, zb, self._bucket_words(need))
-            flat = flat_d.cpu().numpy().view(np.uint8)
-            base_w = base_d.cpu().numpy()
+            with trace.span("zseek.fetch"):
+                flat = flat_d.cpu().numpy().view(np.uint8)
+                base_w = base_d.cpu().numpy()
         else:
             flat = fetched[2 * Bp:].view(np.uint8)
         self._needs.append(need)
@@ -280,31 +289,32 @@ class LZ4Codec(RoundRobin):
         the host already holds is memcpy work; the card's decoder serves
         device-resident frames."""
         out = []
-        for data, d in zip(datas, d_sizes):
-            info = lz4f.parse_frame_header(data)
-            blocks, _ = lz4f.parse_blocks(data, info, info.header_size)
-            buf = np.empty(d, np.uint8)
-            base = 0
-            src = np.frombuffer(data, np.uint8)
-            for blk in blocks:
-                if blk.uncompressed:
-                    if base + blk.size > d:
-                        raise FormatError("LZ4 frame overruns its size")
-                    buf[base: base + blk.size] = \
-                        src[blk.offset: blk.offset + blk.size]
-                    base += blk.size
-                else:
-                    lo = base if info.block_independent else 0
-                    n = native.lz4_block_decode(
-                        src[blk.offset: blk.offset + blk.size], buf,
-                        base, lo)
-                    if n < 0:
-                        raise FormatError("corrupt LZ4 block")
-                    base += n
-            if base != d:
-                raise FormatError(
-                    f"LZ4 frame regenerated {base} != declared {d}")
-            out.append(buf.tobytes())
+        with trace.span("zseek.host_decode"):
+            for data, d in zip(datas, d_sizes):
+                info = lz4f.parse_frame_header(data)
+                blocks, _ = lz4f.parse_blocks(data, info, info.header_size)
+                buf = np.empty(d, np.uint8)
+                base = 0
+                src = np.frombuffer(data, np.uint8)
+                for blk in blocks:
+                    if blk.uncompressed:
+                        if base + blk.size > d:
+                            raise FormatError("LZ4 frame overruns its size")
+                        buf[base: base + blk.size] = \
+                            src[blk.offset: blk.offset + blk.size]
+                        base += blk.size
+                    else:
+                        lo = base if info.block_independent else 0
+                        n = native.lz4_block_decode(
+                            src[blk.offset: blk.offset + blk.size], buf,
+                            base, lo)
+                        if n < 0:
+                            raise FormatError("corrupt LZ4 block")
+                        base += n
+                if base != d:
+                    raise FormatError(
+                        f"LZ4 frame regenerated {base} != declared {d}")
+                out.append(buf.tobytes())
         return out
 
     def decompress_frames(self, datas, d_sizes, to_device: bool = False):
@@ -381,12 +391,20 @@ class _LZ4Stream:
              "payloads": {}}
         for lo in range(0, len(spans), codec.max_batch_blocks):
             chunk = spans[lo: lo + codec.max_batch_blocks]
-            st = codec._dispatch_batch(frames, chunk, ctx)
-            g["batches"].append(
-                (lo, self._pool.submit(codec._finish_batch, len(chunk), st)))
+            with trace.span("zseek.dispatch"):
+                st = codec._dispatch_batch(frames, chunk, ctx)
+                fut = self._pool.submit(self._finish, len(chunk), st,
+                                        trace.current())
+            g["batches"].append((lo, fut))
             self._inflight += 1
         self._groups.append(g)
         return self._drain(self._depth)
+
+    def _finish(self, B, staged, cause):
+        """One batch on the finishing thread, under the dispatch that
+        queued it."""
+        with trace.span("zseek.finish", cause):
+            return self._codec._finish_batch(B, staged)
 
     def finish(self):
         out = self._drain(0)
@@ -398,13 +416,17 @@ class _LZ4Stream:
         while self._inflight > depth:
             g = next(gr for gr in self._groups if gr["batches"])
             lo0, fut = g["batches"].popleft()
-            for i, payload in enumerate(fut.result()):
+            with trace.span("zseek.stream_wait"):
+                got = fut.result()
+            for i, payload in enumerate(got):
                 g["payloads"][lo0 + i] = payload
             self._inflight -= 1
         done = []
         while self._groups and not self._groups[0]["batches"]:
             g = self._groups.popleft()
             payloads = [g["payloads"][i] for i in range(len(g["spans"]))]
-            out = codec._assemble_frames(g["frames"], g["spans"], payloads)
+            with trace.span("zseek.assemble"):
+                out = codec._assemble_frames(g["frames"], g["spans"],
+                                             payloads)
             done.append((out, [None] * len(g["frames"])))
         return done

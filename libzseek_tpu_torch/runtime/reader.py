@@ -56,6 +56,7 @@ from libzseek_tpu_torch.format.xxhash import xxh64
 from libzseek_tpu_torch.runtime import io as zio
 from libzseek_tpu_torch.runtime.cache import FrameCache
 from libzseek_tpu_torch.runtime.stats import ReaderStats
+from libzseek_tpu_torch.utils import trace
 
 ZSTD_MAGIC = 0xFD2FB528
 LZ4F_MAGIC = 0x184D2204
@@ -157,10 +158,11 @@ class Reader:
             return b""
         idx = self._table.frame_for_offset(offset)
         in_off = offset - self._table.frame_d_offset(idx)
-        if self._device_frames:
-            return self._pread_span(idx, in_off, size)
-        frame = self._get_frame(idx)
-        return frame[in_off: in_off + size]
+        with trace.span("zseek.pread"):
+            if self._device_frames:
+                return self._pread_span(idx, in_off, size)
+            frame = self._get_frame(idx)
+            return frame[in_off: in_off + size]
 
     def pread_full(self, size: int, offset: int) -> bytes:
         """Loop pread across frame boundaries (the caller-side loop of
@@ -203,7 +205,7 @@ class Reader:
                 continue
             if self._cache is not None:
                 with self._cache_lock:
-                    if self._cache.find(idx) is not None:
+                    if self._cache.find(idx, count=False) is not None:
                         continue
             need.append(idx)
         if not need:
@@ -212,13 +214,14 @@ class Reader:
         if self._cache is not None:
             with self._cache_lock:
                 for i, fr in zip(need, frames):
-                    if self._cache.find(i) is None:
+                    if self._cache.find(i, count=False) is None:
                         self._cache.insert(i, fr)
 
     def close(self) -> ReaderStats:
         self._closed = True
         if self._pf_pool is not None:
-            self._pf_pool.shutdown(wait=True)
+            with trace.span("zseek.prefetch_wait"):
+                self._pf_pool.shutdown(wait=True)
         return self.stats()
 
     def stats(self) -> ReaderStats:
@@ -300,7 +303,7 @@ class Reader:
             fr = self._decode([idx], to_device=True)[0]
             if self._cache is not None:
                 with self._cache_lock:
-                    if self._cache.find(idx) is None:
+                    if self._cache.find(idx, count=False) is None:
                         self._cache.insert(idx, fr)
         n = min(size, int(fr.shape[0]) - in_off)
         return fr[in_off: in_off + n].cpu().numpy().tobytes()
@@ -308,7 +311,8 @@ class Reader:
     def _read_frame_bytes(self, idx: int) -> bytes:
         off = self._table.frame_c_offset(idx)
         size = self._table.frame_c_size(idx)
-        data = self._src.pread(off, size)
+        with trace.span("zseek.source"):
+            data = self._src.pread(off, size)
         if len(data) != size:
             raise FormatError(f"short read of frame {idx}")
         return data
@@ -334,17 +338,19 @@ class Reader:
         if self._pf_pool is None:
             self._pf_pool = ThreadPoolExecutor(
                 max_workers=2, thread_name_prefix="zseek-prefetch")
+        cause = trace.current()     # the read that queues the windows
 
         while len(self._ahead) < depth and start < self._table.num_frames:
             end = min(start + count, self._table.num_frames)
             idxs = list(range(start, end))
 
             def work(idxs=idxs):
-                frames = self._decode(idxs)
-                with self._cache_lock:
-                    for i, fr in zip(idxs, frames):
-                        if self._cache.find(i) is None:
-                            self._cache.insert(i, fr)
+                with trace.span("zseek.prefetch", cause):
+                    frames = self._decode(idxs)
+                    with self._cache_lock:
+                        for i, fr in zip(idxs, frames):
+                            if self._cache.find(i, count=False) is None:
+                                self._cache.insert(i, fr)
 
             self._ahead.append((start, end, self._pf_pool.submit(work)))
             start = end
@@ -361,11 +367,12 @@ class Reader:
             # the prefetched window covers this frame: wait for it and
             # immediately pipeline the next window(s)
             s, e, fut = self._ahead.popleft()
-            fut.result()
+            with trace.span("zseek.prefetch_wait"):
+                fut.result()
             self._last_miss = e - 1
             self._schedule_ahead(e, self._window(), self._depth())
             with self._cache_lock:
-                hit = self._cache.find(idx)
+                hit = self._cache.find(idx, count=False)
             if hit is not None:
                 return hit
         # batch ahead on a sequential miss streak
@@ -378,7 +385,7 @@ class Reader:
         for j in range(idx + 1, idx + count):
             with self._cache_lock:
                 if self._cache is not None and \
-                        self._cache.find(j) is not None:
+                        self._cache.find(j, count=False) is not None:
                     break
             idxs.append(j)
         frames = self._decode(idxs)
@@ -386,7 +393,7 @@ class Reader:
             with self._cache_lock:
                 # double-checked: a concurrent reader may have inserted it
                 for i, fr in zip(idxs, frames):
-                    if self._cache.find(i) is None:
+                    if self._cache.find(i, count=False) is None:
                         self._cache.insert(i, fr)
         # the streak continues at the window's end, and the next window
         # decodes in the background while this one is consumed

@@ -29,6 +29,7 @@ from libzseek_tpu_torch.format.seek_table import FrameLog
 from libzseek_tpu_torch.format.xxhash import xxh64
 from libzseek_tpu_torch.runtime import io as zio
 from libzseek_tpu_torch.runtime.stats import WriterStats
+from libzseek_tpu_torch.utils import trace
 
 DEFAULT_MIN_FRAME_SIZE = 1 << 20
 
@@ -122,9 +123,9 @@ class Writer:
         if self._hints and any(any(b is not None for b in f)
                                for f in self._hints):
             blob = H.serialize(self._hints)
-            self._sink.write(blob)
+            self._put(blob)
             self._stats.sidecar_size = len(blob)
-        self._sink.write(self._framelog.serialize())
+        self._put(self._framelog.serialize())
         self._closed = True
         self._refresh_stats()
         if self._owned_file is not None:
@@ -157,7 +158,7 @@ class Writer:
         else:
             compressed = self._codec.compress_frames(frames)
         for raw, comp in zip(frames, compressed):
-            self._sink.write(comp)
+            self._put(comp)
             self._framelog.log_frame(len(comp), len(raw),
                                      checksum=self._frame_checksum(raw))
             self._stats.compressed_size += len(comp)
@@ -169,10 +170,15 @@ class Writer:
             if self._hints is not None:
                 self._hints.extend(fhints)
             for raw, comp in zip(raw_frames, compressed):
-                self._sink.write(comp)
+                self._put(comp)
                 self._framelog.log_frame(len(comp), len(raw),
                                          checksum=self._frame_checksum(raw))
                 self._stats.compressed_size += len(comp)
+
+    def _put(self, b) -> None:
+        """One write to the user's sink."""
+        with trace.span("zseek.sink"):
+            self._sink.write(b)
 
     def _frame_checksum(self, raw: bytes) -> int:
         if not self._checksums:

@@ -106,11 +106,8 @@ from libzseek_tpu_torch.ops.zstd_encode import (apply_ldm_override,
                                                 zstd_sequences_fast,
                                                 zstd_sequences_fast_nolit,
                                                 zstd_sequences_linked)
+from libzseek_tpu_torch.utils import trace
 from libzseek_tpu_torch.utils.device import RoundRobin, resolve_device
-
-# profiler ranges around the codec's stages (free when no profiler runs;
-# read by libzseek_tpu_torch/profile_write.py)
-_span = torch.profiler.record_function
 
 BLOCK = zf.BLOCK_MAX          # 128 KiB, the format's largest block
 BLOCK_HIGH = 1 << 16          # the block of levels >= 4
@@ -324,7 +321,7 @@ class ZstdCodec(RoundRobin):
         parser fences frame starts and the batch start off from the
         preceding row (min_abs)."""
         linked = self.parser == "linked"
-        with _span("zseek.layout"):
+        with trace.span("zseek.layout"):
             X, lens, min_abs, ldm, lens_parse = self._layout(
                 blocks, first_flags, linked)
         dev = self._batch_device()
@@ -337,7 +334,7 @@ class ZstdCodec(RoundRobin):
                 parse_lengths=None if lens_parse is None else t(lens_parse))
             X2d = X2d[1:]
         elif self.parser == "sort":
-            with _span("zseek.parse"):
+            with trace.span("zseek.parse"):
                 seqs = zstd_sequences(X2d, t(lens), seg_size=self.seg_size,
                                       max_len=self.max_len)
         elif self.entropy == "xla":
@@ -418,7 +415,7 @@ class ZstdCodec(RoundRobin):
         lit_cap = _ceil_to(N + 64, 128)
         seq_cap = _ceil_to(9 * S + 64, 128)
         lens_dev = torch.from_numpy(lens_pad.astype(np.int32)).to(dev)
-        with _span("zseek.plan"):
+        with trace.span("zseek.plan"):
             mode, mode_bits, codes_packed, weights_packed, rle, sizes4 = \
                 hp.plan_blocks(seqs["hist"], seqs["lit_count"],
                                seqs["n_seq"], seqs["const"], lens_dev,
@@ -438,12 +435,12 @@ class ZstdCodec(RoundRobin):
         kmode = torch.where(vec_mask, mode_bits & ~E.MODE_HUF, mode_bits)
         meta = torch.cat([torch.stack([lens_dev, lit_count, seqs["n_seq"],
                                        kmode], 1), sizes4], 1)
-        with _span("zseek.entropy"):
+        with trace.span("zseek.entropy"):
             lit_w, seq_w, osz, lanch, sanch = E.entropy_emit(
                 x_dev, seqs["ll"], seqs["ml"], seqs["offv"], meta,
                 codes_packed, S, lit_cap, seq_cap, ctabs=ctabs)
         if bool(vec_mask.any()):
-            with _span("zseek.vector_literals"):
+            with trace.span("zseek.vector_literals"):
                 vflat, vsz, vanch = VE.vector_literals(
                     x_dev, seqs["lit_mask"], codes_packed, lens_dev,
                     vec_mask, lit_cap)
@@ -454,7 +451,7 @@ class ZstdCodec(RoundRobin):
         lit_bytes = osz[:, :4].sum(1).to(torch.int32)
         seq_bytes = osz[:, 4]
         cap_words = self._cap_words_for(Bp * N // 4)
-        with _span("zseek.compact"):
+        with trace.span("zseek.compact"):
             flat, base_w, lw_w = compact_payload(lit_w, lit_bytes, seq_w,
                                                  seq_bytes, cap_words)
         # blocks whose offsets use repcodes 2/3 publish no sequence
@@ -474,7 +471,7 @@ class ZstdCodec(RoundRobin):
         """Fetch one batch's results and assemble its block payloads and
         decode hints."""
         B, Bp, lens = staged["B"], staged["Bp"], staged["lens"]
-        with _span("zseek.fetch"):
+        with trace.span("zseek.fetch"):
             small = staged["small"].cpu().numpy()
             flat = staged["flat"].cpu().numpy()
         pos = 0
@@ -522,7 +519,7 @@ class ZstdCodec(RoundRobin):
         self._needs.append(need)
         self._cap_hint = self._bucket_words(int(max(self._needs) * 1.4))
 
-        with _span("zseek.assemble"):
+        with trace.span("zseek.assemble"):
             trees_all = native.huf_tree_batch(hp.unpack_weights(
                 weights_packed[:B]))
             modes: list[str] = []
@@ -559,7 +556,7 @@ class ZstdCodec(RoundRobin):
         seqs, lens, x_dev = staged["seqs"], staged["lens"], staged["x"]
         B = len(lens)
         Bp = seqs["n_seq"].shape[0]
-        with _span("zseek.fetch"):
+        with trace.span("zseek.fetch"):
             packed = staged["packed"].cpu().numpy()
         hist = packed[: Bp * 256].reshape(Bp, 256)[:B]
         lit_count = packed[Bp * 256: Bp * 257][:B]
@@ -576,7 +573,7 @@ class ZstdCodec(RoundRobin):
             seqs["literals"] = extract_literals(
                 x_dev, torch.from_numpy(staged["lens_pad"]).to(x_dev.device),
                 seqs["ll"], seqs["ml"], seqs["n_seq"])
-        with _span("zseek.tables"):
+        with trace.span("zseek.tables"):
             modes, trees, ests, code_vals, code_bits = self._decide_modes(
                 hist, lit_count, n_seq, lens, Bp, exact=not use_smem,
                 const=const)
@@ -586,7 +583,7 @@ class ZstdCodec(RoundRobin):
         else:
             ent = self._entropy_xla(seqs, lens, lit_count, n_seq, modes,
                                     trees, ests, code_vals, code_bits, smax)
-        with _span("zseek.assemble"):
+        with trace.span("zseek.assemble"):
             return self._assemble(B, lens, lit_count, n_seq, modes, trees,
                                   ent, const=const, hist=hist)
 
@@ -664,11 +661,11 @@ class ZstdCodec(RoundRobin):
         with `arrays` (device tensors): (flat bytes, base_w, lw_w, the
         arrays on the host in their shapes)."""
         Bp = lit_w.shape[0]
-        with _span("zseek.compact"):
+        with trace.span("zseek.compact"):
             flat, base_w, lw_w = compact_payload(lit_w, lit_bytes, seq_w,
                                                  seq_bytes, cap_words)
         parts = [base_w, lw_w] + [a.reshape(-1) for a in arrays]
-        with _span("zseek.fetch"):
+        with trace.span("zseek.fetch"):
             got = torch.cat([p.to(torch.int32) for p in parts + [flat]]) \
                 .cpu().numpy()
         pos = 2 * Bp
@@ -730,7 +727,7 @@ class ZstdCodec(RoundRobin):
                 meta[i, 4] = (int(bits_q[i].sum()) + 1 + 7) >> 3
         codes = torch.from_numpy((code_vals << 4) | code_bits).to(dev)
         cut = lambda a: a[:, :S].contiguous()
-        with _span("zseek.entropy"):
+        with trace.span("zseek.entropy"):
             lit_w, seq_w, osz, lanch, sanch = E.entropy_emit(
                 x_dev, cut(seqs["ll"]), cut(seqs["ml"]), cut(seqs["offv"]),
                 torch.from_numpy(meta).to(dev), codes, S,
@@ -769,13 +766,13 @@ class ZstdCodec(RoundRobin):
         lit_count_huf[:B] = np.where(huf, lit_count, 0)
         lmax = int(lit_count_huf.max())
         lcap = min(N, max(128, 1 << max(0, lmax - 1).bit_length()))
-        with _span("zseek.huffman"):
+        with trace.span("zseek.huffman"):
             streams, sizes4, lanch = XE.huffman_encode_literals(
                 seqs["literals"][:, :lcap], t(lit_count_huf), t(code_vals),
                 t(code_bits), _ceil_to(lcap + 64, 128),
                 anchor_interval=LIT_ANCHOR_INTERVAL, return_words=True)
         cut = lambda a: a[:, :smax]
-        with _span("zseek.fse"):
+        with trace.span("zseek.fse"):
             seq_w, seq_sizes, (sa_bits, sa_states, sa_rep1) = \
                 XE.fse_encode_sequences(
                     cut(seqs["ll"]), cut(seqs["ml"]), cut(seqs["offv"]),
@@ -809,7 +806,7 @@ class ZstdCodec(RoundRobin):
                      if modes[i] == "raw" and lit_count[i] > 0]
         lit_rows = {}
         if need_rows:
-            with _span("zseek.fetch"):
+            with trace.span("zseek.fetch"):
                 picked = seqs["literals"][t(np.array(need_rows))].cpu() \
                     .numpy()
             lit_rows = {r: picked[k][: int(lit_count[r])]
@@ -985,15 +982,22 @@ class _ZstdStream:
              "payloads": {}, "bhints": {}}
         for lo in range(0, len(spans), codec.max_batch_blocks):
             chunk = spans[lo: lo + codec.max_batch_blocks]
-            st = codec._dispatch_parse(
-                [np.frombuffer(frames[fi], np.uint8, sz, s)
-                 for fi, s, sz in chunk],
-                first_flags=[s == 0 for _, s, _ in chunk])
-            g["batches"].append(
-                (lo, self._pool.submit(codec._finish_blocks, st)))
+            with trace.span("zseek.dispatch"):
+                st = codec._dispatch_parse(
+                    [np.frombuffer(frames[fi], np.uint8, sz, s)
+                     for fi, s, sz in chunk],
+                    first_flags=[s == 0 for _, s, _ in chunk])
+                fut = self._pool.submit(self._finish, st, trace.current())
+            g["batches"].append((lo, fut))
             self._inflight += 1
         self._groups.append(g)
         return self._drain(self._depth)
+
+    def _finish(self, staged, cause):
+        """One batch on the finishing thread, under the dispatch that
+        queued it."""
+        with trace.span("zseek.finish", cause):
+            return self._codec._finish_blocks(staged)
 
     def finish(self):
         out = self._drain(0)
@@ -1005,7 +1009,8 @@ class _ZstdStream:
         while self._inflight > depth:
             g = next(gr for gr in self._groups if gr["batches"])
             lo0, fut = g["batches"].popleft()
-            payloads, bhints = fut.result()
+            with trace.span("zseek.stream_wait"):
+                payloads, bhints = fut.result()
             for i, (p, bh) in enumerate(zip(payloads, bhints)):
                 g["payloads"][lo0 + i] = p
                 g["bhints"][lo0 + i] = bh
@@ -1013,6 +1018,7 @@ class _ZstdStream:
         done = []
         while self._groups and not self._groups[0]["batches"]:
             g = self._groups.popleft()
-            done.append(codec._assemble_frames(
-                g["frames"], g["spans"], g["payloads"], g["bhints"]))
+            with trace.span("zseek.assemble"):
+                done.append(codec._assemble_frames(
+                    g["frames"], g["spans"], g["payloads"], g["bhints"]))
         return done
