@@ -6,11 +6,12 @@ parser (parser="sort", the reference's CPU default) and _LZ4Stream:
 
   host:   batch layout: for K5 (Bp+1, 64 KiB) with Bp = max(8, pow2)
           rows, row i+1 = block i and row i its context (shared, not
-          duplicated), lengths and absolute min_ref fences (:175-226);
+          duplicated), lengths and absolute min_ref fences (:175-226;
+          here _layout_k5);
           for the sort parser (Bp, ctx + 64 KiB), each row its block
           behind a copy of its 64 KiB window (ctx = 0 for
           block_independent), min_ref where the frame's history starts
-          (:226-242);
+          (:226-242; here _layout_sort);
   device: K5 (ops/lz4_emit.py, csrc/lz4_emit.cu), or lz4_encode_blocks
           (ops/lz4_encode.py: the sort pipeline of ops/match.py with the
           greedy_select kernel, then the packing as PyTorch ops); then
@@ -19,6 +20,13 @@ parser (parser="sort", the reference's CPU default) and _LZ4Stream:
           with its recompact/refetch path (_finish_batch, :245-278), and
           LZ4F assembly, storing a block raw from the host's bytes where
           its payload is not smaller (_assemble_frames, :128-148).
+
+On a CUDA device each batch of a stream runs on a CUDA stream of its own
+(_LZ4Stream keeps `depth` of them a device), from page-locked uploads to
+a page-locked copy of its result, so the batches in flight run on the
+card at once and the calling thread never waits for a kernel; the
+finishing thread waits for each batch's own event.  K5 walks each frame
+on one thread, so this is where the card's parallelism comes from.
 
 Decoding takes the reference's routes (:288-299, 326-336): host
 delivery goes through the native block decoder (zn_lz4_decode) on the
@@ -34,6 +42,8 @@ device.  Not ported: the ZN_LZ4_HOST_DECODE knob (A11 of ROADMAP.md).
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -57,6 +67,13 @@ MAX_BATCH_BLOCKS = 128
 
 def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def _on(stream):
+    """The context that makes `stream` current on its device; nothing for
+    None (a batch on the CPU)."""
+    return contextlib.nullcontext() if stream is None \
+        else torch.cuda.stream(stream)
 
 
 class LZ4Codec(RoundRobin):
@@ -170,85 +187,117 @@ class LZ4Codec(RoundRobin):
             out.extend(fr_out)
         return out
 
-    def _dispatch_batch(self, frames, chunk, ctx):
-        """Lay out one block batch, launch the encode (K5, or the sort
-        parser) and the compaction on the batch's device (no sync on the
-        card)."""
+    def _dispatch_batch(self, frames, chunk, ctx, streams):
+        """Lay out one block batch, upload it and launch the encode (K5, or
+        the sort parser), the compaction and the fetch of the result on
+        the batch's device, with no wait on the card.  On a CUDA device
+        all of it runs on the stream that streams(dev) gives, every upload
+        is made from page-locked memory before the launch and the result
+        lands in page-locked memory, and the event "done" fires when it
+        is there; on the CPU there is no stream and no event."""
         B = len(chunk)
         Bp = max(8, 1 << max(0, (B - 1).bit_length()))
         dev = self._batch_device()
-        t = lambda a: torch.from_numpy(a).to(dev)
-        sizes = np.zeros((Bp,), np.int32)
-        for i, (_, _, sz) in enumerate(chunk):
+        stream = streams(dev) if dev.type == "cuda" else None
+        sort = self.parser == "sort"
+        with _on(stream):
+            with trace.span("zseek.layout"):
+                layout = self._layout_sort if sort else self._layout_k5
+                rows, ints = layout(frames, chunk, ctx, Bp,
+                                    stream is not None)
+                sizes = ints[2].numpy().copy()
+                rows, ints = (a.to(dev, non_blocking=True)
+                              for a in (rows, ints))
+            lens, min_ref, sizes_dev = ints
+            if sort:
+                out, olens = lz4_encode_blocks(rows, lens,
+                                               seg_size=self.seg_size,
+                                               ctx_len=ctx, min_ref=min_ref)
+            else:
+                out, olens = lz4_emit(rows, lens, min_ref, out_cap(BLOCK),
+                                      **self._level_params(self.level))
+            # blocks whose payload reaches the raw size are stored raw from
+            # the host's bytes at assembly: their payloads stay out of the
+            # fetch (the sort parser's padding rows report negative lengths)
+            live = torch.where((olens >= 0) & (olens < sizes_dev), olens,
+                               torch.zeros_like(olens))
+            cap_words = self._cap_words_for(Bp * BLOCK // 4)
+            dummy = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
+            zb = torch.zeros((Bp,), dtype=torch.int32, device=dev)
+            words = out.view(torch.int32)
+            flat, base_w, _lw = compact_payload(words, live, dummy, zb,
+                                                cap_words)
+            meta = torch.cat([olens, base_w, flat])
+            done = None
+            if stream is not None:
+                host = torch.empty(meta.shape, dtype=meta.dtype,
+                                   pin_memory=True)
+                meta = host.copy_(meta, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+        return {"Bp": Bp, "sizes": sizes, "meta": meta, "done": done,
+                "stream": stream, "cap_words": cap_words,
+                "streams": (words, live)}
+
+    @staticmethod
+    def _layout_k5(frames, chunk, ctx, Bp, pinned):
+        """K5's shared-context layout: (rows (Bp+1, 64 KiB) uint8, ints
+        (3, Bp) int32 = lengths, absolute min_ref fences, block sizes), in
+        page-locked memory where `pinned`.  The rows are not cleared first:
+        each byte is written once, the bytes no block covers with zeros."""
+        D = torch.empty((Bp + 1, BLOCK), dtype=torch.uint8,
+                        pin_memory=pinned)
+        ints = torch.zeros((3, Bp), dtype=torch.int32, pin_memory=pinned)
+        d, (dlens, dminr, sizes) = D.numpy(), ints.numpy()
+        dlens[:] = BLOCK
+        # min_ref is an ABSOLUTE position (K5's table spans the rows):
+        # row i's window starts at i * BLOCK
+        dminr[:] = (np.arange(Bp, dtype=np.int32) + 1) * BLOCK
+        fi0, s0, _ = chunk[0]
+        if ctx and s0 > 0:
+            d[0] = np.frombuffer(frames[fi0], np.uint8, BLOCK, s0 - BLOCK)
+        else:
+            d[0] = 0
+        for i, (fi, s, sz) in enumerate(chunk):
+            d[i + 1, :sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
+            d[i + 1, sz:] = 0
+            dlens[i] = BLOCK + sz
             sizes[i] = sz
-        encode = self._encode_sort if self.parser == "sort" \
-            else self._encode_k5
-        out, olens = encode(frames, chunk, ctx, Bp, dev)
-        # blocks whose payload reaches the raw size are stored raw from the
-        # host's bytes at assembly: their payloads stay out of the fetch
-        # (the sort parser's padding rows report negative lengths)
-        live = torch.where((olens >= 0) & (olens < t(sizes)), olens,
-                           torch.zeros_like(olens))
-        cap_words = self._cap_words_for(Bp * BLOCK // 4)
-        dummy = torch.zeros((Bp, 1), dtype=torch.int32, device=dev)
-        zb = torch.zeros((Bp,), dtype=torch.int32, device=dev)
-        words = out.view(torch.int32)
-        flat, base_w, _lw = compact_payload(words, live, dummy, zb, cap_words)
-        meta = torch.cat([olens, base_w, flat])
-        return {"Bp": Bp, "sizes": sizes, "meta": meta,
-                "cap_words": cap_words, "streams": (words, live)}
+            if ctx and s > 0:
+                dminr[i] = i * BLOCK  # previous row is same-frame
+        d[len(chunk) + 1:] = 0
+        return D, ints
 
-    def _encode_k5(self, frames, chunk, ctx, Bp, dev):
-        """K5 over the shared-context layout: (out (Bp, cap) uint8,
-        olens (Bp,) int32)."""
-        with trace.span("zseek.layout"):
-            D = np.zeros((Bp + 1, BLOCK), np.uint8)
-            dlens = np.full((Bp,), BLOCK, np.int32)
-            # min_ref is an ABSOLUTE position (K5's table spans the rows):
-            # row i's window starts at i * BLOCK
-            dminr = (np.arange(Bp, dtype=np.int32) + 1) * BLOCK
-            fi0, s0, _ = chunk[0]
-            if ctx and s0 > 0:
-                D[0] = np.frombuffer(frames[fi0], np.uint8, BLOCK,
-                                     s0 - BLOCK)
-            for i, (fi, s, sz) in enumerate(chunk):
-                D[i + 1, :sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
-                dlens[i] = BLOCK + sz
-                if ctx and s > 0:
-                    dminr[i] = i * BLOCK  # previous row is same-frame
-            t = lambda a: torch.from_numpy(a).to(dev)
-            D, dlens, dminr = t(D), t(dlens), t(dminr)
-        return lz4_emit(D, dlens, dminr, out_cap(BLOCK),
-                        **self._level_params(self.level))
-
-    def _encode_sort(self, frames, chunk, ctx, Bp, dev):
-        """The sort parser over rows of ctx + 64 KiB, each block behind a
-        copy of its window (the first block of a frame has none, so its
-        min_ref is ctx): (out (Bp, cap) uint8, olens (Bp,) int32)."""
-        with trace.span("zseek.layout"):
-            X = np.zeros((Bp, ctx + BLOCK), np.uint8)
-            lens = np.zeros((Bp,), np.int32)
-            min_ref = np.zeros((Bp,), np.int32)
-            for i, (fi, s, sz) in enumerate(chunk):
-                X[i, ctx: ctx + sz] = np.frombuffer(frames[fi], np.uint8,
-                                                    sz, s)
-                lens[i] = ctx + sz
-                if ctx:
-                    clen = min(BLOCK, s)  # the window this frame has
-                    if clen:
-                        X[i, ctx - clen: ctx] = np.frombuffer(
-                            frames[fi], np.uint8, clen, s - clen)
-                    min_ref[i] = ctx - clen
-            t = lambda a: torch.from_numpy(a).to(dev)
-            X, lens, min_ref = t(X), t(lens), t(min_ref)
-        return lz4_encode_blocks(X, lens, seg_size=self.seg_size,
-                                 ctx_len=ctx, min_ref=min_ref)
+    @staticmethod
+    def _layout_sort(frames, chunk, ctx, Bp, pinned):
+        """The sort parser's rows of ctx + 64 KiB, each block behind a copy
+        of its window (the first block of a frame has none, so its min_ref
+        is ctx): (rows (Bp, ctx + 64 KiB) uint8, ints (3, Bp) int32 =
+        lengths, min_ref, block sizes), page-locked where `pinned`."""
+        X = torch.zeros((Bp, ctx + BLOCK), dtype=torch.uint8,
+                        pin_memory=pinned)
+        ints = torch.zeros((3, Bp), dtype=torch.int32, pin_memory=pinned)
+        x, (lens, min_ref, sizes) = X.numpy(), ints.numpy()
+        for i, (fi, s, sz) in enumerate(chunk):
+            x[i, ctx: ctx + sz] = np.frombuffer(frames[fi], np.uint8, sz, s)
+            lens[i] = ctx + sz
+            sizes[i] = sz
+            if ctx:
+                clen = min(BLOCK, s)  # the window this frame has
+                if clen:
+                    x[i, ctx - clen: ctx] = np.frombuffer(
+                        frames[fi], np.uint8, clen, s - clen)
+                min_ref[i] = ctx - clen
+        return X, ints
 
     def _finish_batch(self, B, staged) -> list[bytes | None]:
         """Fetch one batch's results -> per-block payload bytes (None =
-        store raw).  Every tensor of the batch lies on its device."""
+        store raw).  On a CUDA device the fetch waits for the batch's own
+        event; a recompaction runs on the batch's stream."""
         Bp, sizes = staged["Bp"], staged["sizes"]
         with trace.span("zseek.fetch"):
+            if staged["done"] is not None:
+                staged["done"].synchronize()
             fetched = staged["meta"].cpu().numpy()
         olens = fetched[:Bp]
         base_w = fetched[Bp: 2 * Bp]
@@ -259,14 +308,16 @@ class LZ4Codec(RoundRobin):
             # the adaptive cap undershot: recompact at the exact bucket and
             # fetch again
             words, live_dev = staged["streams"]
-            dummy = torch.zeros((Bp, 1), dtype=torch.int32,
-                                device=words.device)
-            zb = torch.zeros((Bp,), dtype=torch.int32, device=words.device)
-            flat_d, base_d, _lw = compact_payload(
-                words, live_dev, dummy, zb, self._bucket_words(need))
-            with trace.span("zseek.fetch"):
-                flat = flat_d.cpu().numpy().view(np.uint8)
-                base_w = base_d.cpu().numpy()
+            with _on(staged["stream"]):
+                dummy = torch.zeros((Bp, 1), dtype=torch.int32,
+                                    device=words.device)
+                zb = torch.zeros((Bp,), dtype=torch.int32,
+                                 device=words.device)
+                flat_d, base_d, _lw = compact_payload(
+                    words, live_dev, dummy, zb, self._bucket_words(need))
+                with trace.span("zseek.fetch"):
+                    flat = flat_d.cpu().numpy().view(np.uint8)
+                    base_w = base_d.cpu().numpy()
         else:
             flat = fetched[2 * Bp:].view(np.uint8)
         self._needs.append(need)
@@ -372,15 +423,27 @@ class _LZ4Stream:
     """Streaming LZ4 compression session (see LZ4Codec.begin_stream),
     shaped like zstd_codec._ZstdStream: a single worker thread fetches and
     finishes batches in FIFO order while the caller's thread lays out and
-    launches later ones; groups complete in submission order."""
+    launches later ones; groups complete in submission order.  On a CUDA
+    device the batches in flight run on the card at once: each on the next
+    of its device's `depth` streams, the worker waiting on each batch's
+    own event."""
 
     def __init__(self, codec: LZ4Codec, depth: int):
         self._codec = codec
         self._depth = max(1, depth)
         self._groups = deque()
         self._inflight = 0
+        self._streams: dict = {}
         self._pool = ThreadPoolExecutor(max_workers=1,
                                         thread_name_prefix="zseek-lz4")
+
+    def _stream_for(self, dev):
+        """The next CUDA stream of `dev`'s `depth`, taken in turn."""
+        ring = self._streams.get(dev)
+        if ring is None:
+            ring = self._streams[dev] = itertools.cycle(
+                [torch.cuda.Stream(dev) for _ in range(self._depth)])
+        return next(ring)
 
     def submit(self, frames):
         codec = self._codec
@@ -389,16 +452,25 @@ class _LZ4Stream:
         spans = codec._frame_spans(frames)
         g = {"frames": frames, "spans": spans, "batches": deque(),
              "payloads": {}}
+        self._groups.append(g)
         for lo in range(0, len(spans), codec.max_batch_blocks):
             chunk = spans[lo: lo + codec.max_batch_blocks]
             with trace.span("zseek.dispatch"):
-                st = codec._dispatch_batch(frames, chunk, ctx)
+                st = codec._dispatch_batch(frames, chunk, ctx,
+                                           self._stream_for)
+                if trace.recording() and self._overlaps():
+                    trace.mark("zseek.overlap")
                 fut = self._pool.submit(self._finish, len(chunk), st,
                                         trace.current())
-            g["batches"].append((lo, fut))
+            g["batches"].append((lo, fut, st["done"]))
             self._inflight += 1
-        self._groups.append(g)
         return self._drain(self._depth)
+
+    def _overlaps(self) -> bool:
+        """Whether an earlier batch in flight still runs on the card (its
+        event has not fired)."""
+        return any(done is not None and not done.query()
+                   for gr in self._groups for _, _, done in gr["batches"])
 
     def _finish(self, B, staged, cause):
         """One batch on the finishing thread, under the dispatch that
@@ -415,7 +487,7 @@ class _LZ4Stream:
         codec = self._codec
         while self._inflight > depth:
             g = next(gr for gr in self._groups if gr["batches"])
-            lo0, fut = g["batches"].popleft()
+            lo0, fut, _ = g["batches"].popleft()
             with trace.span("zseek.stream_wait"):
                 got = fut.result()
             for i, payload in enumerate(got):

@@ -20,6 +20,11 @@ enclosing span on the same thread or, for a worker's top span, the span
 that queued the work: the code that submits work to a pool passes
 current() along, and the worker opens its top span with it as `cause`.
 
+mark(name) logs a zero-length entry at one instant, inside the calling
+thread's innermost open span (its cause), and enters no record_function;
+recording() says whether spans are logged, for code that would do work
+only to decide whether to mark.
+
 The log is kept in memory, bounded at LOG_MAX entries (later entries are
 counted in dropped() and not kept), and read after the traced window:
 spans() copies it, drain() empties it.  The benchmark's traced runs and
@@ -92,15 +97,18 @@ class _Open:
         end = _clock()
         _stack().pop()
         self.rf.__exit__(*exc)
-        entry = Span(self.name, threading.current_thread().name, self.start,
-                     end, self.id, self.cause)
-        global _dropped
-        with _lock:
-            if len(_log) < LOG_MAX:
-                _log.append(entry)
-            else:
-                _dropped += 1
+        _keep(Span(self.name, threading.current_thread().name, self.start,
+                   end, self.id, self.cause))
         return False
+
+
+def _keep(entry: Span) -> None:
+    global _dropped
+    with _lock:
+        if len(_log) < LOG_MAX:
+            _log.append(entry)
+        else:
+            _dropped += 1
 
 
 def span(name: str, cause: int | None = None):
@@ -109,6 +117,22 @@ def span(name: str, cause: int | None = None):
     if not _profiler._is_profiler_enabled:
         return _NULL
     return _Open(name, cause)
+
+
+def recording() -> bool:
+    """True while a profiler runs, that is while spans are logged."""
+    return _profiler._is_profiler_enabled
+
+
+def mark(name: str) -> None:
+    """Log a zero-length span `name` now, its cause the innermost open span
+    on the calling thread (nothing when no profiler runs)."""
+    if not _profiler._is_profiler_enabled:
+        return
+    st = _stack()
+    t = _clock()
+    _keep(Span(name, threading.current_thread().name, t, t, next(_ids),
+               st[-1] if st else None))
 
 
 def current() -> int | None:
