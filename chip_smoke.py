@@ -2438,8 +2438,8 @@ def dist_write(mib: int, timeout: int = 400) -> tuple[str, float, int]:
 
 
 def phase_workers(data, card, zstd_sha, lz4_sha) -> dict:
-    """Phase 12: the codecs' round-robin on one card, the two-process
-    write and the dry run."""
+    """Phase 12: the codecs' round-robin and the zstd worker pipelines on
+    one card, the two-process write and the dry run."""
     import torch
     from libzseek_tpu_torch import LZ4Codec, Reader, Writer, ZstdCodec
     from libzseek_tpu_torch.ops import (entropy, lz4_emit, parse_linked,
@@ -2450,19 +2450,23 @@ def phase_workers(data, card, zstd_sha, lz4_sha) -> dict:
     from libzseek_tpu_torch.utils import device as udev
     sha = lambda b: hashlib.sha256(b).hexdigest()
 
-    # (a) workers=2 with one visible card: that card, no round-robin
+    # (a) workers=2 with one visible card: two zstd worker pipelines, both
+    # on that card
     sink = Sink()
     w = Writer(sink, "zstd", level=3, device="cuda", workers=2,
                min_frame_size=MIB, batch_frames=16)
     for pos in range(0, len(data), MIB):
         w.write(data[pos: pos + MIB])
     w.close()
-    check(w._codec._devices is None and w._codec._rr == 0,
-          "workers=2 on one card did not keep one device")
+    cuda0 = torch.device("cuda", torch.cuda.current_device())
+    check(w._codec._devices == [cuda0] * 2
+          and w._stream.worker_batches == [w._codec._rr // 2] * 2,
+          "workers=2 on one card did not run two pipelines on it")
     check(sha(sink.value()) == zstd_sha,
           "the workers=2 archive differs from phase 3's")
-    print(f"workers=2, one card: _devices None, _rr 0, sha256 equal to "
-          f"phase 3's", flush=True)
+    print(f"workers=2, one card: two pipelines on it, "
+          f"{w._stream.worker_batches} batches, sha256 equal to phase 3's",
+          flush=True)
 
     # (b) the round-robin over cuda:0 listed four times
     out = {"card": card}

@@ -30,6 +30,8 @@ in 4-stream mode are outside this contract.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -55,6 +57,7 @@ LIT_ANCHOR_INTERVAL = 512
 SEQ_ANCHOR_INTERVAL = 128
 
 launches = 0
+_count = threading.Lock()   # the zstd stream's worker pipelines launch at once
 
 
 def _build_tabs():
@@ -140,7 +143,10 @@ def _device_const(name: str, table: np.ndarray, dev) -> torch.Tensor:
     key = (name, str(dev))
     t = _on_device.get(key)
     if t is None:
-        t = _on_device[key] = torch.from_numpy(table).to(dev)
+        with _count:
+            t = _on_device.get(key)
+            if t is None:
+                t = _on_device[key] = torch.from_numpy(table).to(dev)
     return t
 
 
@@ -202,7 +208,8 @@ def _emit_cuda(x, sll, sml, soff, meta, codes, ctabs, S, LITW, SEQW,
         "zk_entropy_emit", dev, *[t.data_ptr() for t in ins], tabs.data_ptr(),
         ctabs.data_ptr(), B, N, S, LITW, SEQW, LMAXA, SMAXA, ctabs.stride(0),
         _KERNEL_OFFSETS_PTR, tmp.data_ptr(), *[t.data_ptr() for t in outs])
-    launches += 1
+    with _count:
+        launches += 1
     return tuple(outs)
 
 

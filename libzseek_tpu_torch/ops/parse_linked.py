@@ -46,6 +46,8 @@ rep_probe carries nothing across rows either.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -62,6 +64,7 @@ _PRIME = np.uint32(2654435761)
 _GOLD = np.uint32(0x9E3779B1)
 
 launches = 0
+_count = threading.Lock()   # the zstd stream's worker pipelines launch at once
 
 
 def chain_bounds(min_abs: np.ndarray, N: int) -> np.ndarray:
@@ -132,7 +135,8 @@ def _parse_cuda(x2, lengths, min_abs, h16, B, N, ma, prm):
         MAX_OFFSET, gate_bits, min_match, accel_log, STRICT_H16_X6, lazy,
         int(dual), int(rep_probe), tables.data_ptr(), ll.data_ptr(),
         ml.data_ptr(), off.data_ptr(), nn.data_ptr(), mask.data_ptr())
-    launches += 1
+    with _count:
+        launches += 1
     return ll, ml, off, nn[:, 0], nn[:, 1], mask
 
 

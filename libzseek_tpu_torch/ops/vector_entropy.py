@@ -21,6 +21,8 @@ in numpy for the tests.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from libzseek_tpu_torch.ops import common as C
@@ -36,6 +38,7 @@ VEC_MIN_LC = 4096    # rows with fewer literals stay on K2's scalar emitter
 assert VEC_MIN_LC // 4 >= E.LIT_ANCHOR_INTERVAL, VEC_MIN_LC
 
 launches = 0
+_count = threading.Lock()   # the zstd stream's worker pipelines launch at once
 
 
 def vector_prep(x, lit_mask_words, codes_packed, lens, vec_row):
@@ -97,5 +100,6 @@ def _vector_cuda(x, lit_mask_words, codes_packed, lens, vec_row, LITW):
         "zk_vector_literals", dev, *[t.data_ptr() for t in ins], B, N, LITW,
         LMAXA, tmp.data_ptr(), out.data_ptr(), sizes.data_ptr(),
         lanch.data_ptr())
-    launches += 1
+    with _count:
+        launches += 1
     return out, sizes, lanch

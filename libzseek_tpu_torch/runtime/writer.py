@@ -18,7 +18,9 @@ the card), then written to the sink in order.  The API contract (not
 concurrency-safe, like src/zseek.h:278) is unchanged.  A codec given by
 name is the port's ZstdCodec ("zstd", default level 3) or LZ4Codec
 ("lz4", default level 0) on `device`, given `workers` as the reference's
-_make_codec gives it (its batches round-robin over that many devices).
+_make_codec gives it: zstd runs that many worker pipelines, one a device
+where there are as many, and keeps two batches a worker in flight; LZ4's
+batches round-robin over that many devices.
 """
 
 from __future__ import annotations

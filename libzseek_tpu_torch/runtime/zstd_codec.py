@@ -49,10 +49,14 @@ The host assembly helpers are copies of the reference's (they sit in a
 module that imports JAX); the byte-identity tests hold them to it.  The
 reference's ZN_* environment knobs are not ported (their defaults are
 fixed), nor its adaptive vector-literal hint: every row K3 accepts goes
-through K3, with identical bits either way.  `workers` is the
-reference's round-robin: with more than one visible device, each batch
-goes to the next of the first `workers` devices (utils/device.py), and
-its upload, device stages and finishing follow it there.
+through K3, with identical bits either way.  `workers` > 1 is libzseek's
+nb_workers: the stream runs that many worker pipelines at once, each a
+thread bound to a device (worker i on the (i mod n)-th of the n visible
+devices, utils/device.pipeline_devices), and batch k goes to worker k mod
+`workers`, which runs its layout, uploads, device stages and finishing
+there, its plans in turn with the other workers' (_ZstdStream, _Turn);
+frames are assembled in order on the calling thread, so the archive is
+the same at every `workers`.
 collect_hints=False returns no decode hints (the archive bytes are the
 same).
 
@@ -78,7 +82,9 @@ executor.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -107,7 +113,8 @@ from libzseek_tpu_torch.ops.zstd_encode import (apply_ldm_override,
                                                 zstd_sequences_fast_nolit,
                                                 zstd_sequences_linked)
 from libzseek_tpu_torch.utils import trace
-from libzseek_tpu_torch.utils.device import RoundRobin, resolve_device
+from libzseek_tpu_torch.utils.device import (RoundRobin, pipeline_devices,
+                                             resolve_device)
 
 BLOCK = zf.BLOCK_MAX          # 128 KiB, the format's largest block
 BLOCK_HIGH = 1 << 16          # the block of levels >= 4
@@ -227,9 +234,11 @@ class ZstdCodec(RoundRobin):
                 f"bytes a batch (rounded up to a power of two)")
         self.level = level
         self.device = resolve_device(device)
-        # N workers: batches round-robin over the first `workers` devices;
-        # frames are independent, so the batches need no collectives
-        self._init_workers(workers)
+        # N > 1 workers: N pipelines, batches round-robin over them; frames
+        # are independent, so the batches need no collectives
+        self._init_workers(workers, pipeline_devices)
+        self._plan_turn = _Turn() if self._devices \
+            else contextlib.nullcontext()
         self.block = block
         self.max_batch_blocks = max_batch_blocks
         self.collect_hints = collect_hints
@@ -248,9 +257,12 @@ class ZstdCodec(RoundRobin):
         # delivery (the reference's choice); "fused": K4 walks whole
         # streams; "lanes": the lane route, which reads the Writer's hints
         self.decoder = decoder
-        # adaptive payload-fetch cap, sized from recent batches
+        # adaptive payload-fetch cap, sized from recent batches; the worker
+        # pipelines update it at once (the hint may differ by timing, the
+        # bytes may not: an undershoot recompacts)
         self._cap_hint: int | None = None
         self._needs = deque([1], maxlen=8)
+        self._cap_lock = threading.Lock()
 
     # --- compress ---
 
@@ -263,11 +275,16 @@ class ZstdCodec(RoundRobin):
             out_hints.extend(fh)
         return (out, out_hints) if return_hints else out
 
-    def begin_stream(self, return_hints: bool = True, depth: int = 4):
+    def begin_stream(self, return_hints: bool = True,
+                     depth: int | None = None):
         """Streaming session: `submit(frames)` dispatches a frame group and
         returns older (frames, hints) groups that completed, `finish()`
-        drains the rest; groups complete in submission order.  Hints are
-        always returned; `return_hints` is the shared Writer's keyword."""
+        drains the rest; groups complete in submission order.  At most
+        `depth` batches stay in flight: by default 4, and with worker
+        pipelines 2 a worker (one running, one queued).  Hints are always
+        returned; `return_hints` is the shared Writer's keyword."""
+        if depth is None:
+            depth = max(4, 2 * len(self._devices or ()))
         return _ZstdStream(self, depth)
 
     def _frame_spans(self, frames):
@@ -315,16 +332,17 @@ class ZstdCodec(RoundRobin):
         return out, out_hints
 
     def _dispatch_parse(self, blocks: list[np.ndarray],
-                        first_flags: list[bool] | None = None):
-        """Upload one batch to its device and dispatch its device stages
-        there.  first_flags[i] marks a frame's first block; the linked
-        parser fences frame starts and the batch start off from the
-        preceding row (min_abs)."""
+                        first_flags: list[bool] | None = None, dev=None):
+        """Upload one batch to its device (`dev`, else the next of the
+        round-robin) and dispatch its device stages there.  first_flags[i]
+        marks a frame's first block; the linked parser fences frame starts
+        and the batch start off from the preceding row (min_abs)."""
         linked = self.parser == "linked"
         with trace.span("zseek.layout"):
             X, lens, min_abs, ldm, lens_parse = self._layout(
                 blocks, first_flags, linked)
-        dev = self._batch_device()
+        if dev is None:
+            dev = self._batch_device()
         t = lambda a: torch.from_numpy(a).to(dev)
         B = len(blocks)
         X2d = t(X)
@@ -415,7 +433,7 @@ class ZstdCodec(RoundRobin):
         lit_cap = _ceil_to(N + 64, 128)
         seq_cap = _ceil_to(9 * S + 64, 128)
         lens_dev = torch.from_numpy(lens_pad.astype(np.int32)).to(dev)
-        with trace.span("zseek.plan"):
+        with self._plan_turn, trace.span("zseek.plan"):
             mode, mode_bits, codes_packed, weights_packed, rle, sizes4 = \
                 hp.plan_blocks(seqs["hist"], seqs["lit_count"],
                                seqs["n_seq"], seqs["const"], lens_dev,
@@ -516,8 +534,9 @@ class ZstdCodec(RoundRobin):
             lw_w = lw_d.cpu().numpy()
         else:
             flat_bytes = flat.view(np.uint8)
-        self._needs.append(need)
-        self._cap_hint = self._bucket_words(int(max(self._needs) * 1.4))
+        with self._cap_lock:
+            self._needs.append(need)
+            self._cap_hint = self._bucket_words(int(max(self._needs) * 1.4))
 
         with trace.span("zseek.assemble"):
             trees_all = native.huf_tree_batch(hp.unpack_weights(
@@ -959,22 +978,64 @@ class ZstdCodec(RoundRobin):
                                          device=self.device)
 
 
+class _Turn:
+    """The lock that the worker pipelines' plans take in turn, its wait
+    the span zseek.plan_wait.  A plan is thousands of small launches, each
+    of which takes the interpreter lock back, and four plans at once
+    stretched each so far that four workers on four H100s wrote at a
+    third of the rate they reach planning one at a time (PERF.md §6)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        with trace.span("zseek.plan_wait"):
+            self._lock.acquire()
+
+    def __exit__(self, *exc):
+        self._lock.release()
+
+
+def _bind_worker(index: int, dev: torch.device) -> None:
+    """A worker pipeline's thread: named zseek-worker-<index> and bound to
+    its device, once."""
+    threading.current_thread().name = f"zseek-worker-{index}"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+
+
 class _ZstdStream:
     """Streaming compression session (see ZstdCodec.begin_stream).
 
-    At most `depth` batches stay in flight: one worker thread fetches and
-    assembles finished batches (in FIFO order) while the caller's thread
-    uploads and dispatches later ones."""
+    At most `depth` batches stay in flight, and groups complete in FIFO
+    order on the calling thread.  With one worker, the calling thread lays
+    out, uploads and dispatches each batch, and one finishing thread
+    fetches and assembles them.  With `workers` W > 1, W worker threads
+    (zseek-worker-<i>, bound to codec._devices[i]) run whole batches: the
+    calling thread hands batch k to worker k mod W, which lays it out,
+    uploads it, runs its device stages (the plans one worker at a time,
+    ZstdCodec._plan_turn), fetches and finishes it; `worker_batches[i]`
+    counts the batches worker i ran.  A batch's exception is raised from
+    the next submit or from finish, after every thread of the stream has
+    stopped; so is every later call's."""
 
     def __init__(self, codec: ZstdCodec, depth: int):
         self._codec = codec
         self._depth = max(1, depth)
         self._groups = deque()
         self._inflight = 0
-        self._pool = ThreadPoolExecutor(max_workers=1,
-                                        thread_name_prefix="zseek-finish")
+        self._error: Exception | None = None
+        devs = codec._devices or ()
+        self._pool = None if devs else ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="zseek-finish")
+        self._workers = [ThreadPoolExecutor(max_workers=1,
+                                            initializer=_bind_worker,
+                                            initargs=(i, dev))
+                         for i, dev in enumerate(devs)]
+        self.worker_batches = [0] * len(devs)
 
     def submit(self, frames):
+        self._check()
         codec = self._codec
         frames = list(frames)
         spans = codec._frame_spans(frames)
@@ -983,11 +1044,18 @@ class _ZstdStream:
         for lo in range(0, len(spans), codec.max_batch_blocks):
             chunk = spans[lo: lo + codec.max_batch_blocks]
             with trace.span("zseek.dispatch"):
-                st = codec._dispatch_parse(
-                    [np.frombuffer(frames[fi], np.uint8, sz, s)
-                     for fi, s, sz in chunk],
-                    first_flags=[s == 0 for _, s, _ in chunk])
-                fut = self._pool.submit(self._finish, st, trace.current())
+                blocks = [np.frombuffer(frames[fi], np.uint8, sz, s)
+                          for fi, s, sz in chunk]
+                flags = [s == 0 for _, s, _ in chunk]
+                if self._pool is not None:
+                    st = codec._dispatch_parse(blocks, first_flags=flags)
+                    fut = self._pool.submit(self._finish, st,
+                                            trace.current())
+                else:
+                    i = codec._rr % len(self._workers)
+                    fut = self._workers[i].submit(
+                        self._work, i, blocks, flags, codec._batch_device(),
+                        trace.current())
             g["batches"].append((lo, fut))
             self._inflight += 1
         self._groups.append(g)
@@ -999,10 +1067,39 @@ class _ZstdStream:
         with trace.span("zseek.finish", cause):
             return self._codec._finish_blocks(staged)
 
-    def finish(self):
-        out = self._drain(0)
-        self._pool.shutdown(wait=True)
+    def _work(self, i, blocks, flags, dev, cause):
+        """One whole batch on worker i's thread, under the dispatch that
+        handed it over."""
+        codec = self._codec
+        with trace.span("zseek.worker", cause):
+            out = codec._finish_blocks(
+                codec._dispatch_parse(blocks, first_flags=flags, dev=dev))
+        self.worker_batches[i] += 1
         return out
+
+    def finish(self):
+        self._check()
+        try:
+            return self._drain(0)
+        finally:
+            self._close()
+
+    def _check(self) -> None:
+        """Raise the stream's error, or the exception of a batch in flight
+        that failed, once every thread has stopped."""
+        if self._error is None:
+            failed = next((f for g in self._groups for _, f in g["batches"]
+                           if f.done() and f.exception() is not None), None)
+            if failed is None:
+                return
+            self._error = failed.exception()
+        self._close()
+        raise self._error
+
+    def _close(self) -> None:
+        for pool in [self._pool, *self._workers]:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
 
     def _drain(self, depth: int):
         codec = self._codec
@@ -1010,7 +1107,12 @@ class _ZstdStream:
             g = next(gr for gr in self._groups if gr["batches"])
             lo0, fut = g["batches"].popleft()
             with trace.span("zseek.stream_wait"):
-                payloads, bhints = fut.result()
+                try:
+                    payloads, bhints = fut.result()
+                except Exception as e:
+                    self._error = e
+                    self._close()
+                    raise
             for i, (p, bh) in enumerate(zip(payloads, bhints)):
                 g["payloads"][lo0 + i] = p
                 g["bhints"][lo0 + i] = bh

@@ -5,7 +5,7 @@ the JAX backend.  The port never falls back: `device="cuda"` (the default)
 needs a visible card and raises without one; `device="cpu"` runs every
 kernel's plain PyTorch version and exists for the tests.  worker_devices
 and RoundRobin are the codecs' `workers`: the devices their batches take
-in turn.
+in turn; pipeline_devices are the zstd stream's worker pipelines.
 """
 
 from __future__ import annotations
@@ -50,15 +50,28 @@ def worker_devices(workers: int | None,
     return devs[: min(workers, len(devs))] if len(devs) > 1 else None
 
 
+def pipeline_devices(workers: int | None,
+                     device: torch.device) -> list[torch.device] | None:
+    """The zstd stream's `workers` > 1 worker pipelines, as libzseek's
+    nb_workers threads: worker i on the (i mod n)-th of the n visible
+    devices, so that workers share devices where there are fewer (one
+    device: every worker on it); None for one worker."""
+    if not workers or workers <= 1:
+        return None
+    devs = _visible_devices(device)
+    return [devs[i % len(devs)] for i in range(workers)]
+
+
 class RoundRobin:
     """The codecs' `workers` (the reference's _put): a codec on `device`
-    calls _init_workers once, then _batch_device for each batch it
-    dispatches."""
+    calls _init_workers once (with `pick`, the devices for its workers),
+    then _batch_device for each batch it dispatches."""
 
     device: torch.device
 
-    def _init_workers(self, workers: int | None) -> None:
-        self._devices = worker_devices(workers, self.device)
+    def _init_workers(self, workers: int | None,
+                      pick=worker_devices) -> None:
+        self._devices = pick(workers, self.device)
         self._rr = 0
 
     def _batch_device(self) -> torch.device:

@@ -15,10 +15,11 @@ on whatever thread it runs:
 
 start_ns and end_ns are on the profiler's event clock (the wall clock,
 time.time_ns), `thread` is the thread's name (the pools name theirs
-zseek-prefetch, zseek-finish and zseek-lz4) and `cause` is the id of the
-enclosing span on the same thread or, for a worker's top span, the span
-that queued the work: the code that submits work to a pool passes
-current() along, and the worker opens its top span with it as `cause`.
+zseek-prefetch, zseek-finish and zseek-lz4, the zstd stream's worker
+pipelines zseek-worker-<i>) and `cause` is the id of the enclosing span
+on the same thread or, for a worker's top span, the span that queued the
+work: the code that submits work to a pool passes current() along, and
+the worker opens its top span with it as `cause`.
 
 mark(name) logs a zero-length entry at one instant, inside the calling
 thread's innermost open span (its cause), and enters no record_function;

@@ -77,8 +77,10 @@ def test_shims_both_ways():
 def test_exports_structs_and_workers(monkeypatch):
     """Every name the JAX package exports, the structs' fields and
     defaults, the unknown-type refusal, and `workers`: > 1 on one device
-    uses that device alone; over several devices (listed by a patched
-    _visible_devices) the batches take the first `workers` in turn."""
+    uses that device alone (zstd: that many worker pipelines on it, LZ4:
+    no round-robin); over several devices (listed by a patched
+    _visible_devices) the batches take the first `workers` in turn, and
+    zstd's worker i takes device i mod n."""
     for name in ("ZseekError", "Reader", "Writer", "open_reader",
                  "open_writer", "zseek_pread", "zseek_read",
                  "zseek_reader_close", "zseek_reader_open",
@@ -100,10 +102,12 @@ def test_exports_structs_and_workers(monkeypatch):
     with api.open_writer(buf, workers=3, device="cpu",
                          min_frame_size=1 << 16) as w:
         w.write(data)
-        assert w._codec._devices is None and w._codec._rr == 0
+        assert w._codec._devices == [torch.device("cpu")] * 3 and \
+            w._codec._rr == 0
     assert api.Reader(buf.getvalue(), device="cpu").pread_full(
         len(data), 0) == data
-    assert port.LZ4Codec(device="cpu", workers=8).device.type == "cpu"
+    lz4 = port.LZ4Codec(device="cpu", workers=8)
+    assert lz4.device.type == "cpu" and lz4._devices is None
     for bad in (dict(max_batch_blocks=0), dict(max_batch_blocks=65)):
         with pytest.raises(ParameterError):
             port.ZstdCodec(device="cpu", **bad)
@@ -118,6 +122,9 @@ def test_exports_structs_and_workers(monkeypatch):
     assert udev.worker_devices(1, cuda) is None
     assert udev.worker_devices(None, cuda) is None
     assert udev.worker_devices(4, cuda) == [cuda, torch.device("cuda", 1)]
+    assert udev.pipeline_devices(1, cuda) is None
+    assert udev.pipeline_devices(3, cuda) == \
+        [cuda, torch.device("cuda", 1), cuda]
     cpus = [torch.device("cpu", i) for i in range(4)]
     monkeypatch.setattr(udev, "_visible_devices", lambda dev: cpus)
     for cls in (port.ZstdCodec, port.LZ4Codec):
