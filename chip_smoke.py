@@ -25,13 +25,18 @@ Phases, each of which must pass (any failure exits non-zero):
      compressed block's end: the same stat and bytes as plain, some rows
      failing mid-block), and after phase 3 on the archive's first 8
      frames (64 blocks, equal to the input and to the plain version);
+     the plan kernel (csrc/plan.cu) on the 8 rows and at the 64-block
+     batch, its eleven arrays equal to the torch plans' on the CPU and on
+     the card, the torch plans on the card timed beside it;
      kernel times with CUDA events, plain times on the CPU at
      the same 64-block shapes, each kernel's bound (bytes over 3.35 TB/s
      against 32-bit integer operations over 16.7 T/s);
   3. the write path: the port's Writer writes 64 MiB of mixed_corpus
      (seed 11) at level 3 with 1 MiB frames, batch_frames=16 and 1 MiB
-     writes (one warm-up run, then the measured run); K1-K3 must have
-     launched during the measured run; stock libzstd decodes the archive
+     writes (one warm-up run, then the measured run); K1-K3 and the plan
+     kernel must have launched during the measured run, the plan kernel
+     once for each K2 launch (one each a device batch); stock libzstd
+     decodes the archive
      (its sha256 is printed, to compare commits), the seek table lists 64
      frames, and 16 random 4 KiB reads decode through their covering
      frames;
@@ -406,6 +411,48 @@ def k3_work(x, lit_mask_words, codes, lens, vec_row,
     return out + read, lits
 
 
+def plan_work(ll, n_seq) -> tuple[int, int]:
+    """(bytes, operations) the plans must move and do: the histograms,
+    the six per-row scalars and each row's n_seq sequences read once,
+    the plan kernel's constant table once, the eleven outputs written
+    once; operations: three codes a sequence and the Kraft bisection's
+    compares (8 rounds of 24 steps over 256 symbols a row)."""
+    B, S = ll.shape
+    n = int(n_seq.clamp(0, S).sum())
+    out = 4 * B * (1 + 1 + 256 + 32 + 1 + 4 + 1 + 1516 + 118 + 3 + 1)
+    read = 4 * (B * (256 + 4 * 256 + 6) + 3 * n + 2694)
+    return out + read, 3 * n + B * 256 * 8 * 24
+
+
+def plan_args(seqs, lens):
+    """The plans' inputs as _dispatch_chain passes them: hist, lit_count,
+    n_seq, const, lens, hist_q, ll, ml, offv."""
+    return ([seqs[k] for k in ("hist", "lit_count", "n_seq", "const")]
+            + [lens] + [seqs[k] for k in ("hist_q", "ll", "ml", "offv")])
+
+
+def plans(kernel, hist, lit_count, n_seq, const, lens, hist_q, ll, ml,
+          offv):
+    """The eleven plan arrays on the tensors' device: one launch of
+    csrc/plan.cu (kernel) or the torch plan_blocks and plan_seq_tables."""
+    from libzseek_tpu_torch.ops import entropy as E
+    from libzseek_tpu_torch.ops import fse_plan as fpl
+    from libzseek_tpu_torch.ops import huffman_plan as hp
+    head = (hist, lit_count, n_seq, const, lens)
+    kw = dict(mode_huf=E.MODE_HUF, mode_huf1=E.MODE_HUF1,
+              mode_rawlit=E.MODE_RAWLIT, mode_seq=E.MODE_SEQ, hist_q=hist_q)
+    if kernel:
+        lit, seq = hp.plan_all_cuda(*head, **kw, ll=ll, ml=ml, offv=offv)
+        return list(lit + seq)
+    return list(hp.plan_blocks(*head, **kw)) + list(
+        fpl.plan_seq_tables(ll, ml, offv, n_seq))
+
+
+def by_device(*args):
+    """The plans as the chain picks them: the kernel on a CUDA device."""
+    return plans(args[0].is_cuda, *args)
+
+
 def entry(report, name, source, replaces, errs, ms, plain_ms, nb, ops,
           note):
     """One kernel's line of the report: `nb` bytes read and written once,
@@ -521,6 +568,25 @@ def phase_kernels(data, report):
     report[-1].update(cuda_kernels=K3_KERNELS, text_batch_ms=text_ms,
                       text_batch_bound_ms=bound(*k3_work(*k3t))[0])
 
+    # the plans: csrc/plan.cu on the 8 rows and the 64-row batch, its
+    # eleven arrays equal to the torch plans' on the CPU (its plain
+    # version) and on the card; timed beside the torch plans on the card
+    small = plan_args(seqs, lens_t)
+    ep_small, _ = against_plain("plan (8 rows)", by_device, small)
+    big = plan_args(seqsb, lensb)
+    ep_big, plain_ms = against_plain("plan (64 rows)", by_device, big)
+    ep_card = max_abs_err(plans(True, *big), plans(False, *big))
+    check(ep_card == 0, "the plan kernel differs from the torch plans on the "
+          f"card (max err {ep_card})")
+    torch_ms = time_cuda(lambda: plans(False, *big))
+    entry(report, "plan zk_plan", "libzseek_tpu_torch/csrc/plan.cu",
+          "libzseek_tpu/ops/huffman_plan.py:250, fse_plan.py:157",
+          [ep_small, ep_big, ep_card], time_cuda(lambda: plans(True, *big)),
+          plain_ms, *plan_work(big[6], big[2]),
+          f"eleven arrays; 8 rows; 64 rows, also equal to the torch plans "
+          f"on the card, {torch_ms:.3f} ms there")
+    report[-1].update(cuda_kernels=PLAN_KERNELS, torch_card_ms=torch_ms)
+
 
 def by_name(report, name):
     return next(r for r in report if r["name"] == name)
@@ -564,6 +630,7 @@ K4_KERNELS = ["huf_kernel", "rec_kernel", "frame_kernel", "check_kernel",
 K4T_KERNELS = ["huf_kernel", "tc_walk_kernel", "tc_chain_kernel"]
 K5_KERNELS = ["lz4_emit_kernel"]
 K7_KERNELS = ["hash_parse_kernel"]
+PLAN_KERNELS = ["plan_kernel"]
 K6_KERNELS = ["row_kernel", "frame_kernel", "scatter_kernel",
               "pd_round_kernel", "pd_finish_kernel", "exec_kernel"]
 
@@ -2733,8 +2800,10 @@ def main() -> None:
 
     # phase 3
     from libzseek_tpu_torch.ops import entropy, parse_linked, vector_entropy
+    from libzseek_tpu_torch.ops import huffman_plan
     mods = {"K1 parse_linked": parse_linked, "K2 entropy_emit": entropy,
-            "K3 vector_literals": vector_entropy}
+            "K3 vector_literals": vector_entropy,
+            "plan zk_plan": huffman_plan}
     write_archive(data, "cuda")          # warm-up
     for m in mods.values():
         m.launches = 0
@@ -2745,6 +2814,8 @@ def main() -> None:
           f"launches {counts}", flush=True)
     for k, c in counts.items():
         check(c > 0, f"{k} never launched on the write path")
+    check(counts["plan zk_plan"] == counts["K2 entropy_emit"],
+          "the write path did not plan each device batch in one launch")
     for r in report:
         r["launches"] = counts[r["name"]]
     check(golden.zstd_decompress(archive) == data,

@@ -54,6 +54,7 @@ SIGNATURES = {
     "zk_fse_lanes": [_P] * 10 + [_I] * 6 + [_P] * 6,
     "zk_exec_blocks": [_P] * 7 + [_I] * 6 + [_P] * 10,
     "zk_greedy_select": [_P] * 4 + [_I] * 5 + [_P] * 5,
+    "zk_plan": [_P] * 10 + [_I] * 6 + [_P] * 12,
 }
 # entry points that return a size: the int32 words of scratch a launch of
 # zk_entropy_emit (B, N, S) or zk_vector_literals (B, N) needs

@@ -10,9 +10,18 @@ bits-per-budget priority, then single moves until each row's budget sums
 to 2^11, with a balanced-code fallback.  Every float32 operation here is
 a division, a halving or a sum of integers below 2^24, so the results do
 not depend on the device or the summation order.
+
+The torch functions are the CPU path.  On a CUDA device the chain takes
+plan_all_cuda: this plan and ops/fse_plan.py plan_seq_tables in one
+launch of csrc/plan.cu, equal to them array for array, with no host sync;
+testing/plan_mirror.py mirrors the kernel's phases in numpy.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+import threading
 
 import numpy as np
 import torch
@@ -248,3 +257,72 @@ def plan_blocks(hist, lit_count, n_seq, const, lens, *, mode_huf: int,
     i32 = lambda t: t.to(torch.int32)
     return (i32(mode), i32(mb), i32(codes_packed), weights_packed,
             rle_byte, i32(sizes4))
+
+
+# --------------------------------------------------------------------
+# both plans in one launch of csrc/plan.cu
+
+launches = 0
+_count = threading.Lock()   # the zstd stream's worker pipelines launch at once
+
+# the offsets csrc/plan.cu is compiled with: a row's sequence-table pack
+# (ops/entropy.py CTAB_OFF, CTAB_WIDTH), the norms' width and the constant
+# table's length
+KERNEL_LAYOUT = {"ll_st": 0, "ll_dnb": 512, "ll_dfs": 548, "of_st": 584,
+                 "of_dnb": 840, "of_dfs": 869, "ml_st": 898, "ml_dnb": 1410,
+                 "ml_dfs": 1463, "ctab_width": 1516, "norm_width": 118,
+                 "table": 2694}
+
+
+@functools.cache
+def plan_table() -> np.ndarray:
+    """The kernel's constant table (csrc/plan.cu T_*): the LL and ML code
+    tables, the predefined costs in 1/16 bits of LL, OF and ML, COST16 at
+    logs 5, 6, 8, 9, and the predefined sequence-table pack."""
+    from libzseek_tpu_torch.ops import entropy as E
+    from libzseek_tpu_torch.ops import fse_plan as fpl
+    t = np.concatenate(
+        [E.TABS[E.TAB_OFF["ll_code"]: E.TAB_OFF["ll_code"] + 64],
+         E.TABS[E.TAB_OFF["ml_code"]: E.TAB_OFF["ml_code"] + 128]]
+        + [fpl._PD_BITS16[s] for s in ("ll", "of", "ml")]
+        + [fpl.COST16[lg] for lg in (5, 6, 8, 9)]
+        + [E.CTAB_PREDEF]).astype(np.int32)
+    layout = dict(E.CTAB_OFF, ctab_width=E.CTAB_WIDTH,
+                  norm_width=fpl.NORM_WIDTH, table=len(t))
+    if layout != KERNEL_LAYOUT:
+        raise RuntimeError(f"csrc/plan.cu's layout is {KERNEL_LAYOUT}, the "
+                           f"tables' {layout}")
+    return t
+
+
+def plan_all_cuda(hist, lit_count, n_seq, const, lens, *, mode_huf: int,
+                  mode_huf1: int, mode_rawlit: int, mode_seq: int, hist_q,
+                  ll, ml, offv):
+    """plan_blocks and ops/fse_plan.py plan_seq_tables on the tensors'
+    CUDA device in one launch: returns (plan_blocks' six arrays,
+    plan_seq_tables' five), equal to theirs array for array, int32.
+    ll/ml/offv (B, S) are the final sequences, n_seq (B,) their counts."""
+    global launches
+    from libzseek_tpu_torch import kernels
+    from libzseek_tpu_torch.ops import entropy as E
+    B, S = ll.shape
+    if hist.shape != (B, 256) or hist_q.shape != (B, 4, 256) or \
+            ml.shape != (B, S) or offv.shape != (B, S):
+        raise ValueError("plan_all_cuda: hist (B, 256), hist_q (B, 4, 256) "
+                         "and ll/ml/offv (B, S) expected")
+    dev = hist.device
+    ins = [t.to(torch.int32).contiguous() for t in (
+        hist, hist_q, lit_count, n_seq, const, lens, ll, ml, offv)]
+    shapes = ((B,), (B,), (B, 256), (B, 32), (B,), (B, 4), (B,),
+              (B, KERNEL_LAYOUT["ctab_width"]),
+              (B, KERNEL_LAYOUT["norm_width"]), (B, 3), (B,))
+    sizes = [math.prod(sh) for sh in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    outs = [t.view(sh) for t, sh in zip(buf.split(sizes), shapes)]
+    tabs = E._device_const("plan_table", plan_table(), dev)
+    kernels.launch("zk_plan", dev, *[t.data_ptr() for t in ins],
+                   tabs.data_ptr(), B, S, mode_huf, mode_huf1, mode_rawlit,
+                   mode_seq, *[t.data_ptr() for t in outs])
+    with _count:
+        launches += 1
+    return tuple(outs[:6]), tuple(outs[6:])

@@ -15,9 +15,10 @@ off and K2 emits every literal payload.  The device chain
           block r and row r its context, min_abs frame fences, and the
           native long-distance pre-pass (_dispatch_parse, :258-353);
   device: block_entropy_h16 -> K1 linked parse -> _linked_post ->
-          Huffman plan + sequence-table plan -> K2 entropy emission, with
-          K3 taking the literal payload of literal-heavy 4-stream rows ->
-          compact_payload (_dispatch_chain, :422-509);
+          Huffman plan + sequence-table plan (one launch of csrc/plan.cu
+          on a CUDA device, the torch plans on the CPU) -> K2 entropy
+          emission, with K3 taking the literal payload of literal-heavy
+          4-stream rows -> compact_payload (_dispatch_chain, :422-509);
   host:   one fetch of the small per-block results and the payload, the
           adaptive payload cap with its recompact/refetch path, Huffman
           tree serialization and frame assembly (_finish_chain, :511;
@@ -433,15 +434,22 @@ class ZstdCodec(RoundRobin):
         lit_cap = _ceil_to(N + 64, 128)
         seq_cap = _ceil_to(9 * S + 64, 128)
         lens_dev = torch.from_numpy(lens_pad.astype(np.int32)).to(dev)
+        plan_args = (seqs["hist"], seqs["lit_count"], seqs["n_seq"],
+                     seqs["const"], lens_dev)
+        modes = dict(mode_huf=E.MODE_HUF, mode_huf1=E.MODE_HUF1,
+                     mode_rawlit=E.MODE_RAWLIT, mode_seq=E.MODE_SEQ,
+                     hist_q=seqs["hist_q"])
         with self._plan_turn, trace.span("zseek.plan"):
-            mode, mode_bits, codes_packed, weights_packed, rle, sizes4 = \
-                hp.plan_blocks(seqs["hist"], seqs["lit_count"],
-                               seqs["n_seq"], seqs["const"], lens_dev,
-                               mode_huf=E.MODE_HUF, mode_huf1=E.MODE_HUF1,
-                               mode_rawlit=E.MODE_RAWLIT, mode_seq=E.MODE_SEQ,
-                               hist_q=seqs["hist_q"])
-            sflags, ctabs, norms, rle_syms, _gain = fpl.plan_seq_tables(
-                seqs["ll"], seqs["ml"], seqs["offv"], seqs["n_seq"])
+            if dev.type == "cuda":   # one launch of csrc/plan.cu
+                lit_plan, seq_plan = hp.plan_all_cuda(
+                    *plan_args, **modes, ll=seqs["ll"], ml=seqs["ml"],
+                    offv=seqs["offv"])
+            else:
+                lit_plan = hp.plan_blocks(*plan_args, **modes)
+                seq_plan = fpl.plan_seq_tables(seqs["ll"], seqs["ml"],
+                                               seqs["offv"], seqs["n_seq"])
+        mode, mode_bits, codes_packed, weights_packed, rle, sizes4 = lit_plan
+        sflags, ctabs, norms, rle_syms, _gain = seq_plan
         mode_bits = mode_bits | torch.where(
             (mode_bits & E.MODE_SEQ) != 0, sflags, torch.zeros_like(sflags))
         lit_count = seqs["lit_count"]
@@ -980,10 +988,12 @@ class ZstdCodec(RoundRobin):
 
 class _Turn:
     """The lock that the worker pipelines' plans take in turn, its wait
-    the span zseek.plan_wait.  A plan is thousands of small launches, each
-    of which takes the interpreter lock back, and four plans at once
-    stretched each so far that four workers on four H100s wrote at a
-    third of the rate they reach planning one at a time (PERF.md §6)."""
+    the span zseek.plan_wait.  On a CUDA device a plan is one launch of
+    csrc/plan.cu and the turn guards a few tens of microseconds.  The
+    torch plans (the CPU path) are thousands of small launches, each of
+    which takes the interpreter lock back; four at once stretched each so
+    far that four workers on four H100s wrote at a third of the rate they
+    reached planning one at a time (PERF.md §6)."""
 
     def __init__(self):
         self._lock = threading.Lock()

@@ -572,3 +572,120 @@ def huf_plain_edges(rng, n_syms: int = 8000):
         inp["tid"][L0 + i] = t
     inp["cap"] = int(inp["n"].max())
     return inp, dtabs
+
+
+# --- the plan kernel (csrc/plan.cu): rows for each branch of the plans
+
+
+def _seqs(rng, n, S, big=False):
+    """n random sequences in rows of S: heavy-tailed literal and match
+    lengths, a third repcodes; `big` reaches the codes past each table."""
+    n = min(n, S)
+    ll = np.zeros(S, np.int64)
+    ml = np.zeros(S, np.int64)
+    off = np.zeros(S, np.int64)
+    top = 1 << 17 if big else 1 << 12
+    ll[:n] = np.minimum(rng.pareto(1.1, n) * 3, top - 1)
+    ml[:n] = 3 + np.minimum(rng.pareto(1.0, n) * 4, top)
+    off[:n] = np.where(rng.random(n) < 0.3, rng.integers(1, 4, n),
+                       rng.integers(4, 1 << (24 if big else 17), n))
+    return ll, ml, off
+
+
+def plan_random_rows(rng, B: int = 16, S: int = 512):
+    """Plan inputs of B random rows: literal histograms from uniform,
+    heavy-tailed, near-flat and exponential counts over a random symbol
+    set, random sequences (numpy int32 arrays by name)."""
+    rows = []
+    for r in range(B):
+        h = np.zeros(256, np.int64)
+        nsym = int(rng.integers(1, 257))
+        syms = rng.choice(256, nsym, replace=False)
+        h[syms] = [rng.integers(0, 200, nsym),
+                   (rng.pareto(1.0, nsym) * 20).astype(np.int64),
+                   rng.integers(0, 3, nsym),
+                   rng.exponential(200, nsym).astype(np.int64)][r % 4]
+        n = int(rng.integers(0, S + 1))
+        rows.append((h, n, -1, None, _seqs(rng, n, S, big=r % 5 == 0)))
+    return _plan_batch(rng, rows, S)
+
+
+def plan_edge_rows(S: int = 1024, seed: int = 61):
+    """Plan inputs of crafted rows, one or more for each branch of the
+    Huffman and sequence-table plans (numpy int32 arrays by name): an
+    empty row; no literals; one literal symbol; an RLE block; two
+    symbols; 150 equal counts (64 moves fall short: the balanced
+    fallback); flat codes over 128 and 256 symbols (the flat fix); 192
+    equal counts (exactly 64 moves); a budget over 2^11 (shrinking
+    moves); a spiky row whose shrinking runs out of candidates (the
+    least budget grows, then the fallback); under 256 literals (one
+    stream); a noise-like and a skewed row; two symbols under 64
+    literals.  Sequences: none, fewer than MIN_SEQ_FSE, one repeated
+    sequence (RLE in all three streams), S sequences of heavy-tailed
+    lengths (the largest log's tables), ~100 of few codes (the
+    predefined log's), codes past each table, and n_seq above S."""
+    rng = np.random.default_rng(seed)
+    eq = lambda n, c: np.concatenate([np.full(n, c), np.zeros(256 - n)])
+    geo = np.zeros(256, np.int64)
+    geo[:10] = 1 << np.arange(16, 6, -1)    # scaled to 1024, 512, .. 2
+    geo[10:138] = 1                          # 128 more budgets of 1
+    spiky = np.zeros(256, np.int64)
+    srng = np.random.default_rng(9)
+    n = int(srng.integers(200, 257))
+    idx = srng.choice(256, n, replace=False)
+    spiky[idx] = srng.integers(1, 3, n) * \
+        (1 + (srng.random(n) < 0.05) * 10000)
+    one = np.zeros(256, np.int64)
+    one[65] = 5000
+    two = np.zeros(256, np.int64)
+    two[[3, 9]] = [1, 100000]
+    text = np.zeros(256, np.int64)
+    text[97:123] = rng.integers(1, 15, 26)
+    small2 = np.zeros(256, np.int64)
+    small2[[40, 41]] = [20, 30]
+    skew = (rng.pareto(1.2, 256) * 10).astype(np.int64)
+    noise = rng.integers(400, 600, 256)
+    z = np.zeros(256, np.int64)
+    rep = (np.full(S, 3), np.full(S, 9), np.full(S, 1))
+    few = (rng.choice([0, 1, 2], S), rng.choice([3, 4, 5], S),
+           rng.choice([1, 2, 3], S))
+    # (literal histogram, n_seq, const, block length, sequences)
+    rows = [(z, 0, -1, 0, None),
+            (z, 50, -1, None, _seqs(rng, 50, S)),
+            (one, 20, -1, None, _seqs(rng, 20, S)),
+            (eq(1, 100)[::-1].copy(), 40, 7, 1 << 17, rep),
+            (two, S, -1, None, _seqs(rng, S, S)),
+            (eq(150, 100), 100, -1, None, few),
+            (eq(128, 50), S, -1, None, _seqs(rng, S, S, big=True)),
+            (eq(256, 7), S + 5, -1, None, _seqs(rng, S, S)),
+            (eq(192, 100), 31, -1, None, _seqs(rng, 31, S)),
+            (geo, 32, -1, None, _seqs(rng, 32, S)),
+            (spiky, S, -1, None, _seqs(rng, S, S)),
+            (text, 300, -1, None, _seqs(rng, 300, S)),
+            (noise, 5, -1, None, _seqs(rng, 5, S)),
+            (skew, S, -1, None, _seqs(rng, S, S)),
+            (small2, 1, -1, None, _seqs(rng, 1, S))]
+    return _plan_batch(rng, rows, S)
+
+
+def _plan_batch(rng, rows, S):
+    B = len(rows)
+    out = {k: np.zeros(sh, np.int32) for k, sh in (
+        ("hist", (B, 256)), ("hist_q", (B, 4, 256)), ("lit_count", (B,)),
+        ("n_seq", (B,)), ("const", (B,)), ("lens", (B,)), ("ll", (B, S)),
+        ("ml", (B, S)), ("offv", (B, S)))}
+    for b, (h, n, const, blen, seqs) in enumerate(rows):
+        h = np.asarray(h, np.int64)
+        hq = rng.multinomial(h, [0.25] * 4).T
+        out["hist_q"][b] = hq
+        out["hist"][b] = hq.sum(0)
+        out["lit_count"][b] = h.sum()
+        out["n_seq"][b] = n
+        out["const"][b] = const
+        if seqs is not None:
+            m = min(n, S)
+            for k, v in zip(("ll", "ml", "offv"), seqs):
+                out[k][b, :m] = v[:m]
+        out["lens"][b] = h.sum() + out["ml"][b].sum() if blen is None \
+            else blen
+    return out

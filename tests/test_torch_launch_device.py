@@ -43,7 +43,7 @@ def test_launches_enter_their_device(monkeypatch):
         for name in re.findall(r'kernels\.launch\(\s*"(\w+)"', src):
             launched[name] = launched.get(name, 0) + 1
     assert set(launched) == set(kernels.SIGNATURES), launched
-    assert sum(launched.values()) == 12, launched
+    assert sum(launched.values()) == 13, launched
     for path in glob.glob(os.path.join(PKG, "csrc", "*.cu")):
         src = open(path).read()
         assert not re.search(

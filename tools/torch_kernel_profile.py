@@ -54,7 +54,13 @@ max"; --check holds only these to plain); for the transcode groups also
 the wrapper's host time ("... host ms": until the calls return, the card
 idle before each, apart from their device time); and for each decoder
 arm, which group's largest call has the most work of all ("seq tagged
-largest", ..., "K4T literals largest").
+largest", ..., "K4T literals largest").  With --only=plan: the zstd
+write's two plans (ops/huffman_plan.py plan_blocks, ops/fse_plan.py
+plan_seq_tables) at chip_smoke's 64 rows and at 64 rows from the start of
+each quarter, through DIR's plan kernel (plan_all_cuda) where DIR has
+one, else through the torch plans on the card; beside each, the torch
+plans on the card ("plan ... torch ms"), the call's host time ("plan ...
+host ms") and, where DIR has the kernel, its bound.
 
 pair: `times` in fresh processes from PARENT_DIR, DIR, DIR, PARENT_DIR
 (one card, in turns), then checks that both gave the same outputs.
@@ -986,6 +992,42 @@ def _k3_calls(cs, data):
     return out
 
 
+def _plan_calls(cs, data):
+    """The plans' inputs {name: tensors by name} on the card: chip_smoke's
+    64 rows (two frames of each quarter) and 64 rows of 128 KiB from the
+    start of each quarter, through the chain up to the plans."""
+    import torch
+    cuda = torch.device("cuda")
+    out = {}
+    for name, start in (("64 rows", None),) + QUARTERS:
+        rows = cs.BATCH_ROWS if start is None else \
+            [start * MIB + j * cs.N for j in range(64)]
+        _x, seqs, *_r, lens, _v = cs.chain_inputs(
+            *cs.batch_layout(data, rows, 8), cuda)
+        b = {k: seqs[k] for k in ("hist", "hist_q", "lit_count", "n_seq",
+                                  "const", "ll", "ml", "offv")}
+        out[name] = dict(b, lens=lens)
+    return out
+
+
+def _plans(b, kernel):
+    """plan_blocks and plan_seq_tables on b's device, or (kernel) DIR's
+    plan kernel in their place: the eleven arrays."""
+    from libzseek_tpu_torch.ops import entropy as E
+    from libzseek_tpu_torch.ops import fse_plan as fpl
+    from libzseek_tpu_torch.ops import huffman_plan as hp
+    kw = dict(mode_huf=E.MODE_HUF, mode_huf1=E.MODE_HUF1,
+              mode_rawlit=E.MODE_RAWLIT, mode_seq=E.MODE_SEQ,
+              hist_q=b["hist_q"])
+    head = [b[k] for k in ("hist", "lit_count", "n_seq", "const", "lens")]
+    if kernel:
+        lit, seq = hp.plan_all_cuda(*head, ll=b["ll"], ml=b["ml"],
+                                    offv=b["offv"], **kw)
+        return list(lit + seq)
+    return list(hp.plan_blocks(*head, **kw)) + list(fpl.plan_seq_tables(
+        b["ll"], b["ml"], b["offv"], b["n_seq"]))
+
+
 def _k2_rows(meta):
     """A K2 input's rows: counts of each literal mode, literals and
     sequences."""
@@ -1239,6 +1281,23 @@ def times(pkg_dir, levels, check, only=()):
                 run(f"K3 {name} kernel",
                     lambda: [VE.place_literals(*prep, a[5] // 4)],
                     lambda: [VE.place_literals(*map(cpu, prep), a[5] // 4)])
+    if _keep("plan", only):
+        from libzseek_tpu_torch.ops import huffman_plan as hp
+        kernel = hasattr(hp, "plan_all_cuda")
+        for name, b in _plan_calls(cs, data).items():
+            bc = {k: v.cpu() for k, v in b.items()}
+            work = cs.plan_work(bc["ll"], bc["n_seq"]) if kernel else None
+            res[f"plan {name} rows"] = {
+                "sequences": int(bc["n_seq"].sum()),
+                "literals": int(bc["lit_count"].sum()),
+                "bound_ms": cs.bound(*work)[0] if work else None}
+            run(f"plan {name}", lambda: _plans(b, kernel),
+                lambda: _plans(bc, False))
+            if _keep(f"plan {name}", only):
+                res[f"plan {name} host ms"] = _host_ms(
+                    lambda: _plans(b, kernel))
+                res[f"plan {name} torch ms"] = cs.time_cuda(
+                    lambda: _plans(b, False))
     if _keep("greedy", only):
         from libzseek_tpu_torch.ops import match
         outs = lambda o: [o[0], o[1], o[4], o[5]]   # e, off pass through
